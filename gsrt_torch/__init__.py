@@ -1,0 +1,24 @@
+"""gsrt_torch — the PyTorch / CUDA port of gsrt for NVIDIA Hopper (H100).
+
+A second package beside the JAX reference `gsrt`, with the same module
+paths and public names. It imports torch and numpy only, never jax or
+gsrt. Plain tensor code is PyTorch; each TPU Pallas kernel the ported
+path runs is a hand-written CUDA kernel under `csrc/`, built at first use
+by `_kernels` and launched on CUDA tensors, with a plain PyTorch version
+beside it that CPU tensors take.
+
+Ported so far: the tiled main path — projection and SH, group-stream
+binning (the pair-expansion kernel), the packed group-stream blend
+kernel, `render_tiled`, `render_fast` and `GaussianRayTracer` in "fast"
+and "tiled" modes. ROADMAP.md lists what remains.
+
+Entry points run on CUDA unless the caller passes device="cpu".
+"""
+
+from gsrt_torch.core.config import REFERENCE_DEMO, RenderConfig
+from gsrt_torch.core.types import Camera, GaussianCloud, look_at, make_camera
+
+__version__ = "0.1.0"
+
+__all__ = ["RenderConfig", "REFERENCE_DEMO", "GaussianCloud", "Camera",
+           "make_camera", "look_at"]

@@ -1,0 +1,150 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled
+by `nvcc` for `sm_90a` into `build/lib<name>.so` (git-ignored, inside the
+package) and loaded with ctypes; a library newer than its source is
+reused. Every C entry point returns `cudaGetLastError()` of its launch and
+`CudaKernel` raises when that is not 0, so a refused launch surfaces at
+the call. Each `CudaKernel` counts its successful launches in `launches`.
+
+Nothing here runs at import, so importing the package needs neither
+`nvcc` nor a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+SOURCES = ("pair_expand", "splat_packed")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD / f"lib{name}.so"
+
+
+def _fresh(name: str) -> bool:
+    lib = _lib_path(name)
+    return lib.exists() and \
+        lib.stat().st_mtime >= (CSRC / f"{name}.cu").stat().st_mtime
+
+
+def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
+    """Compile the named sources that are stale, one `nvcc` each, all
+    started together. Returns the wall seconds of each compile run;
+    `verbose` adds `-Xptxas -v` and returns nvcc's report in
+    `build.last_log`. Raises with nvcc's output if any compile fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    procs = {}
+    for name in names:
+        if _fresh(name):
+            continue
+        tmp = BUILD / f"lib{name}.{os.getpid()}.tmp"
+        cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, time.perf_counter())
+    seconds, logs, failed = {}, [], []
+    for name, (proc, tmp, t0) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        logs.append(f"== {name} ==\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(name))  # atomic for concurrent users
+    build.last_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build.last_log}")
+    return seconds
+
+
+build.last_log = ""
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        if not _fresh(name):
+            build((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.gsrt_error_string.argtypes = [ctypes.c_int]
+        lib.gsrt_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+class CudaKernel:
+    """One C entry point of a kernel library, with its launch count."""
+
+    def __init__(self, name: str, lib: str, symbol: str, argtypes):
+        self.name, self.lib, self.symbol = name, lib, symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(_load(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            msg = _load(self.lib).gsrt_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{err} ({msg})")
+        self.launches += 1
+
+
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+
+EXPAND_PLAIN = CudaKernel(
+    "expand_pairs_fused", "pair_expand", "gsrt_expand_plain",
+    [P, I, I, P, I, P, P])
+EXPAND_EMIT = CudaKernel(
+    "expand_pairs_binned", "pair_expand", "gsrt_expand_emit",
+    [P, I, P, I, P, I, I, I, I, P, P])
+BLEND_GROUP = CudaKernel(
+    "blend_packed_group", "splat_packed", "gsrt_blend_group",
+    [P, LL, P, I, I, I, I, I, I, I, F, I, F, F, F, P, P, P])
+
+KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, BLEND_GROUP)
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current CUDA stream on t's device, as a C pointer value."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

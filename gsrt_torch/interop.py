@@ -1,0 +1,37 @@
+"""Weight carry-over: build the port's objects from the JAX package's
+arrays, handed over as NumPy.
+
+The JAX package's cloud and camera hold device arrays; `np.asarray` turns
+each field into NumPy, and these functions put the same bits on the
+port's device. Tests use them so both packages see bit-identical inputs,
+Σ included (the two packages may round `quat_scale_to_cov3d` differently
+in the last place).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+
+def cloud_from_numpy(means, cov3d, opacity, sh, device=None
+                     ) -> GaussianCloud:
+    """means [N, 3], cov3d [N, 6], opacity [N], sh [N, K, 3] → cloud."""
+    dev = resolve_device(device)
+    return GaussianCloud(means=_f32(means, dev), cov3d=_f32(cov3d, dev),
+                         opacity=_f32(opacity, dev), sh=_f32(sh, dev))
+
+
+def camera_from_numpy(view, fx, fy, cx, cy, width: int, height: int,
+                      device=None) -> Camera:
+    """view [4, 4] world→camera and f32 intrinsics → camera."""
+    dev = resolve_device(device)
+    return Camera(view=_f32(view, dev), fx=_f32(fx, dev), fy=_f32(fy, dev),
+                  cx=_f32(cx, dev), cy=_f32(cy, dev), width=int(width),
+                  height=int(height))

@@ -1,0 +1,385 @@
+"""Ray-traced 3D Gaussian Splatting renderer (counterpart of
+`gsrt.models.gaussian_rt`).
+
+* `render_fast`: one front-to-back sweep over splats sorted by camera
+  depth — per-pixel visit order is exact because depth is per splat. The
+  port's semantic oracle.
+* `render_tiled`: the performance path. Projection and SH, footprint
+  extents, group-stream binning (two expand kernels) and the packed blend
+  kernel. It takes the JAX package's gating; where that gating would
+  leave the group stream it raises NotImplementedError.
+* `GaussianRayTracer`: sizes the static pair and unit buffers from a
+  NumPy count of the view (`calibrate`) and re-renders a frame that
+  overflowed them.
+
+Entry points render on the device the cloud lives on; clouds and cameras
+come from `gsrt_torch.scene` or `gsrt_torch.interop`, which default to
+CUDA.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gsrt_torch.core.config import RenderConfig
+from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
+from gsrt_torch.ops import explut
+from gsrt_torch.ops.gaussian import (eval_gaussian_response,
+                                     project_gaussians, screen_extents_abc)
+from gsrt_torch.ops.sh import eval_sh
+from gsrt_torch.ops.tile_binning import (TODO_TILE_STREAM, group_rows_k,
+                                         tile_extent)
+
+
+class RenderOutput(NamedTuple):
+    trans: torch.Tensor    # [H, W] final transmittance
+    color: torch.Tensor    # [H, W, 3]
+    passes: torch.Tensor   # [H, W] int32 — equivalent k-buffer passes
+    hits: torch.Tensor     # [H, W] int32 — splats blended per pixel
+                           #   (render_tiled: the tile's pair count)
+    depth: Optional[torch.Tensor] = None     # render_fast(with_depth=True)
+    overflow: Optional[torch.Tensor] = None  # [] bool, render_tiled only
+
+
+def _pixel_grid(width: int, height: int, device) -> torch.Tensor:
+    """[H*W, 2] pixel centers at integer coordinates."""
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device),
+                            indexing="ij")
+    return torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).float()
+
+
+def _precompute(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig):
+    """Project all splats and evaluate per-splat SH color (view direction
+    from the camera origin to the splat center)."""
+    depth, mean2d, quad, det, in_front = project_gaussians(
+        cloud.means, cloud.cov3d, camera, conic_mode=cfg.conic_mode,
+        cov2d_dilation=cfg.cov2d_dilation)
+    d = cloud.means - camera.position
+    inv_n = 1.0 / torch.clamp_min(
+        torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]),
+        1e-9)
+    degree = min(cfg.sh_degree, cloud.sh_degree)
+    colors = eval_sh(cloud.sh, d * inv_n[:, None], degree)
+    return depth, mean2d, quad, in_front, colors
+
+
+def _empty_output(camera: Camera, cfg: RenderConfig) -> RenderOutput:
+    H, W, dev = camera.height, camera.width, camera.device
+    bg = 1.0 if cfg.white_background else 0.0
+    zi = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    return RenderOutput(trans=torch.ones((H, W), device=dev),
+                        color=torch.full((H, W, 3), bg, device=dev),
+                        passes=zi, hits=zi.clone())
+
+
+def _chunk_alphas(pix, mean2d_c, quad_c, depth_c, opacity_c, in_front_c,
+                  cfg: RenderConfig, lut):
+    """alpha [P, C] and accept [P, C] for a pixel block × splat chunk."""
+    g = eval_gaussian_response(pix[:, None, :], mean2d_c[None], quad_c[None])
+    in_range = (g >= 0.0) & (g <= cfg.g_cutoff)
+    gc = torch.where(in_range, g, torch.zeros_like(g))
+    power = explut.linear_exp(gc, lut) if cfg.use_exp_lut else torch.exp(-gc)
+    alpha = opacity_c[None, :] * power
+    if cfg.conic_mode == "standard":
+        alpha = torch.clamp_max(alpha, 0.99)
+    in_window = ((depth_c > cfg.t_min)
+                 & (depth_c < min(cfg.t_max, cfg.init_depth)))[None, :]
+    accept = (in_range & (alpha > cfg.alpha_threshold)
+              & in_front_c[None, :] & in_window)
+    return torch.where(accept, alpha, torch.zeros_like(alpha)), accept
+
+
+def render_fast(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
+                with_depth: bool = False) -> RenderOutput:
+    """Single-sweep sorted front-to-back blend over every pixel × splat
+    (chunks of cfg.splat_chunk splats). with_depth also accumulates the
+    alpha-weighted expected depth."""
+    if cloud.n == 0:
+        return _empty_output(camera, cfg)
+    dev = cloud.device
+    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
+    lut = explut.build_exp_lut(device=dev) if cfg.use_exp_lut else None
+    order = torch.argsort(torch.where(in_front, depth,
+                                      torch.full_like(depth, float("inf"))))
+    depth, mean2d, quad = depth[order], mean2d[order], quad[order]
+    opac, in_front, colors = cloud.opacity[order], in_front[order], \
+        colors[order]
+
+    pix = _pixel_grid(camera.width, camera.height, dev)
+    P = pix.shape[0]
+    trans = torch.ones(P, device=dev)
+    color = torch.zeros((P, 3), device=dev)
+    hits = torch.zeros(P, dtype=torch.int32, device=dev)
+    dacc = torch.zeros(P, device=dev)
+    chunk = cfg.splat_chunk
+    for c0 in range(0, cloud.n, chunk):
+        sl = slice(c0, c0 + chunk)
+        alpha, accept = _chunk_alphas(pix, mean2d[sl], quad[sl], depth[sl],
+                                      opac[sl], in_front[sl], cfg, lut)
+        cum = torch.cumprod(1.0 - alpha, dim=-1)
+        excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], -1)
+        w = alpha * excl * trans[:, None]
+        color = color + w @ colors[sl]
+        if with_depth:
+            ds = depth[sl]
+            dacc = dacc + w @ torch.where(torch.isfinite(ds), ds,
+                                          torch.zeros_like(ds))
+        trans = trans * cum[:, -1]
+        hits = hits + accept.sum(-1, dtype=torch.int32)
+
+    if cfg.white_background:
+        color = color + trans[:, None]
+    H, W = camera.height, camera.width
+    passes = -(-hits // cfg.k)
+    return RenderOutput(trans=trans.reshape(H, W),
+                        color=color.reshape(H, W, 3),
+                        passes=passes.reshape(H, W),
+                        hits=hits.reshape(H, W),
+                        depth=dacc.reshape(H, W) if with_depth else None)
+
+
+class StreamPlan(NamedTuple):
+    span_mode: str      # after the ellipse → rect fallback
+    stream: str         # "group" or "tile"
+    compact: bool
+    group_k: Optional[int]
+
+
+def stream_plan(cfg: RenderConfig, width: int, height: int) -> StreamPlan:
+    """The JAX package's render_tiled gating (gaussian_rt.py:406-436,
+    serving off): payload tier, span mode after its fallback, stream.
+    `render_tiled` and `GaussianRayTracer.calibrate` both read it, so the
+    buffers calibrate sizes are the ones the render uses."""
+    tw, th = cfg.tile_w, cfg.tile_h
+    ntx, nty = tile_extent(width, height, tw, th)
+    compact = (cfg.payload == "compact" and cfg.blend_impl == "packed"
+               and ntx <= 127 and (tw, th) != (128, 8))
+    span_mode = cfg.span_mode
+    if span_mode == "ellipse" and nty > 255:
+        span_mode = "rect"   # 8-bit row-count budget
+    group_k = group_rows_k(ntx)
+    stream = cfg.stream
+    if stream == "group" and not (
+            compact and cfg.scan_impl == "logmm" and span_mode == "rect"
+            and group_k is not None):
+        stream = "tile"
+    return StreamPlan(span_mode, stream, compact, group_k)
+
+
+def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
+                 max_pairs: int = 1 << 20, max_rows: int | None = None
+                 ) -> RenderOutput:
+    """Tile-binned splatting on the group-contiguous compact stream.
+
+    max_pairs sizes the pair buffer, max_rows the unit buffer (max_pairs
+    when None); a view that needs more sets `overflow` and renders the
+    truncated stream. Configurations the JAX package renders on another
+    stream raise NotImplementedError. The blend computes in f32 whatever
+    `cfg.blend_math` says: the port has no bf16 tier yet."""
+    from gsrt_torch.ops.splat_packed import blend_packed
+    from gsrt_torch.ops.tile_binning import build_tile_binning
+
+    plan = stream_plan(cfg, camera.width, camera.height)
+    if plan.stream != "group":
+        raise NotImplementedError(
+            f"this configuration takes the JAX package's {plan.stream!r} "
+            f"stream (compact={plan.compact}, span_mode={plan.span_mode!r})"
+            f"; gsrt_torch renders the group stream only: see "
+            f"{TODO_TILE_STREAM}")
+    if cfg.exact_hits:
+        raise NotImplementedError("exact_hits is ROADMAP.md Queue 2 item 3")
+    if cloud.n == 0:
+        out = _empty_output(camera, cfg)
+        return out._replace(overflow=torch.zeros((), dtype=torch.bool,
+                                                 device=camera.device))
+
+    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
+    m2x, m2y = mean2d[:, 0], mean2d[:, 1]
+    qa, qb, qc = quad[:, 0], quad[:, 1], quad[:, 2]
+    rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode, cfg.g_cutoff,
+                                opacity=cloud.opacity,
+                                alpha_threshold=cfg.alpha_threshold)
+    alive = (in_front & (cloud.opacity > cfg.alpha_threshold)
+             & (depth > cfg.t_min)
+             & (depth < min(cfg.t_max, cfg.init_depth)))
+    tw, th = cfg.tile_w, cfg.tile_h
+    binning = build_tile_binning(
+        depth, m2x, m2y, qa, qb, qc, cloud.opacity, colors[:, 0],
+        colors[:, 1], colors[:, 2], rx, ry, alive,
+        width=camera.width, height=camera.height, tile_w=tw, tile_h=th,
+        max_pairs=max_pairs, compact=plan.compact, span_mode=plan.span_mode,
+        max_rows=max_rows, stream=plan.stream)
+
+    alpha_clamp = 0.99 if cfg.conic_mode == "standard" else 0.999999
+    # in standard mode with opacity ≤ 1, alpha > 1/255 implies
+    # g < ln(255) < g_cutoff: the blend can skip the range test
+    skip_range = (cfg.conic_mode == "standard"
+                  and cfg.alpha_threshold >= 1.0 / 255.0
+                  and cfg.g_cutoff >= 5.55 and not cfg.use_exp_lut)
+    ntx, nty = tile_extent(camera.width, camera.height, tw, th)
+    color, trans = blend_packed(
+        binning, width=camera.width, height=camera.height, sub_w=tw,
+        sub_h=th, bs=plan.group_k * ntx, group_stream=True,
+        g_cutoff=cfg.g_cutoff, alpha_threshold=cfg.alpha_threshold,
+        alpha_clamp=alpha_clamp, skip_range_check=skip_range,
+        use_exp_lut=cfg.use_exp_lut)
+    if cfg.white_background:
+        color = color + trans[..., None]
+
+    H, W = camera.height, camera.width
+    # hits are not tracked by the blend: each pixel reports its tile's
+    # pair count (metrics-grade, as in the JAX package)
+    hits = binning.tile_count.reshape(nty, ntx).repeat_interleave(
+        th, 0).repeat_interleave(tw, 1)[:H, :W]
+    return RenderOutput(trans=trans, color=color, passes=-(-hits // cfg.k),
+                        hits=hits, overflow=binning.overflow)
+
+
+# --- host-side (NumPy) buffer sizing, copied from the JAX package ---
+
+def _spans_numpy(cloud: GaussianCloud, camera: Camera,
+                 cfg: RenderConfig) -> dict:
+    """NumPy projection + rect tile spans for the host-side pair counters
+    (mirrors _precompute + screen_extents + compute_tile_spans)."""
+    TILE_W, TILE_H = cfg.tile_w, cfg.tile_h
+    means = cloud.means.detach().cpu().numpy()
+    cov = cloud.cov3d.detach().cpu().numpy()
+    opacity = cloud.opacity.detach().cpu().numpy()
+    view = camera.view.detach().cpu().numpy()
+    fx, fy = float(camera.fx), float(camera.fy)
+    R, t = view[:3, :3], view[:3, 3]
+    p = means @ R.T + t
+    z = p[:, 2]
+    in_front = z > 1e-4
+    zs = np.where(in_front, z, 1.0)
+    inv_z = 1.0 / zs
+    px_c = fx * p[:, 0] * inv_z + float(camera.cx)
+    py_c = fy * p[:, 1] * inv_z + float(camera.cy)
+    j00 = fx * inv_z
+    j02 = -fx * p[:, 0] * inv_z * inv_z
+    j11 = fy * inv_z
+    j12 = -fy * p[:, 1] * inv_z * inv_z
+    t0 = np.stack([j00 * R[0, 0] + j02 * R[2, 0],
+                   j00 * R[0, 1] + j02 * R[2, 1],
+                   j00 * R[0, 2] + j02 * R[2, 2]], -1)
+    t1 = np.stack([j11 * R[1, 0] + j12 * R[2, 0],
+                   j11 * R[1, 1] + j12 * R[2, 1],
+                   j11 * R[1, 2] + j12 * R[2, 2]], -1)
+    sig = np.zeros((means.shape[0], 3, 3), np.float32)
+    sig[:, 0, 0], sig[:, 0, 1], sig[:, 0, 2] = cov[:, 0], cov[:, 1], cov[:, 2]
+    sig[:, 1, 0], sig[:, 1, 1], sig[:, 1, 2] = cov[:, 1], cov[:, 3], cov[:, 4]
+    sig[:, 2, 0], sig[:, 2, 1], sig[:, 2, 2] = cov[:, 2], cov[:, 4], cov[:, 5]
+    u = np.einsum("nij,nj->ni", sig, t0)
+    v = np.einsum("nij,nj->ni", sig, t1)
+    a = np.sum(t0 * u, -1) + cfg.cov2d_dilation
+    b = np.sum(t1 * u, -1)
+    c = np.sum(t1 * v, -1) + cfg.cov2d_dilation
+    det = a * c - b * b
+    if cfg.conic_mode == "standard":
+        in_front &= det > 1e-12
+        dq = np.maximum(det, 1e-12)
+        qa, qb, qc = c / dq, -b / dq, a / dq
+    else:
+        qa, qb, qc = a, b, c
+    qdet = np.maximum(qa * qc - qb * qb, 1e-18)
+    g = np.minimum(cfg.g_cutoff,
+                   np.maximum(np.log(np.maximum(
+                       opacity / cfg.alpha_threshold, 1e-6)), 0.0))
+    rx = np.sqrt(np.maximum(2.0 * g * qc / qdet, 0.0))
+    ry = np.sqrt(np.maximum(2.0 * g * qa / qdet, 0.0))
+    alive = in_front & (opacity > cfg.alpha_threshold) & (rx > 0) & (ry > 0)
+    W, H = camera.width, camera.height
+    ntx, nty = -(-W // TILE_W), -(-H // TILE_H)
+    x0 = np.clip(np.floor((px_c - rx) / TILE_W), 0, ntx - 1)
+    x1 = np.clip(np.floor((px_c + rx) / TILE_W), 0, ntx - 1)
+    y0 = np.clip(np.floor((py_c - ry) / TILE_H), 0, nty - 1)
+    y1 = np.clip(np.floor((py_c + ry) / TILE_H), 0, nty - 1)
+    on = ((px_c + rx >= 0) & (px_c - rx < W) &
+          (py_c + ry >= 0) & (py_c - ry < H))
+    touched = np.where(alive & on, (x1 - x0 + 1) * (y1 - y0 + 1), 0)
+    return dict(px=px_c, py=py_c, qa=qa, qb=qb, qc=qc, g=g,
+                x0=x0.astype(np.int64), x1=x1.astype(np.int64),
+                y0=y0.astype(np.int64), y1=y1.astype(np.int64),
+                touched=touched.astype(np.int64))
+
+
+def count_pairs_numpy(cloud: GaussianCloud, camera: Camera,
+                      cfg: RenderConfig) -> int:
+    """Host-side count of the (tile, splat) pairs of this view."""
+    return int(_spans_numpy(cloud, camera, cfg)["touched"].sum())
+
+
+def count_units_numpy(cloud: GaussianCloud, camera: Camera,
+                      cfg: RenderConfig, k: int) -> tuple[int, int]:
+    """Host-side (pairs, row-group units) for the group-contiguous stream:
+    a unit per k-tile-row band the footprint bbox crosses."""
+    s = _spans_numpy(cloud, camera, cfg)
+    alive = s["touched"] > 0
+    units = np.where(alive, s["y1"] // k - s["y0"] // k + 1, 0)
+    return int(s["touched"].sum()), int(units.sum())
+
+
+def pair_bucket(need: int) -> int:
+    """Round a pair count up to a (k/8)·2^j bucket (≤ 12.5% slack), then to
+    a multiple of 128."""
+    need = max(1 << 14, need)
+    p = 1 << (need - 1).bit_length()
+    step = max(p // 8, 128)
+    mp = -(-need // step) * step
+    return -(-mp // 128) * 128
+
+
+class GaussianRayTracer:
+    """Chooses the execution path. In "tiled" mode the static pair and unit
+    buffers are sized on the first call by `calibrate` and re-sized, with a
+    re-render, when a frame overflows them."""
+
+    def __init__(self, cfg: RenderConfig, mode: str = "fast",
+                 max_pairs: Optional[int] = None, device=None):
+        if mode not in ("fast", "tiled"):
+            raise NotImplementedError(
+                f"mode {mode!r}: gsrt_torch ports 'fast' and 'tiled'; "
+                f"'reference' is ROADMAP.md Queue 1 item 11")
+        self.cfg = cfg
+        self.mode = mode
+        self.device = resolve_device(device)
+        self.max_pairs = max_pairs
+        self.max_rows = None
+
+    def calibrate(self, cloud: GaussianCloud, camera: Camera) -> int:
+        """Size max_pairs (and, on the group stream, max_rows) from a NumPy
+        count of this view with 10% slack. The stream is decided by the
+        same gating `render_tiled` applies — after the ellipse → rect
+        fallback — so the unit buffer is sized whenever the render takes
+        the group stream."""
+        plan = stream_plan(self.cfg, camera.width, camera.height)
+        if plan.stream == "group":
+            total, units = count_units_numpy(cloud, camera, self.cfg,
+                                             plan.group_k)
+            self.max_rows = pair_bucket(int(units * 1.1))
+        else:
+            total = count_pairs_numpy(cloud, camera, self.cfg)
+            self.max_rows = None
+        self.max_pairs = pair_bucket(int(total * 1.1))
+        return self.max_pairs
+
+    def __call__(self, cloud: GaussianCloud, camera: Camera) -> RenderOutput:
+        cloud, camera = cloud.to(self.device), camera.to(self.device)
+        if self.mode == "fast":
+            return render_fast(cloud, camera, self.cfg)
+        if self.max_pairs is None:
+            self.calibrate(cloud, camera)
+        out = render_tiled(cloud, camera, self.cfg, max_pairs=self.max_pairs,
+                           max_rows=self.max_rows)
+        if bool(out.overflow):
+            # the view outgrew the buffers (zoom, scene growth): re-size
+            # and render again rather than serve truncated pairs
+            self.calibrate(cloud, camera)
+            out = render_tiled(cloud, camera, self.cfg,
+                               max_pairs=self.max_pairs,
+                               max_rows=self.max_rows)
+        return out

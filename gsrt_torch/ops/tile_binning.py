@@ -1,0 +1,300 @@
+"""Screen-tile binning of projected splats: the group-contiguous stream.
+
+Counterpart of `gsrt.ops.tile_binning` for the path `render_tiled` takes
+at its defaults (compact payload, rect spans, group stream). Splats are
+depth-sorted once; each expands to (splat × row-group) units, where a
+group is k full tile rows (bs = k·ntx tiles); one stable sort of the units
+by group id makes the pairs contiguous per group and depth-ordered per
+tile; the emit expansion then writes the compact payload directly. The
+data contract is the JAX package's: the same pairs, the same per-tile
+depth order, the same decoded fields, the same tile_start / tile_count /
+total_pairs / overflow.
+
+Sorts are `torch.sort` plus index gathers and the tile histogram is a
+scatter-add of rectangle corner marks followed by two prefix sums: none of
+this is a TPU kernel. The payload keeps its five live rows (the JAX
+package pads to eight for the TPU's DMA tiling).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+# --- compact payload: int32 [5, max_pairs] ---
+# rows: 0 mean (2 x u16 fixed point, TILE-relative, two-tier per axis)
+#       1 chol.l11 | chol.l21 (2 x bf16)   2 chol.l22 | camera depth (bf16)
+#       3 rgba8888 (two-tier 8-bit color x3 + u8 opacity)   4 tile id
+COMPACT_WIDTH = 5
+MEAN_FINE_SCALE = 256.0    # 1/256 px quantization …
+MEAN_FINE_BIAS = 64.0      # … over [-64, +64) px
+MEAN_COARSE_SCALE = 8.0    # 1/8 px quantization …
+MEAN_COARSE_BIAS = 2048.0  # … over [-2048, +2048) px (saturating)
+# 8-bit two-tier color channel: bit 7 = 0 → value = mag/127 over [0, 1];
+# bit 7 = 1 → value = 1 + mag·3/127 over (1, 4]. Opacity is u8/255.
+COLOR8_FINE = 1.0 / 127.0
+COLOR8_COARSE = 3.0 / 127.0
+
+TODO_TILE_STREAM = ("ROADMAP.md Queue 1 item 8 (the tile-stream and f32 "
+                    "tiers)")
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _pack_color8(c: torch.Tensor) -> torch.Tensor:
+    fine = _i32(torch.clamp(torch.round(c * 127.0), 0, 127))
+    coarse = _i32(torch.clamp(torch.round((c - 1.0) * (127.0 / 3.0)),
+                              0, 127)) | 0x80
+    return torch.where(c <= 1.0, fine, coarse)
+
+
+def pack_rgba8(r, g, b, o) -> torch.Tensor:
+    """Three two-tier 8-bit colors + u8 opacity → one int32
+    (r << 24 | g << 16 | b << 8 | o)."""
+    oi = _i32(torch.clamp(torch.round(o * 255.0), 0, 255))
+    return ((_pack_color8(r) << 24) | (_pack_color8(g) << 16)
+            | (_pack_color8(b) << 8) | oi)
+
+
+def unpack_rgba8(w: torch.Tensor):
+    """int32 rgba8 word → (r, g, b, opacity) float32."""
+    def color8(c8):
+        mag = (c8 & 0x7F).to(torch.float32)
+        return torch.where((c8 & 0x80) != 0, 1.0 + mag * COLOR8_COARSE,
+                           mag * COLOR8_FINE)
+    op = (w & 0xFF).to(torch.float32) * (1.0 / 255.0)
+    return (color8((w >> 24) & 0xFF), color8((w >> 16) & 0xFF),
+            color8((w >> 8) & 0xFF), op)
+
+
+def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest-even bf16 of x as an int32 in [0, 0xFFFF]."""
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def pack_bf16_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two f32 → one int32: bf16(hi) in the top 16 bits, bf16(lo) below."""
+    return (_bf16_bits(hi) << 16) | _bf16_bits(lo)
+
+
+def unpack_bf16_hi(w: torch.Tensor) -> torch.Tensor:
+    return (w & -65536).view(torch.float32)
+
+
+def unpack_bf16_lo(w: torch.Tensor) -> torch.Tensor:
+    return (w << 16).view(torch.float32)
+
+
+def _pack_mean_axis(v: torch.Tensor) -> torch.Tensor:
+    """One tile-relative coordinate → u16: bit 15 = 0 fine (1/256 px,
+    ±64 px), = 1 coarse (1/8 px, ±2048 px, saturating)."""
+    fine = _i32(torch.clamp(torch.round((v + MEAN_FINE_BIAS)
+                                        * MEAN_FINE_SCALE), 0, 32767))
+    coarse = _i32(torch.clamp(torch.round((v + MEAN_COARSE_BIAS)
+                                          * MEAN_COARSE_SCALE),
+                              0, 32767)) | 0x8000
+    return torch.where((v >= -MEAN_FINE_BIAS) & (v < MEAN_FINE_BIAS),
+                       fine, coarse)
+
+
+def pack_mean_rel(mx_rel: torch.Tensor, my_rel: torch.Tensor
+                  ) -> torch.Tensor:
+    """Tile-relative mean → (x u16 << 16) | y u16, each two-tier."""
+    return (_pack_mean_axis(mx_rel) << 16) | _pack_mean_axis(my_rel)
+
+
+def unpack_mean_rel(w: torch.Tensor):
+    """Packed mean word → (mx_rel, my_rel) float32."""
+    def axis(w16):
+        mag = (w16 & 0x7FFF).to(torch.float32)
+        return torch.where((w16 & 0x8000) != 0,
+                           mag * (1.0 / MEAN_COARSE_SCALE) - MEAN_COARSE_BIAS,
+                           mag * (1.0 / MEAN_FINE_SCALE) - MEAN_FINE_BIAS)
+    return axis((w >> 16) & 0xFFFF), axis(w & 0xFFFF)
+
+
+class TileBinning(NamedTuple):
+    payload: torch.Tensor      # [5, max_pairs] int32 compact pair payload,
+                               # contiguous per group, depth order per tile
+    tile_start: torch.Tensor   # [T + 1] int32 pair offsets per tile
+    tile_count: torch.Tensor   # [T] int32 pairs per tile
+    total_pairs: torch.Tensor  # [] int32 pairs before capping
+    overflow: torch.Tensor     # [] bool — pairs or units exceeded the buffers
+
+
+def tile_extent(width: int, height: int, tile_w: int, tile_h: int):
+    return -(-width // tile_w), -(-height // tile_h)
+
+
+def compute_tile_spans(cx, cy, rx, ry, alive, width, height, tile_w, tile_h):
+    """Inclusive tile spans of each splat's footprint bounding box.
+    Returns (x0, x1, y0, y1, touched) int32; touched = 0 if culled."""
+    ntx, nty = tile_extent(width, height, tile_w, tile_h)
+    x0 = _i32(torch.clamp(torch.floor((cx - rx) / tile_w), 0, ntx - 1))
+    x1 = _i32(torch.clamp(torch.floor((cx + rx) / tile_w), 0, ntx - 1))
+    y0 = _i32(torch.clamp(torch.floor((cy - ry) / tile_h), 0, nty - 1))
+    y1 = _i32(torch.clamp(torch.floor((cy + ry) / tile_h), 0, nty - 1))
+    on_screen = ((cx + rx >= 0) & (cx - rx < width)
+                 & (cy + ry >= 0) & (cy - ry < height))
+    alive = alive & on_screen & (rx > 0) & (ry > 0)
+    touched = torch.where(alive, (x1 - x0 + 1) * (y1 - y0 + 1),
+                          torch.zeros_like(x0))
+    return x0, x1, y0, y1, touched
+
+
+def tile_histogram(x0, x1, y0, y1, alive, ntx: int, nty: int
+                   ) -> torch.Tensor:
+    """Per-tile pair counts [nty, ntx] from inclusive tile spans: +1/−1
+    marks at the four corners of each rectangle, scatter-added into a
+    (nty+1, ntx+1) grid, then prefix sums along both axes."""
+    w = _i32(alive)
+    row = ntx + 1
+    marks = torch.zeros((nty + 1) * row, dtype=torch.int32,
+                        device=x0.device)
+    for ys, xs, sign in ((y0, x0, 1), (y0, x1 + 1, -1),
+                         (y1 + 1, x0, -1), (y1 + 1, x1 + 1, 1)):
+        marks.index_add_(0, (ys * row + xs).long(), w * sign)
+    grid = marks.view(nty + 1, row)
+    grid = torch.cumsum(torch.cumsum(grid, 0, dtype=torch.int32), 1,
+                        dtype=torch.int32)
+    return grid[:nty, :ntx].contiguous()
+
+
+def group_rows_k(ntx: int, bs_max: int = 128) -> int | None:
+    """Rows of tiles per group for the group-contiguous stream: the largest
+    k ≤ 31 with k·ntx ≤ bs_max and (k·ntx) % 8 == 0, or None. The group
+    shape is the JAX package's, so both streams group pairs alike."""
+    best = None
+    for k in range(1, min(bs_max // max(ntx, 1), 31) + 1):
+        if (k * ntx) % 8 == 0:
+            best = k
+    return best
+
+
+def build_tile_binning(
+    depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, rx, ry, alive,
+    *, width: int, height: int, tile_w: int = 32, tile_h: int = 16,
+    max_pairs: int = 1 << 20, compact: bool = True, span_mode: str = "rect",
+    max_rows: int | None = None, stream: str = "group",
+) -> TileBinning:
+    """Bin splats into group-contiguous, per-tile depth-ordered pairs.
+
+    Per-splat inputs are [N] columns and need not be depth-sorted. Only
+    the group stream with the compact payload and rect spans is ported;
+    other streams raise NotImplementedError."""
+    if not (compact and stream == "group" and span_mode == "rect"):
+        raise NotImplementedError(
+            f"gsrt_torch bins only the group stream with the compact payload "
+            f"and rect spans; got compact={compact},"
+            f" stream={stream!r}, span_mode={span_mode!r}: see "
+            f"{TODO_TILE_STREAM}")
+    ntx, nty = tile_extent(width, height, tile_w, tile_h)
+    T = ntx * nty
+    k = group_rows_k(ntx)
+    if k is None or ntx > 127:
+        raise NotImplementedError(
+            f"tile grid ntx={ntx} has no group shape; see {TODO_TILE_STREAM}")
+
+    x0, x1, y0, y1, touched = compute_tile_spans(
+        m2x, m2y, rx, ry, alive, width, height, tile_w, tile_h)
+    opacity = torch.where(alive, opacity, torch.zeros_like(opacity))
+    counts = tile_histogram(x0, x1, y0, y1, touched > 0, ntx, nty).reshape(T)
+    total = touched.sum(dtype=torch.int32)
+    overflow = total > max_pairs
+    tile_start = torch.cat([torch.zeros(1, dtype=torch.int32,
+                                        device=counts.device),
+                            torch.cumsum(counts, 0, dtype=torch.int32)])
+    # overflow truncates the deepest pairs; clamping keeps every segment
+    # inside the payload until the caller re-calibrates
+    tile_start = torch.minimum(tile_start, torch.clamp_max(total, max_pairs))
+    return _build_group_stream(
+        depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+        x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
+        tile_h=tile_h, max_pairs=max_pairs,
+        max_units=max_rows if max_rows is not None else max_pairs,
+        k_rows=k, counts=counts, tile_start=tile_start, total=total,
+        overflow=overflow)
+
+
+def _build_group_stream(
+    depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+    x0, x1, y0, y1, touched, *, ntx, nty, T, tile_w, tile_h, max_pairs,
+    max_units, k_rows, counts, tile_start, total, overflow,
+) -> TileBinning:
+    """Depth sort, level-1 expand (splats → units), stable unit sort by
+    group id, level-2 emit expand (units → compact payload)."""
+    from gsrt_torch.ops.pair_expand import (_DEAD_BASE, expand_pairs_binned,
+                                            expand_pairs_fused)
+
+    if ntx > 127 or nty >= (1 << 12):
+        raise ValueError("tile grid exceeds the packed geometry word")
+    dev = depth.device
+    k = k_rows
+    n_groups = -(-nty // k)
+    live = touched > 0
+    zeros = torch.zeros_like(x0)
+
+    # --- depth sort: splats that emit pairs first, front to back ---
+    key = torch.where(live, depth, torch.full_like(depth, float("inf")))
+    rows_n = torch.where(live, y1 - y0 + 1, zeros)
+    xy0g = x0 | (y0 << 7) | (rows_n << 19)
+    w_spl = torch.where(live, x1 - x0 + 1, zeros + 1)
+    l11 = torch.sqrt(torch.clamp_min(qa_c, 1e-12))
+    l21 = qb_c / torch.clamp_min(l11, 1e-12)
+    l22 = torch.sqrt(torch.clamp_min(qc_c - l21 * l21, 1e-12))
+    order = torch.argsort(key)
+    xy0g, w_spl = xy0g[order], w_spl[order]
+    qab = pack_bf16_pair(l11, l21)[order]
+    qcd = pack_bf16_pair(l22, depth)[order]
+    rgba = pack_rgba8(cr, cg, cb, opacity)[order]
+    m2x_s, m2y_s = m2x[order], m2y[order]
+
+    y0s = (xy0g >> 7) & 0xFFF
+    rows_s = (xy0g >> 19) & 0xFFF
+    units_n = torch.where(rows_s > 0,
+                          (y0s + rows_s - 1) // k - y0s // k + 1, zeros)
+    units_total = units_n.sum(dtype=torch.int32)
+    uoff = torch.cumsum(units_n, 0, dtype=torch.int32)
+    ubase = torch.where(units_n > 0, uoff - units_n,
+                        torch.full_like(units_n, _DEAD_BASE))
+
+    # --- level 1: splats -> (splat x row-group) units ---
+    tab1 = torch.stack([xy0g, w_spl, ubase, m2x_s.view(torch.int32),
+                        m2y_s.view(torch.int32), qab, qcd, rgba])
+    e = expand_pairs_fused(tab1, ubase, max_units)             # [8, MU]
+    geoA, w_e, ubase_e = e[0], e[1], e[2]
+    uslot = torch.arange(max_units, dtype=torch.int32, device=dev)
+    valid_u = uslot < torch.clamp_max(units_total, max_units)
+    rank_u = torch.clamp_min(uslot - ubase_e, 0)
+    x0_e = geoA & 0x7F
+    y0_e = (geoA >> 7) & 0xFFF
+    rows_e = (geoA >> 19) & 0xFFF
+    gid = y0_e // k + rank_u
+    ys = torch.maximum(y0_e, gid * k)
+    ye = torch.minimum(y0_e + rows_e - 1, gid * k + (k - 1))
+    rows_u = torch.where(valid_u, ye - ys + 1, torch.zeros_like(ys))
+
+    # --- the sort: stable by group id at unit scale (dead units sink) ---
+    ukey = torch.where(valid_u, gid, torch.full_like(gid, n_groups))
+    perm = torch.sort(ukey, stable=True).indices
+    rows_u = rows_u[perm]
+    w_u = torch.clamp_min(w_e[perm] & 0x7F, 1)
+    xgeo2 = x0_e[perm] | (ys[perm] << 12) | (w_e[perm] << 24)
+    touched_u = torch.where(rows_u > 0, rows_u * w_u, torch.zeros_like(w_u))
+    poff = torch.cumsum(touched_u, 0, dtype=torch.int32)
+    pbase = torch.where(touched_u > 0, poff - touched_u,
+                        torch.full_like(poff, _DEAD_BASE))
+
+    # --- level 2: units -> compact payload ---
+    tab2 = torch.cat([torch.stack([xgeo2, pbase]), e[3:8, perm]])
+    payload = expand_pairs_binned(
+        tab2.contiguous(), pbase, max_pairs,
+        total=torch.clamp_max(total, max_pairs), ntx=ntx, T=T,
+        tile_w=tile_w, tile_h=tile_h)                          # [5, MP]
+
+    return TileBinning(payload=payload, tile_start=tile_start,
+                       tile_count=counts, total_pairs=total,
+                       overflow=overflow | (units_total > max_units))

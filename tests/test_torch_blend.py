@@ -1,0 +1,139 @@
+"""gsrt_torch group-stream blend (`ops/splat_packed.py`) against the JAX
+package's packed Pallas kernel (interpret mode, CPU) on the SAME compact
+payload: the JAX package's group-stream binning, with its five live rows
+handed to the port.
+
+Tolerance: atol 2e-3 on color and trans, the JAX suite's own bound
+between blend formulations (tests/test_group_stream.py:52-55); the JAX
+kernel runs math_dtype="f32". The CUDA kernel is held against the plain
+version in tests/test_torch_gpu.py, which needs a card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from gsrt.core.config import RenderConfig as JCfg
+from gsrt.models.gaussian_rt import _precompute_fm, fm_from_cloud
+from gsrt.ops.gaussian import screen_extents_abc
+from gsrt.ops.splat_packed import blend_packed as j_blend
+from gsrt.ops.tile_binning import build_tile_binning, group_rows_k
+from gsrt.scene.catalog import random_cloud
+
+from gsrt_torch.ops import splat_packed as t_sp
+from gsrt_torch.ops.tile_binning import TileBinning
+
+W = H = 256
+TW, TH = 32, 16
+NTX = W // TW
+BS = group_rows_k(NTX) * NTX     # 16 tile rows: one group of 128 tiles
+KW = dict(g_cutoff=5.6, alpha_threshold=1.0 / 255.0, alpha_clamp=0.99,
+          skip_range_check=True)
+
+
+def _jax_binning(n, seed, scale_range, max_pairs=1 << 16):
+    cloud, camera = random_cloud(n, seed=seed, width=W, height=H,
+                                 scale_range=scale_range)
+    cfg = JCfg(width=W, height=H)
+    fm = fm_from_cloud(cloud)
+    depth, m2x, m2y, qa, qb, qc, inf, cr, cg, cb = _precompute_fm(
+        fm, camera, cfg)
+    rx, ry = screen_extents_abc(qa, qb, qc, "standard", cfg.g_cutoff,
+                                opacity=fm.opacity)
+    alive = inf & (fm.opacity > cfg.alpha_threshold) & (depth > cfg.t_min) \
+        & (depth < cfg.t_max)
+    jb = build_tile_binning(
+        depth, m2x, m2y, qa, qb, qc, fm.opacity, cr, cg, cb, rx, ry, alive,
+        width=W, height=H, tile_w=TW, tile_h=TH, chunk=cfg.pair_chunk,
+        max_pairs=max_pairs, expand_impl="fused", interpret=True,
+        compact=True, max_rows=1 << 14, stream="group")
+    assert not bool(jb.overflow)
+    t = lambda a: torch.as_tensor(np.array(a))
+    tb = TileBinning(payload=t(np.asarray(jb.payload)[:5, :max_pairs]),
+                     tile_start=t(jb.tile_start), tile_count=t(jb.tile_count),
+                     total_pairs=t(jb.total_pairs), overflow=t(jb.overflow))
+    return jb, tb
+
+
+def _jax_blend(jb, math_dtype="f32"):
+    color, trans = j_blend(
+        jb, width=W, height=H, sub_w=TW, sub_h=TH, bs=BS, group_stream=True,
+        interpret=True, scan_impl="logmm", math_dtype=math_dtype,
+        chunk=384, **KW)
+    return np.asarray(color), np.asarray(trans)
+
+
+@pytest.fixture(scope="module")
+def sparse():
+    return _jax_binning(3000, 0, (0.02, 0.25))
+
+
+@pytest.fixture(scope="module")
+def dense():
+    # large opaque splats: most tiles saturate and stop early
+    return _jax_binning(1500, 4, (0.15, 0.45))
+
+
+@pytest.mark.parametrize("scene", ["sparse", "dense"])
+def test_blend_matches_jax_on_same_payload(scene, request):
+    jb, tb = request.getfixturevalue(scene)
+    jc, jt = _jax_blend(jb)
+    tc, tt = t_sp.blend_packed(tb, width=W, height=H, sub_w=TW, sub_h=TH,
+                               bs=BS, **KW)
+    assert tc.shape == (H, W, 3) and tt.shape == (H, W)
+    np.testing.assert_allclose(tc.numpy(), jc, atol=2e-3)
+    np.testing.assert_allclose(tt.numpy(), jt, atol=2e-3)
+
+
+def test_early_stop_bound_and_work(dense):
+    _, tb = dense
+    kw = dict(width=W, height=H, sub_w=TW, sub_h=TH, bs=BS, **KW)
+    stats, full_stats = {}, {}
+    c, t = t_sp.blend_packed_plain(tb, term_eps=1e-4, stats=stats, **kw)
+    cf, tf = t_sp.blend_packed_plain(tb, term_eps=0.0, stats=full_stats,
+                                     **kw)
+    total = int(tb.total_pairs)
+    assert full_stats["pairs_blended"] == total
+    assert stats["pairs_blended"] < total          # the stop engaged
+    # what the stop drops is weighted by trans < term_eps: colors <= 4
+    assert (c - cf).abs().max().item() <= 4e-4
+    assert (t - tf).abs().max().item() <= 1e-4
+
+
+def test_decode_pairs_matches_packers():
+    from gsrt_torch.ops import tile_binning as tb
+    rng = np.random.default_rng(0)
+    mx = torch.as_tensor(rng.uniform(-60, 60, 64).astype(np.float32))
+    my = torch.as_tensor(rng.uniform(-60, 60, 64).astype(np.float32))
+    l11, l21, l22, depth = (torch.as_tensor(
+        rng.uniform(0.05, 2, 64).astype(np.float32)) for _ in range(4))
+    rgb = torch.as_tensor(rng.uniform(0, 1, (3, 64)).astype(np.float32))
+    op = torch.as_tensor(rng.uniform(0, 1, 64).astype(np.float32))
+    cols = torch.stack([tb.pack_mean_rel(mx, my),
+                        tb.pack_bf16_pair(l11, l21),
+                        tb.pack_bf16_pair(l22, depth),
+                        tb.pack_rgba8(*rgb, op),
+                        torch.zeros(64, dtype=torch.int32)])
+    f = t_sp.decode_pairs(cols)
+    np.testing.assert_allclose(f["mx"], mx, atol=1 / 512)
+    np.testing.assert_allclose(f["my"], my, atol=1 / 512)
+    rh = 0.7071067811865476
+    for got, want in ((f["l11"], l11), (f["l21"], l21), (f["l22"], l22)):
+        np.testing.assert_allclose(got / rh, want, rtol=2 ** -8)
+    np.testing.assert_allclose(f["rgb"].T, rgb, atol=1 / 254 + 1e-6)
+    np.testing.assert_allclose(f["op"], op, atol=1 / 510 + 1e-6)
+
+
+def test_blend_rejects_unported_modes(sparse):
+    _, tb = sparse
+    kw = dict(width=W, height=H, sub_w=TW, sub_h=TH, bs=BS)
+    for bad in (dict(use_exp_lut=True), dict(group_stream=False)):
+        with pytest.raises(NotImplementedError):
+            t_sp.blend_packed(tb, **kw, **bad)
+    with pytest.raises(ValueError):
+        t_sp.blend_packed(tb._replace(payload=tb.payload[:4].contiguous()),
+                          **kw)
+    with pytest.raises(ValueError):
+        t_sp.blend_packed(tb, **{**kw, "bs": NTX + 1})
