@@ -21,13 +21,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
              after; each kernel of the path must have launched; then
              per-stage and whole-frame times from CUDA events;
 7. check   — a small scene through render_tiled (kernels) and render_fast
-             (plain PyTorch, the port's oracle), atol 2e-2.
+             (plain PyTorch, the port's oracle), atol 2e-2;
+8. train-capture — the training workload; one forward and backward of
+             render_tiled_diff with the kernel entry points recorded;
+9. gather / subtile / backward — the f32 stream's kernels against their
+             plain versions on the captured inputs: expand_pairs and the
+             copy-mode expand at the f32 table's rows bit for bit,
+             blend_subtiles atol 1e-4 over every tile, blend_backward per
+             gradient row, divided by the row's largest magnitude, atol
+             1e-3 over every tile;
+10. train  — launch counts to 0, then 1 warm-up and 10 timed
+             train_step_tiled steps and one more with
+             expand_impl="pallas"; every kernel of the path must have
+             launched, the loss must be finite at every step and lower at
+             the end, no gradient may be NaN; then where a step's time
+             goes, from CUDA events at the stage boundaries;
+11. train-check — a small scene where the tiled gradients (kernels) are
+             held against render_fast under autograd on the card, each
+             divided by its largest magnitude, atol 2e-3.
 
-The workload is the JAX package's benchmark: random_cloud(1M, seed=0,
-scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig
-defaults. Before the last line it prints one JSON object with a row per
-kernel (launches, error against the plain version, times, roofline
-bound); the last line is {"ok": true, "device": {...}}.
+The render workload is the JAX package's benchmark: random_cloud(1M,
+seed=0, scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig
+defaults. The training workload is random_cloud(100K, seed=0) at 800x600,
+SH degree 3, RenderConfig(conic_mode="standard") defaults (32x16 tiles),
+the target its own tiled render, the start init_params of it with the
+means moved by 0.02·N(0, 1). Before the last line the script prints one
+JSON object with a row per kernel (launches, error against the plain
+version, times, roofline bound); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -49,6 +70,25 @@ SPLATS, WIDTH, HEIGHT, SEED = 1_000_000, 1920, 1080, 0
 FRAMES = 10  # frames per timed run of the whole frame
 BLEND_FLOPS_PER_PAIR_PIXEL = 20  # sub x2, response 5, alpha 2, blend 9,
 #                                  compare 2; the exp counted as one more
+
+# --- the training workload and its kernels (the f32 tile stream) ---
+SUBTILE_SRC = "gsrt_torch/csrc/splat_subtile.cu"
+GRAD_SRC = "gsrt_torch/csrc/splat_grad.cu"
+GATHER_TPU = "gsrt/ops/pair_expand.py:47"
+SUBTILE_TPU = "gsrt/ops/splat_subtile.py:49"
+GRAD_TPU = "gsrt/ops/splat_grad.py:60"
+T_SPLATS, T_WIDTH, T_HEIGHT = 100_000, 800, 600
+TRAIN_STEPS, SPLIT_STEPS = 10, 5
+# f32 operations per (pixel, pair), counted from the kernels' sources.
+# Every pixel of a tile, for every pair the tile blends: offsets 2,
+# response 10, exp argument 1, exp 1, opacity 1, clamp 1, tests 2.
+TEST_FLOPS = 18
+# Forward, where the pixel takes the pair: weight 1, colour 6, trans 2.
+FWD_ACCEPT_FLOPS = 9
+# Backward, where it took it: alpha, weight 2; prefix colour 6; 1/(1-a) 2;
+# d alpha 20; d g 2; mean 10, conic 8, opacity 1, colour 3; trans 2; the
+# nine sums over pixels 9.
+BWD_ACCEPT_FLOPS = 65
 
 
 def log(msg: str) -> None:
@@ -119,7 +159,7 @@ def phase_build():
 
 
 def expand_row(name, tpu, kernel_fn, plain_fn, library_fn, launches,
-               bytes_moved):
+               bytes_moved, phase="expand"):
     import torch
     out_k = kernel_fn()
     out_p = plain_fn()
@@ -127,7 +167,7 @@ def expand_row(name, tpu, kernel_fn, plain_fn, library_fn, launches,
     if out_k.shape != out_p.shape or not torch.equal(out_k, out_p):
         bad = (out_k != out_p).sum().item() if out_k.shape == out_p.shape \
             else "shape"
-        raise SystemExit(f"phase expand: {name} differs from its plain "
+        raise SystemExit(f"phase {phase}: {name} differs from its plain "
                          f"version ({bad} words)")
     row = dict(name=name, route="cuda", source=EXPAND_SRC, replaces=tpu,
                launches=launches, max_abs_err=0.0,
@@ -136,10 +176,314 @@ def expand_row(name, tpu, kernel_fn, plain_fn, library_fn, launches,
                bound_by="bytes",
                library_ms=None if library_fn is None
                else time_cuda(library_fn, 5))
-    log(f"phase expand: {name} bitwise equal, shape "
+    log(f"phase {phase}: {name} bitwise equal, shape "
         f"{tuple(out_k.shape)}, {row['ms']:.4f} ms (plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms)")
     return row
+
+
+class Stamps:
+    """CUDA events at the stage boundaries of a training step. `wrap`
+    patches a module function so that an event is recorded before and
+    after each call; `mark` records one directly. All events go to the
+    current stream, so consecutive ones bracket what ran between them."""
+
+    def __init__(self, torch):
+        self.torch, self.marks, self.patched = torch, [], []
+
+    def mark(self, label: str) -> None:
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((label, ev))
+
+    def wrap(self, module, name: str, label: str) -> None:
+        orig = getattr(module, name)
+
+        def wrapped(*args, **kw):
+            self.mark(label + ":start")
+            out = orig(*args, **kw)
+            self.mark(label + ":end")
+            return out
+        setattr(module, name, wrapped)
+        self.patched.append((module, name, orig))
+
+    def restore(self) -> None:
+        for module, name, orig in self.patched:
+            setattr(module, name, orig)
+
+    def intervals(self):
+        """[(label of the closing mark, ms since the mark before it)]."""
+        self.torch.cuda.synchronize()
+        return [(b[0], a[1].elapsed_time(b[1]))
+                for a, b in zip(self.marks, self.marks[1:])]
+
+
+# the interval that ends at each mark of an instrumented training step
+STEP_STAGES = {
+    "binning:start": "project_sh_forward", "binning:end": "binning",
+    "blend_forward:start": "binning",          # the overflow check
+    "blend_forward:end": "blend_forward", "loss:end": "loss_forward",
+    "blend_backward:start": "loss_backward", "blend_backward:end":
+    "blend_backward", "routing:start": "routing", "routing:end": "routing",
+    "backward:end": "autograd_projection", "step:end": "optimizer"}
+
+
+def max_abs_err(*diffs) -> float:
+    """Largest |entry| over the tensors; NaN if any holds one."""
+    errs = [d.abs().max().item() for d in diffs]
+    return float("nan") if any(e != e for e in errs) else max(errs)
+
+
+def normalised_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def train_phases(torch):
+    """Phases 8-11. Returns (kernel rows, training figures)."""
+    from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch.core.types import GaussianCloud
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.models import tiled_diff, trainer
+    from gsrt_torch.ops import (pair_expand, splat_grad, splat_subtile,
+                                tile_binning)
+    from gsrt_torch.scene import random_cloud
+
+    W, H = T_WIDTH, T_HEIGHT
+    cfg = RenderConfig(width=W, height=H, conic_mode="standard")
+    cloud, camera = random_cloud(T_SPLATS, seed=SEED, width=W, height=H,
+                                 device=DEVICE)
+    params = trainer.init_params(cloud)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    with torch.no_grad():
+        params.means += 0.02 * torch.randn(params.means.shape, generator=gen,
+                                           device=DEVICE)
+    # the buffer holds the target's view and the start's, with 10% slack
+    need = max(grt.count_pairs_numpy(c, camera, cfg)
+               for c in (cloud, params.to_cloud()))
+    max_pairs = grt.pair_bucket(int(need * 1.1))
+    with torch.no_grad():
+        target, _ = tiled_diff.render_tiled_diff(cloud, camera, cfg,
+                                                 max_pairs)
+    log(f"phase train-capture: {T_SPLATS} splats, {W}x{H}, SH degree "
+        f"{cloud.sh_degree}, tiles {cfg.tile_w}x{cfg.tile_h}, {need} pairs "
+        f"needed, max_pairs {max_pairs}")
+
+    # --- capture: one forward + backward with the entry points recorded ---
+    with Recorder(pair_expand, "expand_pairs_fused") as rec_fused, \
+            Recorder(splat_subtile, "blend_subtiles") as rec_fwd, \
+            Recorder(splat_grad, "blend_backward") as rec_bwd:
+        trainer.render_loss_tiled(params, target, camera, cfg,
+                                  max_pairs).backward()
+        torch.cuda.synchronize()
+    if not (len(rec_fused.calls) == len(rec_fwd.calls)
+            == len(rec_bwd.calls) == 1):
+        raise SystemExit("phase train-capture: expected one call per "
+                         "kernel entry point")
+    (tab, base, mp), _ = rec_fused.calls[0]
+    (binning,), fwd_kw = rec_fwd.calls[0]
+    (payload, tile_start, pixstate), bwd_kw = rec_bwd.calls[0]
+    total = int(binning.total_pairs)
+    n_src = tab.shape[1]
+    ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
+    T, npx = ntx * nty, cfg.tile_w * cfg.tile_h
+    log(f"phase train-capture: {total} pairs in {T} tiles of {npx} px, "
+        f"table {tuple(tab.shape)}, payload {tuple(payload.shape)}, "
+        f"pixstate {tuple(pixstate.shape)}")
+
+    # --- gather: expand_pairs, and the copy mode at the f32 table's rows ---
+    rows = []
+    expand_bytes = 4 * (tab.shape[0] * (mp + n_src) + n_src)
+    rows.append(expand_row(
+        "expand_pairs", GATHER_TPU,
+        lambda: pair_expand.expand_pairs(tab, base, mp),
+        lambda: pair_expand.expand_pairs_plain(tab, base, mp),
+        lambda: tab.index_select(1, pair_expand.source_index(base, mp)),
+        0, expand_bytes, phase="gather"))
+    rows.append(expand_row(
+        "expand_pairs_fused", EXPAND_TPU,
+        lambda: pair_expand.expand_pairs_fused(tab, base, mp),
+        lambda: pair_expand.expand_pairs_plain(tab, base, mp),
+        lambda: tab.index_select(1, pair_expand.source_index(base, mp)),
+        0, expand_bytes, phase="gather"))
+    rows[-1]["at"] = "the f32 stream's table (training)"
+    if not torch.equal(pair_expand.expand_pairs(tab, base, mp),
+                       pair_expand.expand_pairs_fused(tab, base, mp)):
+        raise SystemExit("phase gather: expand_pairs differs from "
+                         "expand_pairs_fused")
+
+    # --- subtile: the forward blend on the captured binning, every tile ---
+    stats = {}
+    plain_kw = {k: v for k, v in fwd_kw.items() if k != "use_exp_lut"}
+    t0 = time.perf_counter()
+    color_p, trans_p = splat_subtile.blend_subtiles_plain(
+        binning, stats=stats, **plain_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    color_k, trans_k = splat_subtile.blend_subtiles(binning, **fwd_kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(color_k - color_p, trans_k - trans_p)
+    blended, accepted = stats["pairs_blended"], stats["accepted"]
+    log(f"phase subtile: all {T} tiles, max |kernel - plain| {err:.3e} "
+        f"(atol 1e-4), {blended} pairs blended of {total}, {accepted} "
+        f"(pixel, pair) products accepted of {blended * npx}")
+    if not err <= 1e-4:
+        raise SystemExit(f"phase subtile: kernel differs from plain by "
+                         f"{err}")
+    pair_bytes = 4 * (7 * total + tile_start.numel())
+
+    def blend_row(name, source, tpu, fn, plain_ms, err, accept_flops,
+                  other_bytes):
+        t_ops = (TEST_FLOPS * blended * npx
+                 + accept_flops * accepted) / F32_FLOPS
+        t_bytes = (pair_bytes + other_bytes) / HBM_BYTES_PER_S
+        row = dict(name=name, route="cuda", source=source, replaces=tpu,
+                   launches=0, max_abs_err=err, ms=time_cuda(fn, 10),
+                   plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=None)
+        log(f"phase {name}: kernel {row['ms']:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        return row
+
+    rows.append(blend_row(
+        "blend_subtiles", SUBTILE_SRC, SUBTILE_TPU,
+        lambda: splat_subtile.blend_subtiles(binning, **fwd_kw),
+        plain_s * 1e3, err, FWD_ACCEPT_FLOPS, 16 * W * H))
+    del color_p, trans_p, color_k, trans_k
+
+    # --- backward: on the captured payload and pixel state, every tile ---
+    plain_kw = {k: v for k, v in bwd_kw.items() if k != "use_exp_lut"}
+    t0 = time.perf_counter()
+    grad_p = splat_grad.blend_backward_plain(payload, tile_start, pixstate,
+                                             **plain_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    grad_k = splat_grad.blend_backward(payload, tile_start, pixstate,
+                                       **bwd_kw)
+    torch.cuda.synchronize()
+    errs = [normalised_err(grad_k[r], grad_p[r])
+            for r in range(splat_grad.GRAD_ROWS)]
+    log(f"phase backward: all {T} tiles, per row max |kernel - plain| / "
+        f"max |plain| {', '.join(f'{e:.2e}' for e in errs)} (atol 1e-3)")
+    if not all(e <= 1e-3 for e in errs):    # a NaN fails too
+        raise SystemExit(f"phase backward: kernel differs from plain: "
+                         f"{errs}")
+    if not torch.equal(grad_k, splat_grad.blend_backward(
+            payload, tile_start, pixstate, **bwd_kw)):
+        raise SystemExit("phase backward: two runs of the kernel differ")
+    rows.append(blend_row(
+        "blend_backward", GRAD_SRC, GRAD_TPU,
+        lambda: splat_grad.blend_backward(payload, tile_start, pixstate,
+                                          **bwd_kw),
+        plain_s * 1e3, max(errs), BWD_ACCEPT_FLOPS,
+        4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total)))
+    del grad_p, grad_k, rec_fused, rec_fwd, rec_bwd, binning, payload
+    del pixstate, tab
+
+    # --- train: counts to 0, warm-up + timed steps, counts read ---
+    optimizer = trainer.make_optimizer(params)
+    step = lambda c: trainer.train_step_tiled(params, optimizer, target,
+                                              camera, c, max_pairs, 0.2)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    losses = [step(cfg)]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    losses += [step(cfg) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    losses.append(step(cfg.replace(expand_impl="pallas")))
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    losses = [x.item() for x in losses]
+    log(f"phase train: launches {counts}")
+    log(f"phase train: losses {', '.join(f'{x:.5f}' for x in losses)}")
+    for k in ("expand_pairs_fused", "expand_pairs", "blend_subtiles",
+              "blend_backward"):
+        if counts[k] <= 0:
+            raise SystemExit(f"phase train: kernel {k} never launched")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise SystemExit("phase train: non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"phase train: the loss did not fall: {losses}")
+    for name, p in params.named_parameters():
+        if not (torch.isfinite(p.grad).all() and torch.isfinite(p).all()):
+            raise SystemExit(f"phase train: non-finite {name} or gradient")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    log(f"phase train: {step_ms:.4f} ms/step on the card's clock, "
+        f"{host_ms:.4f} ms/step on the host's, over {TRAIN_STEPS} steps")
+
+    # where a step's time goes: events at the stage boundaries
+    stamps = Stamps(torch)
+    stamps.wrap(tile_binning, "build_tile_binning", "binning")
+    stamps.wrap(splat_subtile, "blend_subtiles", "blend_forward")
+    stamps.wrap(splat_grad, "blend_backward", "blend_backward")
+    stamps.wrap(tiled_diff, "route_pair_grads", "routing")
+    try:
+        for _ in range(SPLIT_STEPS):
+            optimizer.zero_grad(set_to_none=True)
+            stamps.mark("step:start")
+            loss = trainer.render_loss_tiled(params, target, camera, cfg,
+                                             max_pairs, 0.2)
+            stamps.mark("loss:end")
+            loss.backward()
+            stamps.mark("backward:end")
+            optimizer.step()
+            stamps.mark("step:end")
+    finally:
+        stamps.restore()
+    stages = {}
+    for label, ms in stamps.intervals():
+        if label != "step:start":
+            name = STEP_STAGES[label]
+            stages[name] = stages.get(name, 0.0) + ms / SPLIT_STEPS
+    for k, v in stages.items():
+        log(f"phase train: stage {k} {v:.4f} ms")
+    log(f"phase train: stages sum to {sum(stages.values()):.4f} ms/step "
+        f"over {SPLIT_STEPS} instrumented steps")
+    final_pairs = grt.count_pairs_numpy(params.to_cloud(), camera, cfg)
+    log(f"phase train: {final_pairs} pairs after the steps, max_pairs "
+        f"{max_pairs}")
+
+    # --- train-check: tiled gradients against render_fast autograd ---
+    sw, sh = 128, 96
+    small = RenderConfig(width=sw, height=sh, conic_mode="standard")
+    sc, scam = random_cloud(2_000, seed=1, width=sw, height=sh,
+                            device=DEVICE)
+    wc = torch.randn((sh, sw, 3), generator=gen, device=DEVICE)
+    wt = torch.randn((sh, sw), generator=gen, device=DEVICE)
+
+    def grads(render):
+        leaf = GaussianCloud(*(t.clone().requires_grad_() for t in sc))
+        color, trans = render(leaf)
+        ((color * wc).sum() + (trans * wt).sum()).backward()
+        return [t.grad for t in leaf]
+
+    def fast(c):
+        out = grt.render_fast(c, scam, small)
+        return out.color, out.trans
+    g_tiled = grads(lambda c: tiled_diff.render_tiled_diff(c, scam, small,
+                                                           1 << 16))
+    g_fast = grads(fast)
+    torch.cuda.synchronize()
+    errs = {n: normalised_err(a, b)
+            for n, a, b in zip(sc._fields, g_tiled, g_fast)}
+    log(f"phase train-check: 2000 splats {sw}x{sh}, tiled gradients vs "
+        f"render_fast autograd, normalised: "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (atol 2e-3)")
+    if not all(e <= 2e-3 for e in errs.values()):
+        raise SystemExit(f"phase train-check: gradients differ: {errs}")
+    return rows, dict(
+        step_ms=step_ms, step_host_ms=host_ms, stages_ms=stages,
+        losses=losses, splats=T_SPLATS, width=W, height=H, pairs=total,
+        pairs_blended=blended, accepted=accepted, max_pairs=max_pairs)
 
 
 def main() -> int:
@@ -224,8 +568,7 @@ def main() -> int:
     plain_s = time.perf_counter() - t0
     color_k, trans_k = splat_packed.blend_packed(binning, **blend_kw)
     torch.cuda.synchronize()
-    err = max((color_k - color_p).abs().max().item(),
-              (trans_k - trans_p).abs().max().item())
+    err = max_abs_err(color_k - color_p, trans_k - trans_p)
     ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
     log(f"phase blend: all {ntx * nty} tiles, max |kernel - plain| "
         f"{err:.3e} (atol 2e-3), "
@@ -259,9 +602,10 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = _kernels.launch_counts()
     log(f"phase main: launches {counts}")
-    for k, v in counts.items():
-        if v <= 0:
-            raise SystemExit(f"phase main: kernel {k} never launched")
+    for row in rows:    # the render path's kernels
+        if counts[row["name"]] <= 0:
+            raise SystemExit(f"phase main: kernel {row['name']} never "
+                             f"launched")
     if bool(out.overflow):
         raise SystemExit("phase main: the calibrated frame overflowed")
     if out.color.shape != (H, W, 3) or out.trans.shape != (H, W):
@@ -317,9 +661,6 @@ def main() -> int:
     log(f"phase main: frame {frame_ms:.4f} ms/frame, {mrays:.2f} Mrays/s; "
         f"{splats_live} splats with pairs, {units} units, {total} pairs; "
         f"max_pairs {mpairs}, max_rows {mrows}")
-    log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
-                                for r in rows))
-
     # --- small-scene check against the port's oracle ---
     small = RenderConfig(width=256, height=256)
     sc, scam = random_cloud(20_000, seed=1, width=256, height=256,
@@ -333,14 +674,20 @@ def main() -> int:
     if not d <= 2e-2:
         raise SystemExit(f"phase check: render_tiled differs by {d}")
 
+    train_rows, train = train_phases(torch)
+    rows += train_rows
+    log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
+                                for r in rows))
+
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms,
                       "mrays_per_s": mrays, "stages_ms": stages,
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
-                      "max_rows": mrows}), flush=True)
+                      "max_rows": mrows, "train": train}), flush=True)
+    # the run used one card (device 0), however many the machine shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

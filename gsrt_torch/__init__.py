@@ -10,7 +10,10 @@ beside it that CPU tensors take.
 Ported so far: the tiled main path — projection and SH, group-stream
 binning (the pair-expansion kernel), the packed group-stream blend
 kernel, `render_tiled`, `render_fast` and `GaussianRayTracer` in "fast"
-and "tiled" modes. ROADMAP.md lists what remains.
+and "tiled" modes — and training on the tiled path: the f32 tile stream,
+the subtile blend and its backward kernel, `render_tiled_diff` and the
+trainer (`GaussianParams`, `make_optimizer`, `train_step_tiled`).
+ROADMAP.md lists what remains.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("pair_expand", "splat_packed")
+SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
+           "splat_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -128,11 +129,21 @@ EXPAND_PLAIN = CudaKernel(
 EXPAND_EMIT = CudaKernel(
     "expand_pairs_binned", "pair_expand", "gsrt_expand_emit",
     [P, I, P, I, P, I, I, I, I, P, P])
+EXPAND_GATHER = CudaKernel(
+    "expand_pairs", "pair_expand", "gsrt_expand_gather",
+    [P, I, I, P, I, P, P])
 BLEND_GROUP = CudaKernel(
     "blend_packed_group", "splat_packed", "gsrt_blend_group",
     [P, LL, P, I, I, I, I, I, I, I, F, I, F, F, F, P, P, P])
+BLEND_SUBTILE = CudaKernel(
+    "blend_subtiles", "splat_subtile", "gsrt_blend_subtile",
+    [P, LL, P, I, I, I, I, I, I, F, I, F, F, F, P, P, P])
+BLEND_BACKWARD = CudaKernel(
+    "blend_backward", "splat_grad", "gsrt_blend_backward",
+    [P, LL, P, P, I, I, I, I, F, I, F, F, F, P, P])
 
-KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, BLEND_GROUP)
+KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_GATHER, BLEND_GROUP,
+           BLEND_SUBTILE, BLEND_BACKWARD)
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel gsrt/ops/pair_expand.py:_expand_fused_kernel
 // (:243) in both of its modes: plain (expand_pairs_fused) and emit
 // (expand_pairs_binned, whose per-pair arithmetic is _emit_binned_rows,
-// :122-184).
+// :122-184); and the TPU kernel gsrt/ops/pair_expand.py:_expand_kernel
+// (:47, expand_pairs), which copies through a source row s(p) that its
+// caller computed.
 //
 // Contract. tab is [rows, n] int32, row-major (float rows travel as their
 // bits). base [n] is each source's first output column: strictly
@@ -24,7 +26,10 @@
 // run) was the alternative; it needs no search but leaves warps idle on
 // short runs and unbalanced on long ones, and its writes are not
 // coalesced. Integer division takes the place of the TPU's f32-division
-// fixups.
+// fixups. The gather kernel (expand_pairs) is the same copy with s(p) read
+// from a row the wrapper computed: the TPU kernel streamed 128-aligned
+// table windows and shifted them into place, here it is one indexed load
+// per row.
 //
 // Bound. Bytes: each output word is written once (rows x 4 B x mp) and each
 // table column is read about once; there is no arithmetic to speak of.
@@ -59,6 +64,16 @@ __global__ void expand_plain_kernel(const int* __restrict__ tab, int rows,
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= mp) return;
   int s = source_of(base, n, p);
+  for (int r = 0; r < rows; ++r)
+    out[(size_t)r * mp + p] = __ldg(tab + (size_t)r * n + s);
+}
+
+__global__ void expand_gather_kernel(const int* __restrict__ tab, int rows,
+                                     int n, const int* __restrict__ src,
+                                     int mp, int* __restrict__ out) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= mp) return;
+  int s = __ldg(src + p);
   for (int r = 0; r < rows; ++r)
     out[(size_t)r * mp + p] = __ldg(tab + (size_t)r * n + s);
 }
@@ -123,6 +138,15 @@ int gsrt_expand_plain(const int* tab, int rows, int n, const int* base,
     expand_plain_kernel<<<blocks_for(mp), kThreads, 0,
                           (cudaStream_t)stream>>>(tab, rows, n, base, mp,
                                                   out);
+  return (int)cudaGetLastError();
+}
+
+int gsrt_expand_gather(const int* tab, int rows, int n, const int* src,
+                       int mp, int* out, void* stream) {
+  if (mp > 0)
+    expand_gather_kernel<<<blocks_for(mp), kThreads, 0,
+                           (cudaStream_t)stream>>>(tab, rows, n, src, mp,
+                                                   out);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
+from gsrt_torch.models.trainer import GaussianParams
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -35,3 +36,19 @@ def camera_from_numpy(view, fx, fy, cx, cy, width: int, height: int,
     return Camera(view=_f32(view, dev), fx=_f32(fx, dev), fy=_f32(fy, dev),
                   cx=_f32(cx, dev), cy=_f32(cy, dev), width=int(width),
                   height=int(height))
+
+
+def params_from_numpy(means, log_scales, quats, opacity_logit, sh,
+                      device=None) -> GaussianParams:
+    """The five trainable arrays (means [N, 3], log_scales [N, 3], quats
+    [N, 4], opacity_logit [N], sh [N, K, 3]) → parameters on the device."""
+    dev = resolve_device(device)
+    return GaussianParams(*(_f32(a, dev) for a in (
+        means, log_scales, quats, opacity_logit, sh)), device=dev)
+
+
+def params_to_numpy(params: GaussianParams) -> tuple[np.ndarray, ...]:
+    """(means, log_scales, quats, opacity_logit, sh) as NumPy arrays."""
+    return tuple(p.detach().cpu().numpy() for p in (
+        params.means, params.log_scales, params.quats, params.opacity_logit,
+        params.sh))

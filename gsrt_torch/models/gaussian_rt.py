@@ -5,9 +5,11 @@
   depth — per-pixel visit order is exact because depth is per splat. The
   port's semantic oracle.
 * `render_tiled`: the performance path. Projection and SH, footprint
-  extents, group-stream binning (two expand kernels) and the packed blend
-  kernel. It takes the JAX package's gating; where that gating would
-  leave the group stream it raises NotImplementedError.
+  extents, then group-stream binning (two expand kernels) and the packed
+  blend kernel, or, with blend_impl="subtile", the f32 tile stream and
+  the subtile blend kernel. It takes the JAX package's gating; where
+  that gating leads to a stream or a blend that is not ported it raises
+  NotImplementedError.
 * `GaussianRayTracer`: sizes the static pair and unit buffers from a
   NumPy count of the view (`calibrate`) and re-renders a frame that
   overflowed them.
@@ -65,6 +67,31 @@ def _precompute(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig):
     degree = min(cfg.sh_degree, cloud.sh_degree)
     colors = eval_sh(cloud.sh, d * inv_n[:, None], degree)
     return depth, mean2d, quad, in_front, colors
+
+
+def alive_mask(depth, opacity, in_front, cfg: RenderConfig) -> torch.Tensor:
+    """Splats the tiled path bins: in front, above the alpha threshold and
+    inside the ray's depth window."""
+    return (in_front & (opacity > cfg.alpha_threshold) & (depth > cfg.t_min)
+            & (depth < min(cfg.t_max, cfg.init_depth)))
+
+
+TODO_BLEND_TILES = "ROADMAP.md Queue 2 item 6 (the (128, 8)-tile blend)"
+
+
+def blend_params(cfg: RenderConfig) -> dict:
+    """The blend's constants for a configuration, shared by the forward
+    and the backward."""
+    return dict(
+        g_cutoff=cfg.g_cutoff, alpha_threshold=cfg.alpha_threshold,
+        alpha_clamp=0.99 if cfg.conic_mode == "standard" else 0.999999,
+        # in standard mode with opacity ≤ 1, alpha > 1/255 implies
+        # g < ln(255) < g_cutoff: the blend can skip the range test
+        skip_range_check=(cfg.conic_mode == "standard"
+                          and cfg.alpha_threshold >= 1.0 / 255.0
+                          and cfg.g_cutoff >= 5.55
+                          and not cfg.use_exp_lut),
+        use_exp_lut=cfg.use_exp_lut)
 
 
 def _empty_output(camera: Camera, cfg: RenderConfig) -> RenderOutput:
@@ -173,22 +200,32 @@ def stream_plan(cfg: RenderConfig, width: int, height: int) -> StreamPlan:
 def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
                  max_pairs: int = 1 << 20, max_rows: int | None = None
                  ) -> RenderOutput:
-    """Tile-binned splatting on the group-contiguous compact stream.
+    """Tile-binned splatting: the group-contiguous compact stream through
+    the packed blend, or (blend_impl="subtile") the f32 tile stream through
+    the subtile blend.
 
-    max_pairs sizes the pair buffer, max_rows the unit buffer (max_pairs
-    when None); a view that needs more sets `overflow` and renders the
-    truncated stream. Configurations the JAX package renders on another
-    stream raise NotImplementedError. The blend computes in f32 whatever
-    `cfg.blend_math` says: the port has no bf16 tier yet."""
+    max_pairs sizes the pair buffer, max_rows the group stream's unit
+    buffer (max_pairs when None); a view that needs more sets `overflow`
+    and renders the truncated stream. Other configurations the JAX package
+    renders on the tile stream raise NotImplementedError. The blends
+    compute in f32 whatever `cfg.blend_math` says: the port has no bf16
+    tier yet."""
     from gsrt_torch.ops.splat_packed import blend_packed
+    from gsrt_torch.ops.splat_subtile import blend_subtiles
     from gsrt_torch.ops.tile_binning import build_tile_binning
 
     plan = stream_plan(cfg, camera.width, camera.height)
-    if plan.stream != "group":
+    tw, th = cfg.tile_w, cfg.tile_h
+    subtile = cfg.blend_impl == "subtile"
+    if (tw, th) == (128, 8):
+        raise NotImplementedError(
+            f"tile shape (128, 8) blends through blend_tiles: "
+            f"{TODO_BLEND_TILES}")
+    if plan.stream != "group" and not subtile:
         raise NotImplementedError(
             f"this configuration takes the JAX package's {plan.stream!r} "
             f"stream (compact={plan.compact}, span_mode={plan.span_mode!r})"
-            f"; gsrt_torch renders the group stream only: see "
+            f"; gsrt_torch renders it only with blend_impl='subtile': see "
             f"{TODO_TILE_STREAM}")
     if cfg.exact_hits:
         raise NotImplementedError("exact_hits is ROADMAP.md Queue 2 item 3")
@@ -203,30 +240,24 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
     rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode, cfg.g_cutoff,
                                 opacity=cloud.opacity,
                                 alpha_threshold=cfg.alpha_threshold)
-    alive = (in_front & (cloud.opacity > cfg.alpha_threshold)
-             & (depth > cfg.t_min)
-             & (depth < min(cfg.t_max, cfg.init_depth)))
-    tw, th = cfg.tile_w, cfg.tile_h
+    alive = alive_mask(depth, cloud.opacity, in_front, cfg)
+    ntx, nty = tile_extent(camera.width, camera.height, tw, th)
     binning = build_tile_binning(
         depth, m2x, m2y, qa, qb, qc, cloud.opacity, colors[:, 0],
         colors[:, 1], colors[:, 2], rx, ry, alive,
         width=camera.width, height=camera.height, tile_w=tw, tile_h=th,
         max_pairs=max_pairs, compact=plan.compact, span_mode=plan.span_mode,
-        max_rows=max_rows, stream=plan.stream)
-
-    alpha_clamp = 0.99 if cfg.conic_mode == "standard" else 0.999999
-    # in standard mode with opacity ≤ 1, alpha > 1/255 implies
-    # g < ln(255) < g_cutoff: the blend can skip the range test
-    skip_range = (cfg.conic_mode == "standard"
-                  and cfg.alpha_threshold >= 1.0 / 255.0
-                  and cfg.g_cutoff >= 5.55 and not cfg.use_exp_lut)
-    ntx, nty = tile_extent(camera.width, camera.height, tw, th)
-    color, trans = blend_packed(
-        binning, width=camera.width, height=camera.height, sub_w=tw,
-        sub_h=th, bs=plan.group_k * ntx, group_stream=True,
-        g_cutoff=cfg.g_cutoff, alpha_threshold=cfg.alpha_threshold,
-        alpha_clamp=alpha_clamp, skip_range_check=skip_range,
-        use_exp_lut=cfg.use_exp_lut)
+        max_rows=max_rows, stream=plan.stream, expand_impl=cfg.expand_impl)
+    if subtile:
+        # the subtile blend stages and stops at 128-pair chunks
+        color, trans = blend_subtiles(
+            binning, width=camera.width, height=camera.height, sub_w=tw,
+            sub_h=th, chunk=min(cfg.pair_chunk, 128), **blend_params(cfg))
+    else:
+        color, trans = blend_packed(
+            binning, width=camera.width, height=camera.height, sub_w=tw,
+            sub_h=th, bs=plan.group_k * ntx, group_stream=True,
+            **blend_params(cfg))
     if cfg.white_background:
         color = color + trans[..., None]
 

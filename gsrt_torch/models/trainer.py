@@ -1,0 +1,173 @@
+"""Differentiable 3DGS rendering and optimisation (scene fitting).
+
+Counterpart of `gsrt.models.trainer`. `render_loss` differentiates
+`render_fast` (plain tensor code, O(splats × pixels));
+`render_loss_tiled` differentiates the tiled path through its forward and
+backward kernels (`gsrt_torch.models.tiled_diff`). The sort and cull
+indices are constants of a step, as in the standard CUDA trainer.
+
+PyTorch idiom where it differs from the JAX package: the parameters are
+an `nn.Module`, the optimiser is one `torch.optim.Adam` that owns its
+state, and a training step updates both in place and returns the loss.
+The data-parallel step (`make_train_step_dp`) is not ported yet
+(ROADMAP.md Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gsrt_torch.core.config import RenderConfig
+from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
+from gsrt_torch.models.gaussian_rt import render_fast
+from gsrt_torch.models.tiled_diff import render_tiled_diff
+from gsrt_torch.ops.gaussian import quat_scale_to_cov3d
+
+
+class GaussianParams(nn.Module):
+    """Trainable parameterisation (the standard 3DGS activations: exp for
+    scales, sigmoid for opacity, normalised quaternions). The tensors are
+    moved to `device` (CUDA unless named) and become the parameters."""
+
+    def __init__(self, means, log_scales, quats, opacity_logit, sh,
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        par = lambda t: nn.Parameter(
+            t.detach().to(device=dev, dtype=torch.float32).clone())
+        self.means = par(means)                  # [N, 3]
+        self.log_scales = par(log_scales)        # [N, 3]
+        self.quats = par(quats)                  # [N, 4]
+        self.opacity_logit = par(opacity_logit)  # [N]
+        self.sh = par(sh)                        # [N, K, 3]
+
+    def to_cloud(self) -> GaussianCloud:
+        cov3d = quat_scale_to_cov3d(self.quats, torch.exp(self.log_scales))
+        return GaussianCloud(means=self.means, cov3d=cov3d,
+                             opacity=torch.sigmoid(self.opacity_logit),
+                             sh=self.sh)
+
+
+def init_params(cloud: GaussianCloud) -> GaussianParams:
+    """Initialise from an existing cloud, on its device (isotropic scale
+    estimate from the covariance trace; rotation reset to identity)."""
+    tr = (cloud.cov3d[:, 0] + cloud.cov3d[:, 3] + cloud.cov3d[:, 5]) / 3.0
+    s = torch.sqrt(torch.clamp_min(tr, 1e-12))
+    quats = torch.zeros((cloud.n, 4), device=cloud.device)
+    quats[:, 0] = 1.0
+    op = torch.clamp(cloud.opacity, 1e-4, 1 - 1e-4)
+    return GaussianParams(
+        means=cloud.means, log_scales=torch.log(torch.stack([s, s, s], -1)),
+        quats=quats, opacity_logit=torch.log(op / (1 - op)), sh=cloud.sh,
+        device=cloud.device)
+
+
+def random_init(generator: torch.Generator, n: int, extent: float = 3.0,
+                z_offset: float = 4.0, sh_degree: int = 0, device=None
+                ) -> GaussianParams:
+    """n splats drawn from `generator` (on its device, then moved):
+    uniform centers in ±extent pushed z_offset forward, scale 0.3, identity
+    rotation, opacity ½, small normal SH."""
+    dev = resolve_device(device)
+    gdev = generator.device
+    means = (torch.rand((n, 3), generator=generator, device=gdev) * 2.0
+             - 1.0) * extent
+    means[:, 2] += z_offset
+    K = (sh_degree + 1) ** 2
+    quats = torch.zeros((n, 4))
+    quats[:, 0] = 1.0
+    return GaussianParams(
+        means=means,
+        log_scales=torch.full((n, 3), 0.3).log(),
+        quats=quats, opacity_logit=torch.zeros(n),
+        sh=0.1 * torch.randn((n, K, 3), generator=generator, device=gdev),
+        device=dev)
+
+
+def _ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0
+          ) -> torch.Tensor:
+    """11×11 mean-window SSIM over [H, W, 3] images, windows inside the
+    image only. The mean filter is `avg_pool2d`, which sums in float32 on
+    every device (a float32 convolution would run in TF32 on the card)."""
+    c1 = (0.01 * max_val) ** 2
+    c2 = (0.03 * max_val) ** 2
+
+    def filt(x):
+        y = nn.functional.avg_pool2d(x.permute(2, 0, 1)[None], 11, stride=1)
+        return y[0].permute(1, 2, 0)
+
+    mu_a, mu_b = filt(a), filt(b)
+    var_a = filt(a * a) - mu_a ** 2
+    var_b = filt(b * b) - mu_b ** 2
+    cov = filt(a * b) - mu_a * mu_b
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2))
+    return s.mean()
+
+
+def image_loss(img: torch.Tensor, target: torch.Tensor,
+               lambda_ssim: float = 0.2) -> torch.Tensor:
+    """The standard 3DGS loss: (1 − λ)·L1 + λ·(1 − SSIM); L1 alone for
+    images narrower than the SSIM window."""
+    l1 = (img - target).abs().mean()
+    if lambda_ssim > 0 and min(img.shape[0], img.shape[1]) >= 11:
+        return (1 - lambda_ssim) * l1 + lambda_ssim * (1 - _ssim(img, target))
+    return l1
+
+
+def render_loss(params: GaussianParams, target, camera: Camera,
+                cfg: RenderConfig, lambda_ssim: float = 0.2):
+    """`image_loss` of `render_fast` (white background, if any, already
+    composited)."""
+    out = render_fast(params.to_cloud(), camera, cfg)
+    return image_loss(out.color, target, lambda_ssim)
+
+
+def render_loss_tiled(params: GaussianParams, target, camera: Camera,
+                      cfg: RenderConfig, max_pairs: int,
+                      lambda_ssim: float = 0.2):
+    """`render_loss` on the tiled path: scales to resolutions and splat
+    counts whose residuals `render_fast` cannot hold."""
+    img, _ = render_tiled_diff(params.to_cloud(), camera, cfg, max_pairs)
+    return image_loss(img, target, lambda_ssim)
+
+
+def make_optimizer(params: GaussianParams, lr_means=1.6e-4, lr_scales=5e-3,
+                   lr_quats=1e-3, lr_opacity=5e-2, lr_sh=2.5e-3
+                   ) -> torch.optim.Adam:
+    """One Adam with a parameter group per field (the INRIA learning-rate
+    split); b1 = 0.9, b2 = 0.999, eps = 1e-8 added outside the root, as
+    optax's adam."""
+    groups = [(params.means, lr_means), (params.log_scales, lr_scales),
+              (params.quats, lr_quats), (params.opacity_logit, lr_opacity),
+              (params.sh, lr_sh)]
+    return torch.optim.Adam([dict(params=[p], lr=lr) for p, lr in groups],
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def _step(loss_fn, optimizer) -> torch.Tensor:
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train_step(params: GaussianParams, optimizer, target, camera: Camera,
+               cfg: RenderConfig, lambda_ssim: float = 0.2) -> torch.Tensor:
+    """One optimiser step on `render_loss`; updates params and the
+    optimiser in place and returns the loss before the step."""
+    return _step(lambda: render_loss(params, target, camera, cfg,
+                                     lambda_ssim), optimizer)
+
+
+def train_step_tiled(params: GaussianParams, optimizer, target,
+                     camera: Camera, cfg: RenderConfig, max_pairs: int,
+                     lambda_ssim: float = 0.2) -> torch.Tensor:
+    """One optimiser step on `render_loss_tiled`; updates params and the
+    optimiser in place and returns the loss before the step. Raises when
+    the view needs more than max_pairs pairs."""
+    return _step(lambda: render_loss_tiled(params, target, camera, cfg,
+                                           max_pairs, lambda_ssim),
+                 optimizer)

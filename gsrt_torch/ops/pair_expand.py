@@ -1,11 +1,14 @@
 """Run expansion of a depth-sorted source table into pair columns.
 
 Counterpart of `gsrt.ops.pair_expand`: `expand_pairs_fused` copies source
-columns, `expand_pairs_binned` emits the compact pair payload. On a CUDA
-tensor both launch `csrc/pair_expand.cu` (which replaces the TPU kernel
-`_expand_fused_kernel`); on a CPU tensor they run the plain versions
-below, which compute the same function with `torch.searchsorted` and a
-gather. Tables are int32: float rows travel as their bits.
+columns and finds each pair's source inside the kernel,
+`expand_pairs_binned` emits the compact pair payload, and `expand_pairs`
+copies source columns through a source index computed beforehand. On a
+CUDA tensor they launch `csrc/pair_expand.cu` (which replaces the TPU
+kernels `_expand_fused_kernel` and `_expand_kernel`); on a CPU tensor they
+run the plain versions below, which compute the same function with
+`torch.searchsorted` and a gather. Tables are int32: float rows travel as
+their bits.
 """
 
 from __future__ import annotations
@@ -88,6 +91,25 @@ def expand_pairs_fused(tab: torch.Tensor, base: torch.Tensor,
         _kernels.EXPAND_PLAIN(tab.data_ptr(), tab.shape[0], tab.shape[1],
                               base.data_ptr(), max_pairs, out.data_ptr(),
                               _kernels.stream_ptr(tab))
+    return out
+
+
+def expand_pairs(tab: torch.Tensor, base: torch.Tensor,
+                 max_pairs: int) -> torch.Tensor:
+    """`expand_pairs_fused` with the dense source row s(p) computed outside
+    the kernel (`source_index`), as the JAX package's `expand_pairs` merges
+    it outside its kernel; the kernel is the gather out[r, p] = tab[r, s[p]].
+    Same contract and the same result, bit for bit."""
+    _check(tab, base, 1)
+    if not tab.is_cuda:
+        return expand_pairs_plain(tab, base, max_pairs)
+    s = source_index(base, max_pairs).to(torch.int32)
+    out = torch.empty((tab.shape[0], max_pairs), dtype=torch.int32,
+                      device=tab.device)
+    with torch.cuda.device(tab.device):
+        _kernels.EXPAND_GATHER(tab.data_ptr(), tab.shape[0], tab.shape[1],
+                               s.data_ptr(), max_pairs, out.data_ptr(),
+                               _kernels.stream_ptr(tab))
     return out
 
 

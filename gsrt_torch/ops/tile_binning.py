@@ -1,19 +1,29 @@
-"""Screen-tile binning of projected splats: the group-contiguous stream.
+"""Screen-tile binning of projected splats, in two streams.
 
-Counterpart of `gsrt.ops.tile_binning` for the path `render_tiled` takes
-at its defaults (compact payload, rect spans, group stream). Splats are
-depth-sorted once; each expands to (splat × row-group) units, where a
-group is k full tile rows (bs = k·ntx tiles); one stable sort of the units
-by group id makes the pairs contiguous per group and depth-ordered per
-tile; the emit expansion then writes the compact payload directly. The
-data contract is the JAX package's: the same pairs, the same per-tile
-depth order, the same decoded fields, the same tile_start / tile_count /
+Counterpart of `gsrt.ops.tile_binning` for rect spans.
+
+* The group-contiguous compact stream (`compact=True`), the path
+  `render_tiled` takes at its defaults. Splats are depth-sorted once; each
+  expands to (splat × row-group) units, where a group is k full tile rows
+  (bs = k·ntx tiles); one stable sort of the units by group id makes the
+  pairs contiguous per group and depth-ordered per tile; the emit
+  expansion then writes the compact payload directly.
+* The tile-sorted f32 stream (`compact=False`), which training and the
+  subtile blend read. Depth-sorted splats expand to pairs, one stable
+  sort by tile id makes each tile's pairs one contiguous, depth-ordered
+  segment, and the payload carries the f32 features unrounded. With
+  `with_ids` it also carries each pair's depth-order index and the
+  per-splat bookkeeping that routes pair gradients back to splats.
+
+The data contract is the JAX package's: the same pairs, the same per-tile
+depth order, the same fields, the same tile_start / tile_count /
 total_pairs / overflow.
 
 Sorts are `torch.sort` plus index gathers and the tile histogram is a
 scatter-add of rectangle corner marks followed by two prefix sums: none of
-this is a TPU kernel. The payload keeps its five live rows (the JAX
-package pads to eight for the TPU's DMA tiling).
+this is a TPU kernel. Payloads keep their live rows and columns only: the
+JAX package pads the compact payload to eight rows and the f32 payload by
+a chunk + 128 column tail for the TPU's DMA windows.
 """
 
 from __future__ import annotations
@@ -36,8 +46,17 @@ MEAN_COARSE_BIAS = 2048.0  # … over [-2048, +2048) px (saturating)
 COLOR8_FINE = 1.0 / 127.0
 COLOR8_COARSE = 3.0 / 127.0
 
-TODO_TILE_STREAM = ("ROADMAP.md Queue 1 item 8 (the tile-stream and f32 "
-                    "tiers)")
+# --- f32 payload: int32 [8, max_pairs], float rows travel as their bits ---
+# rows: 0 mean x, 1 mean y, 2-4 conic a, b, c (all f32 bits),
+#       5 pack15(r, g), 6 pack15(b, opacity),
+#       7 depth-order pair index (with_ids; max_pairs on dead slots), else
+#         tile id | bit 30
+PAYLOAD_WIDTH = 8
+N_FEATURES = 7
+PACK_RANGE = 4.0           # pack15 covers [0, PACK_RANGE) in 15 bits
+_PACK_BIAS = 1 << 30
+
+TODO_TILE_STREAM = ("ROADMAP.md Queue 1 item 8 (the compact tile stream)")
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +87,22 @@ def unpack_rgba8(w: torch.Tensor):
     op = (w & 0xFF).to(torch.float32) * (1.0 / 255.0)
     return (color8((w >> 24) & 0xFF), color8((w >> 16) & 0xFF),
             color8((w >> 8) & 0xFF), op)
+
+
+def pack15(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Two [0, PACK_RANGE) floats → one int32 word bit30 | (u15 << 15) | u15.
+    The cast truncates, as the JAX package's does."""
+    q = 32767.0 / PACK_RANGE
+    xi = _i32(torch.clamp(x * q, 0, 32767))
+    yi = _i32(torch.clamp(y * q, 0, 32767))
+    return _PACK_BIAS | (xi << 15) | yi
+
+
+def unpack15(w: torch.Tensor):
+    """pack15 word → (hi, lo) float32."""
+    inv_q = PACK_RANGE / 32767.0
+    return (((w >> 15) & 0x7FFF).to(torch.float32) * inv_q,
+            (w & 0x7FFF).to(torch.float32) * inv_q)
 
 
 def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
@@ -117,12 +152,20 @@ def unpack_mean_rel(w: torch.Tensor):
 
 
 class TileBinning(NamedTuple):
-    payload: torch.Tensor      # [5, max_pairs] int32 compact pair payload,
-                               # contiguous per group, depth order per tile
+    payload: torch.Tensor      # int32; compact: [5, max_pairs], contiguous
+                               # per group, depth order per tile; f32:
+                               # [8, max_pairs], (tile, depth)-ordered
     tile_start: torch.Tensor   # [T + 1] int32 pair offsets per tile
     tile_count: torch.Tensor   # [T] int32 pairs per tile
     total_pairs: torch.Tensor  # [] int32 pairs before capping
     overflow: torch.Tensor     # [] bool — pairs or units exceeded the buffers
+    # set only by the f32 stream built with with_ids=True:
+    sorted_base: torch.Tensor | None = None     # [N] int32 first pair of
+                               # each depth-sorted splat (_DEAD_BASE if none)
+    sorted_touched: torch.Tensor | None = None  # [N] int32 pairs per
+                               # depth-sorted splat
+    sorted_orig: torch.Tensor | None = None     # [N] int32 original index
+                               # of each depth-sorted slot
 
 
 def tile_extent(width: int, height: int, tile_w: int, tile_h: int):
@@ -179,24 +222,32 @@ def build_tile_binning(
     *, width: int, height: int, tile_w: int = 32, tile_h: int = 16,
     max_pairs: int = 1 << 20, compact: bool = True, span_mode: str = "rect",
     max_rows: int | None = None, stream: str = "group",
+    expand_impl: str = "fused", with_ids: bool = False,
 ) -> TileBinning:
-    """Bin splats into group-contiguous, per-tile depth-ordered pairs.
+    """Bin splats into per-tile depth-ordered pairs.
 
-    Per-splat inputs are [N] columns and need not be depth-sorted. Only
-    the group stream with the compact payload and rect spans is ported;
-    other streams raise NotImplementedError."""
-    if not (compact and stream == "group" and span_mode == "rect"):
+    Per-splat inputs are [N] columns and need not be depth-sorted.
+    compact=True builds the group-contiguous compact stream (stream must
+    be "group"); compact=False the tile-sorted f32 stream, expanded by
+    `expand_impl` ("fused", "pallas", or "xla" for the plain version on
+    the CPU), with the gradient-routing bookkeeping when `with_ids`. Only
+    rect spans are ported; what is not raises NotImplementedError."""
+    if span_mode != "rect" or (compact and stream != "group"):
         raise NotImplementedError(
-            f"gsrt_torch bins only the group stream with the compact payload "
-            f"and rect spans; got compact={compact},"
+            f"gsrt_torch bins rect spans into the group stream (compact) "
+            f"or the f32 tile stream; got compact={compact},"
             f" stream={stream!r}, span_mode={span_mode!r}: see "
             f"{TODO_TILE_STREAM}")
+    if with_ids and compact:
+        raise ValueError("with_ids needs the f32 stream (compact=False)")
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     T = ntx * nty
     k = group_rows_k(ntx)
-    if k is None or ntx > 127:
+    if compact and (k is None or ntx > 127):
         raise NotImplementedError(
             f"tile grid ntx={ntx} has no group shape; see {TODO_TILE_STREAM}")
+    if ntx >= (1 << 12) or nty >= (1 << 12) or T >= (1 << 20):
+        raise ValueError("tile grid exceeds the packed-operand bit budget")
 
     x0, x1, y0, y1, touched = compute_tile_spans(
         m2x, m2y, rx, ry, alive, width, height, tile_w, tile_h)
@@ -210,6 +261,12 @@ def build_tile_binning(
     # overflow truncates the deepest pairs; clamping keeps every segment
     # inside the payload until the caller re-calibrates
     tile_start = torch.minimum(tile_start, torch.clamp_max(total, max_pairs))
+    if not compact:
+        return _build_f32_stream(
+            depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+            x0, x1, y0, touched, ntx=ntx, T=T, max_pairs=max_pairs,
+            expand_impl=expand_impl, with_ids=with_ids, counts=counts,
+            tile_start=tile_start, total=total, overflow=overflow)
     return _build_group_stream(
         depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
         x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
@@ -298,3 +355,72 @@ def _build_group_stream(
     return TileBinning(payload=payload, tile_start=tile_start,
                        tile_count=counts, total_pairs=total,
                        overflow=overflow | (units_total > max_units))
+
+
+def _build_f32_stream(
+    depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, x0, x1, y0,
+    touched, *, ntx, T, max_pairs, expand_impl, with_ids, counts,
+    tile_start, total, overflow,
+) -> TileBinning:
+    """Depth sort, expand splats → pairs, stable sort by tile id, f32
+    payload [8, max_pairs]."""
+    from gsrt_torch.ops import pair_expand
+
+    dev = depth.device
+    live = touched > 0
+    bits = lambda a: a.view(torch.int32)
+
+    # --- depth sort: splats that emit pairs first, front to back. The
+    # table is 4 geometry rows + the 7 feature rows (the JAX table's
+    # twelfth row, camera depth, rides only for serving); row 3 carries
+    # the pair count through the sort and then holds the base ---
+    key = torch.where(live, depth, torch.full_like(depth, float("inf")))
+    order = torch.argsort(key)
+    tab = torch.stack([x0, y0, torch.clamp_min(x1 - x0 + 1, 1), touched,
+                       bits(m2x), bits(m2y), bits(qa_c), bits(qb_c),
+                       bits(qc_c), pack15(cr, cg), pack15(cb, opacity)]
+                      )[:, order]
+    touched_s = tab[3].clone()
+    offsets = torch.cumsum(touched_s, 0, dtype=torch.int32)
+    base = torch.where(touched_s > 0, offsets - touched_s,
+                       torch.full_like(offsets, pair_expand._DEAD_BASE))
+    tab[3] = base
+    if expand_impl == "fused":
+        rows = pair_expand.expand_pairs_fused(tab, base, max_pairs)
+    elif expand_impl in ("pallas", "binned"):   # binned emit is compact-only
+        rows = pair_expand.expand_pairs(tab, base, max_pairs)
+    elif expand_impl == "xla":
+        if tab.is_cuda:
+            raise ValueError(
+                "expand_impl='xla' is the plain version and runs on CPU "
+                "tensors only; on CUDA use 'fused' or 'pallas'")
+        rows = pair_expand.expand_pairs_plain(tab, base, max_pairs)
+    else:
+        raise ValueError(f"unknown expand_impl {expand_impl!r}")
+    gx0, gy0, gw, gbase = rows[0], rows[1], rows[2], rows[3]
+
+    slots = torch.arange(max_pairs, dtype=torch.int32, device=dev)
+    valid = slots < torch.clamp_max(total, max_pairs)
+    rank = torch.where(valid, slots - gbase, torch.zeros_like(slots))
+    q = torch.div(rank, gw, rounding_mode="floor")
+    tile = torch.where(valid, (gy0 + q) * ntx + gx0 + (rank - q * gw),
+                       torch.full_like(slots, T))               # sentinel T
+
+    # --- stable sort by tile: splats are depth-ordered, so each tile's
+    # segment stays front to back; dead slots sink to the tail ---
+    tile_s, perm = torch.sort(tile, stable=True)
+    dead = tile_s >= T
+    feats = rows[4:4 + N_FEATURES][:, perm]
+    feats = torch.where(dead[None, :], torch.zeros_like(feats), feats)
+    if with_ids:
+        row7 = torch.where(dead, torch.full_like(tile_s, max_pairs),
+                           _i32(perm))
+    else:
+        row7 = tile_s | _PACK_BIAS
+    payload = torch.cat([feats, row7[None, :]])
+    return TileBinning(
+        payload=payload, tile_start=tile_start, tile_count=counts,
+        total_pairs=total, overflow=overflow,
+        sorted_base=base if with_ids else None,
+        sorted_touched=touched_s if with_ids else None,
+        sorted_orig=_i32(order) if with_ids else None)

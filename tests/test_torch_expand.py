@@ -2,7 +2,10 @@
 package's fused Pallas kernel (interpret mode, CPU), on the same NumPy
 tables.
 
-Tolerances: the copy mode is compared bit for bit. In the emit mode the
+Tolerances: the copy mode is compared bit for bit, through the fused entry
+point (`expand_pairs_fused`) and through the one that takes the source row
+from outside the kernel (`expand_pairs`), dead sources included, at the
+compact stream's 8 table rows and the f32 stream's 11. In the emit mode the
 tile ids, the bf16 Cholesky words and rgba8 are exact, and each u16 mean
 code may differ by one step (f32 rounding of the tile-relative mean).
 The CUDA kernel is held against the plain version in
@@ -65,6 +68,17 @@ def _jax_fused(tab, base, mp):
     return np.asarray(out).view(np.int32)
 
 
+def _jax_expand_pairs(tab, base, mp):
+    """The JAX kernel takes row counts that are multiples of 8: pad the
+    table with zero rows and cut them off again."""
+    rows = tab.shape[0]
+    padded = np.concatenate(
+        [tab, np.zeros((-rows % 8, tab.shape[1]), np.int32)])
+    out = j_pe.expand_pairs(jnp.asarray(padded.view(np.float32)),
+                            jnp.asarray(base), mp, interpret=True)
+    return np.asarray(out).view(np.int32)[:rows]
+
+
 @pytest.mark.parametrize("n,n_live,slack", [
     (700, 650, 300),     # dead tail and spare pair slots
     (1500, 1500, 0),     # every source live, exact fit
@@ -78,6 +92,26 @@ def test_copy_mode_matches_jax_bitwise(n, n_live, slack):
     got = t_pe.expand_pairs_fused(torch.as_tensor(tab),
                                   torch.as_tensor(base), mp)
     np.testing.assert_array_equal(got.numpy(), _jax_fused(tab, base, mp))
+
+
+@pytest.mark.parametrize("rows", [8, 11])
+@pytest.mark.parametrize("n,n_live,slack", [
+    (700, 650, 300),     # dead tail and spare pair slots
+    (900, 800, -500),    # pair buffer smaller than the view: truncation
+    (64, 0, 256),        # no live source at all
+])
+def test_expand_pairs_matches_jax_and_fused_bitwise(n, n_live, slack, rows):
+    rng = np.random.default_rng(n + rows)
+    base, total = _bases(rng, n, n_live)
+    mp = total + slack
+    tab = _table(rng, rows, n, base)
+    got = t_pe.expand_pairs(torch.as_tensor(tab), torch.as_tensor(base), mp)
+    assert got.shape == (rows, mp) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_expand_pairs(tab, base, mp))
+    fused = t_pe.expand_pairs_fused(torch.as_tensor(tab),
+                                    torch.as_tensor(base), mp)
+    assert torch.equal(got, fused)
 
 
 def test_copy_mode_no_live_sources():
@@ -127,6 +161,10 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         t_pe.expand_pairs_fused(
             torch.zeros((4, 8), dtype=torch.int32).T, base[:1].repeat(8), 8)
+    with pytest.raises(TypeError):
+        t_pe.expand_pairs(torch.zeros((8, 4)), base, 8)
+    with pytest.raises(ValueError):
+        t_pe.expand_pairs(torch.zeros((8, 5), dtype=torch.int32), base, 8)
     with pytest.raises(ValueError):
         t_pe.expand_pairs_binned(torch.zeros((4, 4), dtype=torch.int32),
                                  base, 8, total=torch.tensor(0), ntx=1, T=1,

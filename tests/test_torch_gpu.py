@@ -4,9 +4,13 @@ imports neither jax nor gsrt, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: the expand kernel is compared bit for bit in both modes; the
-blend kernel at atol 2e-3 on color and trans (f32 summation order and the
-exp implementation differ from the plain version's).
+Tolerances: the expand kernels are compared bit for bit in every mode; the
+packed blend kernel at atol 2e-3 on color and trans, the subtile blend
+kernel at 1e-4 (f32 summation order and the exp implementation differ
+from the plain version's); the backward kernel per gradient row, divided
+by the row's largest magnitude, at 1e-3 (the same, plus the block
+reduction's order); gradients of the autograd function on the card
+against the plain versions on the CPU, normalised, at 1e-3.
 """
 
 from __future__ import annotations
@@ -17,8 +21,12 @@ import torch
 
 from gsrt_torch import RenderConfig, _kernels
 from gsrt_torch.models import gaussian_rt as t_rt
+from gsrt_torch.models import tiled_diff as t_td
 from gsrt_torch.ops import pair_expand as t_pe
+from gsrt_torch.ops import splat_grad as t_grad
 from gsrt_torch.ops import splat_packed as t_sp
+from gsrt_torch.ops import splat_subtile as t_sub
+from gsrt_torch.ops import tile_binning as t_tb
 from gsrt_torch.scene import random_cloud
 
 pytestmark = pytest.mark.gpu
@@ -49,6 +57,21 @@ def test_expand_copy_kernel_bitwise(cuda):
         assert torch.equal(t_pe.expand_pairs_fused(tab, base, mp),
                            t_pe.expand_pairs_plain(tab, base, mp))
     assert _kernels.EXPAND_PLAIN.launches == before + 2
+
+
+def test_expand_gather_kernel_bitwise(cuda):
+    rng = np.random.default_rng(4)
+    n = 50_000
+    runs = np.where(np.arange(n) < 45_000, rng.integers(1, 9, n), 0)
+    base = torch.as_tensor(_runs_to_base(runs), device=cuda)
+    tab = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, (11, n))
+                          .astype(np.int32), device=cuda)
+    before = _kernels.EXPAND_GATHER.launches
+    for mp in (int(runs.sum()) + 1000, int(runs.sum()) - 777):
+        got = t_pe.expand_pairs(tab, base, mp)
+        assert torch.equal(got, t_pe.expand_pairs_plain(tab, base, mp))
+        assert torch.equal(got, t_pe.expand_pairs_fused(tab, base, mp))
+    assert _kernels.EXPAND_GATHER.launches == before + 2
 
 
 def test_expand_emit_kernel_bitwise(cuda):
@@ -116,3 +139,86 @@ def test_render_tiled_cuda_matches_cpu(cuda):
                                out_cpu.color.numpy(), atol=2e-3)
     np.testing.assert_allclose(out_gpu.trans.cpu().numpy(),
                                out_cpu.trans.numpy(), atol=2e-3)
+
+
+def _f32_binning(cuda, tile, wall: bool):
+    """A 160x96 view of 3000 splats binned on the f32 tile stream; with
+    `wall`, three image-covering splats at a clamped alpha sit 30 splats
+    deep, so every tile stops at a chunk boundary."""
+    W, H = 160, 96
+    cfg = RenderConfig(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
+    cloud, cam = random_cloud(3000, seed=2, width=W, height=H, device=cuda)
+    d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+    rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
+                                     5.6, opacity=cloud.opacity)
+    alive = t_rt.alive_mask(d, cloud.opacity, inf, cfg)
+    qa, qb, qc, op = q[:, 0].clone(), q[:, 1].clone(), q[:, 2].clone(), \
+        cloud.opacity.clone()
+    if wall:
+        idx = torch.argsort(torch.where(alive, d, torch.inf))[30:33]
+        qa[idx], qb[idx], qc[idx], op[idx] = 1e-6, 0.0, 1e-6, 0.999
+        rx, ry = rx.clone(), ry.clone()
+        rx[idx] = ry[idx] = 1e4
+    b = t_tb.build_tile_binning(
+        d, m2[:, 0], m2[:, 1], qa, qb, qc, op, col[:, 0], col[:, 1],
+        col[:, 2], rx, ry, alive, width=W, height=H, tile_w=tile[0],
+        tile_h=tile[1], max_pairs=1 << 17, compact=False, with_ids=True)
+    assert not bool(b.overflow)
+    return b, dict(width=W, height=H, chunk=128, g_cutoff=5.6,
+                   alpha_threshold=1 / 255, alpha_clamp=0.99)
+
+
+@pytest.mark.parametrize("skip_range_check", [True, False])
+@pytest.mark.parametrize("wall", [False, True])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
+def test_subtile_kernels_match_plain(cuda, tile, wall, skip_range_check):
+    b, kw = _f32_binning(cuda, tile, wall)
+    kw["skip_range_check"] = skip_range_check
+    fwd = _kernels.BLEND_SUBTILE.launches
+    ck, tk = t_sub.blend_subtiles(b, sub_w=tile[0], sub_h=tile[1], **kw)
+    stats = {}
+    cp, tp = t_sub.blend_subtiles_plain(b, sub_w=tile[0], sub_h=tile[1],
+                                        stats=stats, **kw)
+    assert _kernels.BLEND_SUBTILE.launches == fwd + 1
+    assert (stats["pairs_blended"] < int(b.total_pairs)) == wall
+    assert (ck - cp).abs().max().item() <= 1e-4
+    assert (tk - tp).abs().max().item() <= 1e-4
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    planes = [cp[..., 0], cp[..., 1], cp[..., 2], tp] + [
+        torch.randn(tp.shape, generator=g, device=cuda) for _ in range(4)]
+    pix = torch.stack([t_td.tilefy(p, *tile) for p in planes])
+    bwd = _kernels.BLEND_BACKWARD.launches
+    args = (b.payload, b.tile_start, pix)
+    gk = t_grad.blend_backward(*args, tile_w=tile[0], tile_h=tile[1], **kw)
+    gp = t_grad.blend_backward_plain(*args, tile_w=tile[0], tile_h=tile[1],
+                                     **kw)
+    assert _kernels.BLEND_BACKWARD.launches == bwd + 1
+    for r in range(t_grad.GRAD_ROWS):
+        scale = gp[r].abs().max().item()
+        assert scale > 0
+        assert ((gk[r] - gp[r]).abs().max().item() / scale) <= 1e-3, r
+
+
+def test_tiled_diff_gradients_cuda_match_cpu(cuda):
+    W, H = 160, 96
+    cfg = RenderConfig(width=W, height=H)
+    c, cam = random_cloud(2000, seed=3, width=W, height=H, device="cpu")
+    wc = torch.randn((H, W, 3), generator=torch.Generator().manual_seed(0))
+
+    def grads(dev):
+        leaf = type(c)(*(t.to(dev).clone().requires_grad_() for t in c))
+        color, trans = t_td.render_tiled_diff(leaf, cam.to(dev), cfg,
+                                              1 << 17)
+        ((color * wc.to(dev)).sum() + trans.sum()).backward()
+        return [t.grad.cpu() for t in leaf]
+
+    before = _kernels.launch_counts()
+    got, want = grads(cuda), grads("cpu")
+    after = _kernels.launch_counts()
+    for k in ("expand_pairs_fused", "blend_subtiles", "blend_backward"):
+        assert after[k] == before[k] + 1, k
+    for g, w, name in zip(got, want, c._fields):
+        assert torch.isfinite(g).all(), name
+        scale = w.abs().max().item()
+        assert ((g - w).abs().max().item() / scale) <= 1e-3, name

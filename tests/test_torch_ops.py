@@ -290,7 +290,7 @@ def test_port_imports_neither_jax_nor_gsrt():
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "gsrt")]
+           if m.split(".")[0] in ("jax", "jaxlib", "optax", "gsrt")]
     assert not bad, bad
 
 

@@ -1,0 +1,225 @@
+"""gsrt_torch f32 tile stream (`ops/tile_binning.py`, compact=False) and
+subtile blend (`ops/splat_subtile.py`) against the JAX package on the same
+NumPy columns (CPU; JAX Pallas kernels in interpret mode).
+
+Tolerances:
+  * binning with ids: payload rows 0-7 over all max_pairs columns,
+    tile_start, tile_count, total_pairs, overflow, sorted_base and
+    sorted_touched bit for bit; sorted_orig bit for bit over the splats
+    that emit pairs (the depth sort is unstable in both packages, so the
+    order of the splats behind them, which all carry the key +inf, is not
+    contractual: there the two must hold the same set). The port's payload
+    has no chunk + 128 column tail (a TPU DMA artefact);
+  * blend_subtiles: atol 1e-5 on color and trans — the same f32
+    arithmetic, summed per pixel in pair order where the JAX kernel sums a
+    chunk's lanes as a tree;
+  * render_tiled with blend_impl="subtile": atol 1e-4 (projection and SH
+    reassociate between XLA and PyTorch on top of the blend).
+The CUDA kernels are held against the plain versions in
+tests/test_torch_gpu.py, which needs a card.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsrt.core.config import RenderConfig as JCfg
+from gsrt.models import gaussian_rt as j_rt
+from gsrt.ops import splat_subtile as j_sub
+from gsrt.ops import tile_binning as j_tb
+from gsrt.scene.catalog import random_cloud as j_random_cloud
+
+from gsrt_torch import RenderConfig
+from gsrt_torch.interop import camera_from_numpy, cloud_from_numpy
+from gsrt_torch.models import gaussian_rt as t_rt
+from gsrt_torch.ops import splat_subtile as t_sub
+from gsrt_torch.ops import tile_binning as t_tb
+
+W, H, MP = 64, 48, 1 << 13
+BLEND = dict(g_cutoff=5.6, alpha_threshold=1.0 / 255.0, alpha_clamp=0.99)
+
+
+def make_columns(seed: int, n: int = 400, wall_rank: int | None = None):
+    """The 13 per-splat columns build_tile_binning takes, drawn with NumPy:
+    distinct depths, means over (and a little past) the image, positive
+    definite conics of 2-8 px splats, colours partly above 1, a tenth of
+    the splats culled. With `wall_rank`, the three splats at that depth
+    rank and the next two cover the whole image at an opacity the blend
+    clamps: they leave 1e-6 < term_eps behind, so every tile stops at its
+    next chunk boundary."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, np.float32)
+    depth = f32(rng.permutation(n) * 0.01 + 1.0)
+    m2x, m2y = f32(rng.uniform(-4, W + 4, n)), f32(rng.uniform(-4, H + 4, n))
+    sx, sy = rng.uniform(2, 8, n), rng.uniform(2, 8, n)
+    rho = rng.uniform(-0.6, 0.6, n)
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    qa, qb, qc = f32(sy ** 2 / det), f32(-rho * sx * sy / det), \
+        f32(sx ** 2 / det)
+    opacity = f32(rng.uniform(0.2, 0.95, n))
+    cr, cg, cb = (f32(rng.uniform(0.0, 1.3, n)) for _ in range(3))
+    rx, ry = f32(3.2 * sx), f32(3.2 * sy)
+    alive = rng.uniform(size=n) > 0.1
+    if wall_rank is not None:
+        wall = np.argsort(depth)[wall_rank:wall_rank + 3]
+        qa[wall], qb[wall], qc[wall] = 1e-6, 0.0, 1e-6
+        opacity[wall], alive[wall] = 0.999, True
+        rx[wall] = ry[wall] = 1e4
+    return [depth, m2x, m2y, qa, qb, qc, opacity, cr, cg, cb, rx, ry, alive]
+
+
+def jax_binning(cols, tile, expand_impl="fused", with_ids=True):
+    return j_tb.build_tile_binning(
+        *(jnp.asarray(c) for c in cols), width=W, height=H, tile_w=tile[0],
+        tile_h=tile[1], chunk=128, max_pairs=MP, expand_impl=expand_impl,
+        interpret=True, with_ids=with_ids)
+
+
+def port_binning(cols, tile, expand_impl="fused", with_ids=True):
+    return t_tb.build_tile_binning(
+        *(torch.as_tensor(c) for c in cols), width=W, height=H,
+        tile_w=tile[0], tile_h=tile[1], max_pairs=MP, compact=False,
+        expand_impl=expand_impl, with_ids=with_ids)
+
+
+def carry_over(jb) -> t_tb.TileBinning:
+    """The JAX package's f32 binning as the port's, through NumPy."""
+    t = lambda a: torch.as_tensor(np.array(a))
+    return t_tb.TileBinning(
+        payload=t(np.asarray(jb.payload)[:, :MP].view(np.int32)),
+        tile_start=t(jb.tile_start), tile_count=t(jb.tile_count),
+        total_pairs=t(jb.total_pairs), overflow=t(jb.overflow))
+
+
+@pytest.mark.parametrize("expand_impl", ["fused", "pallas"])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
+def test_f32_binning_with_ids_matches_jax_bitwise(tile, expand_impl):
+    cols = make_columns(seed=tile[0])
+    jb = jax_binning(cols, tile, expand_impl)
+    tb = port_binning(cols, tile, expand_impl)
+    total = int(tb.total_pairs)
+    assert 1000 < total < MP and tb.payload.shape == (8, MP)
+    np.testing.assert_array_equal(
+        tb.payload.numpy(), np.asarray(jb.payload)[:, :MP].view(np.int32))
+    assert (tb.payload[7, total:] == MP).all()
+    for name in ("tile_start", "tile_count", "total_pairs", "overflow",
+                 "sorted_base", "sorted_touched"):
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      np.asarray(getattr(jb, name)), name)
+    n_live = int((tb.sorted_touched > 0).sum())
+    assert 0 < n_live < len(cols[0])
+    t_orig, j_orig = tb.sorted_orig.numpy(), np.asarray(jb.sorted_orig)
+    np.testing.assert_array_equal(t_orig[:n_live], j_orig[:n_live])
+    np.testing.assert_array_equal(np.sort(t_orig[n_live:]),
+                                  np.sort(j_orig[n_live:]))
+
+
+def test_f32_binning_without_ids_and_overflow():
+    cols = make_columns(seed=3)
+    jb = jax_binning(cols, (16, 16), with_ids=False)
+    tb = port_binning(cols, (16, 16), with_ids=False)
+    np.testing.assert_array_equal(
+        tb.payload.numpy(), np.asarray(jb.payload)[:, :MP].view(np.int32))
+    assert tb.sorted_base is None and tb.sorted_orig is None
+    # the plain expansion ("xla") gives the same stream on the CPU
+    xb = port_binning(cols, (16, 16), "xla", with_ids=False)
+    assert torch.equal(xb.payload, tb.payload)
+    # a buffer smaller than the view: flagged, segments clamped into it
+    small = t_tb.build_tile_binning(
+        *(torch.as_tensor(c) for c in cols), width=W, height=H, tile_w=16,
+        tile_h=16, max_pairs=512, compact=False)
+    assert bool(small.overflow) and int(small.tile_start[-1]) == 512
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_tb.build_tile_binning(
+            *(torch.as_tensor(c) for c in cols), width=W, height=H,
+            compact=False, span_mode="ellipse")
+    with pytest.raises(ValueError):
+        t_tb.build_tile_binning(
+            *(torch.as_tensor(c) for c in cols), width=W, height=H,
+            compact=True, with_ids=True)
+
+
+def test_pack15_matches_jax_bitwise():
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-0.5, 4.5, 4096).astype(np.float32)
+    y = rng.uniform(0, 1, 4096).astype(np.float32)
+    x[:4] = [0.0, 3.99999, 4.0, 1.0 / 8191.75]
+    got = t_tb.pack15(torch.as_tensor(x), torch.as_tensor(y))
+    want = np.asarray(j_tb.pack15(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+    hi, lo = t_tb.unpack15(got)
+    step = 4 / 32767
+    assert float((hi - torch.as_tensor(x).clamp(0, 4)).abs().max()) <= step
+    assert float((lo - torch.as_tensor(y)).abs().max()) <= step
+
+
+@pytest.mark.parametrize("skip_range_check", [True, False])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
+def test_blend_subtiles_matches_jax(tile, skip_range_check):
+    jb = jax_binning(make_columns(seed=11, n=60), tile)
+    kw = dict(width=W, height=H, sub_w=tile[0], sub_h=tile[1], chunk=128,
+              skip_range_check=skip_range_check, **BLEND)
+    jc, jt = j_sub.blend_subtiles(jb, interpret=True, **kw)
+    tc, tt = t_sub.blend_subtiles(carry_over(jb), **kw)
+    assert tc.shape == (H, W, 3) and tt.shape == (H, W)
+    assert 0.02 < float(tt.mean()) < 0.98
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-5)
+
+
+def test_blend_subtiles_stops_at_chunk_boundary():
+    # three clamped opaque splats in front leave trans = 1e-6 everywhere,
+    # so each tile blends its first 128-pair chunk and skips the rest
+    jb = jax_binning(make_columns(seed=12, n=900, wall_rank=0), (16, 16))
+    assert int(np.asarray(jb.tile_count).min()) > 128
+    kw = dict(width=W, height=H, sub_w=16, sub_h=16, chunk=128,
+              skip_range_check=True, **BLEND)
+    jc, jt = j_sub.blend_subtiles(jb, interpret=True, **kw)
+    stats = {}
+    tc, tt = t_sub.blend_subtiles_plain(carry_over(jb), stats=stats, **kw)
+    assert stats["pairs_blended"] == 128 * 12
+    assert float(tt.max()) <= 1e-4
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-5)
+    # without the stop the later pairs would go on lowering trans
+    _, full = t_sub.blend_subtiles_plain(carry_over(jb), **{
+        **kw, "term_eps": 0.0})
+    assert bool((full < tt).any())
+
+
+def test_blend_subtiles_validates_inputs():
+    tb = port_binning(make_columns(seed=1), (16, 16))
+    kw = dict(width=W, height=H, sub_w=16, sub_h=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_sub.blend_subtiles(tb, use_exp_lut=True, **kw)
+    with pytest.raises(TypeError):
+        t_sub.blend_subtiles(tb._replace(payload=tb.payload.float()), **kw)
+    with pytest.raises(ValueError):
+        t_sub.blend_subtiles(tb._replace(payload=tb.payload[:5]), **kw)
+    with pytest.raises(ValueError):
+        t_sub.blend_subtiles(tb, width=W, height=H, sub_w=32, sub_h=16)
+
+
+def test_render_tiled_subtile_matches_jax():
+    jc, jcam = j_random_cloud(200, seed=5, width=W, height=H)
+    c = cloud_from_numpy(*(np.asarray(a) for a in jc), device="cpu")
+    cam = camera_from_numpy(np.asarray(jcam.view), np.asarray(jcam.fx),
+                            np.asarray(jcam.fy), np.asarray(jcam.cx),
+                            np.asarray(jcam.cy), W, H, device="cpu")
+    kw = dict(width=W, height=H, tile_w=16, tile_h=16, blend_impl="subtile",
+              white_background=True)
+    j = j_rt.render_tiled(jc, jcam, JCfg(**kw), max_pairs=MP, interpret=True)
+    t = t_rt.render_tiled(c, cam, RenderConfig(**kw), max_pairs=MP)
+    assert not bool(t.overflow)
+    np.testing.assert_allclose(t.color.numpy(), np.asarray(j.color),
+                               atol=1e-4)
+    np.testing.assert_allclose(t.trans.numpy(), np.asarray(j.trans),
+                               atol=1e-4)
+    np.testing.assert_array_equal(t.hits.numpy(), np.asarray(j.hits))
+    tr = t_rt.GaussianRayTracer(RenderConfig(**kw), "tiled", device="cpu")
+    out = tr(c, cam)        # calibrates the pair buffer for the tile stream
+    assert tr.max_rows is None and not bool(out.overflow)
+    np.testing.assert_allclose(out.color.numpy(), t.color.numpy(), atol=1e-6)
