@@ -22,33 +22,54 @@ Phases, in order; any failure exits non-zero and prints no result line:
              per-stage and whole-frame times from CUDA events;
 7. check   — a small scene through render_tiled (kernels) and render_fast
              (plain PyTorch, the port's oracle), atol 2e-2;
-8. train-capture — the training workload; one forward and backward of
+8. tiles128x8 — a 1080p frame of the render cell at 128x8 tiles, counts
+             read; blend_tiles against its plain version on its binning,
+             atol 1e-4;
+9. serve-blend — the serving orbit's first frame: the packed tile-stream
+             kernel against its plain version on the compact payload with
+             track_consumed, then on the f32 payload, with track_hits, and
+             with the exp LUT: atol 2e-3 on color and trans, consumed
+             equal, hits equal on f32; then one frame per mode (f32, hits,
+             LUT) through GaussianRayTracer with its launches counted;
+10. serving — the 48-frame orbit of tools/serving_bench.py: cold
+             (GaussianRayTracer, defer_overflow=4) and served
+             (ServingRenderer after a warm frame, finish() and reset(),
+             counts read): ms/frame on the card's and the host's clocks,
+             the speedup, violation frames, re-renders, pairs, one tile
+             kernel per served frame and no group kernel; the split of a
+             served frame; a 3-frame static camera that must cull pairs
+             without violations and stay within 3e-3 of the cold render;
+11. train-capture — the training workload; one forward and backward of
              render_tiled_diff with the kernel entry points recorded;
-9. gather / subtile / backward — the f32 stream's kernels against their
-             plain versions on the captured inputs: expand_pairs and the
-             copy-mode expand at the f32 table's rows bit for bit,
-             blend_subtiles atol 1e-4 over every tile, blend_backward per
-             gradient row, divided by the row's largest magnitude, atol
-             1e-3 over every tile;
-10. train  — launch counts to 0, then 1 warm-up and 10 timed
+12. gather / subtile / backward / lut-train — the f32 stream's kernels
+             against their plain versions on the captured inputs:
+             expand_pairs and the copy-mode expand at the f32 table's rows
+             bit for bit, blend_subtiles atol 1e-4 over every tile,
+             blend_backward per gradient row, divided by the row's largest
+             magnitude, atol 1e-3 over every tile; both again with the exp
+             LUT;
+13. train  — launch counts to 0, then 1 warm-up and 10 timed
              train_step_tiled steps and one more with
              expand_impl="pallas"; every kernel of the path must have
              launched, the loss must be finite at every step and lower at
              the end, no gradient may be NaN; then where a step's time
-             goes, from CUDA events at the stage boundaries;
-11. train-check — a small scene where the tiled gradients (kernels) are
+             goes, from CUDA events at the stage boundaries; then 2 steps
+             with the LUT and 2 at 128x8 tiles, counts read, finite losses;
+14. train-check — a small scene where the tiled gradients (kernels) are
              held against render_fast under autograd on the card, each
              divided by its largest magnitude, atol 2e-3.
 
-The render workload is the JAX package's benchmark: random_cloud(1M,
-seed=0, scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig
-defaults. The training workload is random_cloud(100K, seed=0) at 800x600,
-SH degree 3, RenderConfig(conic_mode="standard") defaults (32x16 tiles),
-the target its own tiled render, the start init_params of it with the
-means moved by 0.02·N(0, 1). Before the last line the script prints one
-JSON object with a row per kernel (launches, error against the plain
-version, times, roofline bound); the last line is
-{"ok": true, "device": {...}}.
+The render workload is the JAX package's benchmark: random_cloud(1M, seed=0,
+scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig defaults.
+The serving workload is the same cloud (extent 4.0) seen from orbit_path((0, 0,
+6), 10, 48, height=2, degrees=60, start_deg=200) with
+RenderConfig(conic_mode="standard") defaults. The training workload is
+random_cloud(100K, seed=0) at 800x600, SH degree 3,
+RenderConfig(conic_mode="standard") defaults (32x16 tiles), the target its own
+tiled render, the start init_params of it with the means moved by 0.02·N(0, 1).
+Before the last line the script prints one JSON object with a row per kernel
+(launches, error against the plain version, times, roofline bound); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -89,6 +110,17 @@ FWD_ACCEPT_FLOPS = 9
 # d alpha 20; d g 2; mean 10, conic 8, opacity 1, colour 3; trans 2; the
 # nine sums over pixels 9.
 BWD_ACCEPT_FLOPS = 65
+LUT_STEPS, TILES128_STEPS = 2, 2
+
+# --- the serving workload (tools/serving_bench.py) and the tile stream ---
+TILES_SRC = "gsrt_torch/csrc/splat_subtile.cu"
+TILES_TPU = "gsrt/ops/splat_pallas.py:65"
+ORBIT_FRAMES, ORBIT_DEGREES, SPLIT_FRAMES, STATIC_FRAMES = 48, 60.0, 5, 3
+# The static-camera check culls at 2x2-tile supertiles, as
+# tests/test_serving.py does: at the default 8x8 a supertile culls only
+# when all 64 of its tiles hold a finite cutoff, which no supertile of
+# this scene does (the orbit's cull drops a few thousand pairs at most).
+STATIC_SUPER = 2
 
 
 def log(msg: str) -> None:
@@ -333,9 +365,10 @@ def train_phases(torch):
     pair_bytes = 4 * (7 * total + tile_start.numel())
 
     def blend_row(name, source, tpu, fn, plain_ms, err, accept_flops,
-                  other_bytes):
-        t_ops = (TEST_FLOPS * blended * npx
-                 + accept_flops * accepted) / F32_FLOPS
+                  other_bytes, work=None):
+        n_blend, n_acc = work or (blended, accepted)
+        t_ops = (TEST_FLOPS * n_blend * npx
+                 + accept_flops * n_acc) / F32_FLOPS
         t_bytes = (pair_bytes + other_bytes) / HBM_BYTES_PER_S
         row = dict(name=name, route="cuda", source=source, replaces=tpu,
                    launches=0, max_abs_err=err, ms=time_cuda(fn, 10),
@@ -379,8 +412,55 @@ def train_phases(torch):
                                           **bwd_kw),
         plain_s * 1e3, max(errs), BWD_ACCEPT_FLOPS,
         4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total)))
+    del grad_p, grad_k
+
+    # --- lut-train: both kernels with the exp LUT, same inputs ---
+    lut = dict(use_exp_lut=True, skip_range_check=False)
+    lut_fwd_kw, lut_bwd_kw = {**fwd_kw, **lut}, {**bwd_kw, **lut}
+    lut_stats = {}
+    t0 = time.perf_counter()
+    color_p, trans_p = splat_subtile.blend_subtiles_plain(
+        binning, stats=lut_stats, **lut_fwd_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    color_k, trans_k = splat_subtile.blend_subtiles(binning, **lut_fwd_kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(color_k - color_p, trans_k - trans_p)
+    lut_work = (lut_stats["pairs_blended"], lut_stats["accepted"])
+    log(f"phase lut-train: blend_subtiles with the LUT, all {T} tiles, max "
+        f"|kernel - plain| {err:.3e} (atol 1e-4), {lut_work[0]} pairs "
+        f"blended, {lut_work[1]} accepted")
+    if not err <= 1e-4:
+        raise SystemExit(f"phase lut-train: the LUT forward differs from "
+                         f"plain by {err}")
+    rows.append(blend_row(
+        "blend_subtiles[lut]", SUBTILE_SRC, SUBTILE_TPU,
+        lambda: splat_subtile.blend_subtiles(binning, **lut_fwd_kw),
+        plain_s * 1e3, err, FWD_ACCEPT_FLOPS, 16 * W * H, lut_work))
+    t0 = time.perf_counter()
+    grad_p = splat_grad.blend_backward_plain(payload, tile_start, pixstate,
+                                             **lut_bwd_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    grad_k = splat_grad.blend_backward(payload, tile_start, pixstate,
+                                       **lut_bwd_kw)
+    torch.cuda.synchronize()
+    errs = [normalised_err(grad_k[r], grad_p[r])
+            for r in range(splat_grad.GRAD_ROWS)]
+    log(f"phase lut-train: blend_backward with the LUT, per row max "
+        f"|kernel - plain| / max |plain| "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (atol 1e-3)")
+    if not all(e <= 1e-3 for e in errs):
+        raise SystemExit(f"phase lut-train: the LUT backward differs from "
+                         f"plain: {errs}")
+    rows.append(blend_row(
+        "blend_backward[lut]", GRAD_SRC, GRAD_TPU,
+        lambda: splat_grad.blend_backward(payload, tile_start, pixstate,
+                                          **lut_bwd_kw),
+        plain_s * 1e3, max(errs), BWD_ACCEPT_FLOPS,
+        4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total), lut_work))
     del grad_p, grad_k, rec_fused, rec_fwd, rec_bwd, binning, payload
-    del pixstate, tab
+    del pixstate, tab, color_p, trans_p, color_k, trans_k
 
     # --- train: counts to 0, warm-up + timed steps, counts read ---
     optimizer = trainer.make_optimizer(params)
@@ -416,7 +496,7 @@ def train_phases(torch):
         if not (torch.isfinite(p.grad).all() and torch.isfinite(p).all()):
             raise SystemExit(f"phase train: non-finite {name} or gradient")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = counts.get(row["name"], 0)
     log(f"phase train: {step_ms:.4f} ms/step on the card's clock, "
         f"{host_ms:.4f} ms/step on the host's, over {TRAIN_STEPS} steps")
 
@@ -452,6 +532,44 @@ def train_phases(torch):
     log(f"phase train: {final_pairs} pairs after the steps, max_pairs "
         f"{max_pairs}")
 
+    # --- lut-train path: counts to 0, LUT_STEPS steps with the LUT ---
+    def steps(c, n):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = [step(c).item() for _ in range(n)]
+        torch.cuda.synchronize()
+        return out, _kernels.launch_counts()
+    lut_losses, counts = steps(cfg.replace(use_exp_lut=True), LUT_STEPS)
+    log(f"phase lut-train: {LUT_STEPS} train_step_tiled steps with the LUT, "
+        f"losses {', '.join(f'{x:.5f}' for x in lut_losses)}, launches "
+        f"{counts}")
+    for row in rows:
+        if row["name"].endswith("[lut]"):
+            row["launches"] = counts[row["name"][:-len("[lut]")]]
+            if row["launches"] <= 0:
+                raise SystemExit(f"phase lut-train: {row['name']} never "
+                                 f"launched")
+    if not all(x == x and abs(x) != float("inf") for x in lut_losses):
+        raise SystemExit("phase lut-train: non-finite loss")
+
+    # --- tiles128x8 training: the same steps at (128, 8) tiles ---
+    cfg128 = cfg.replace(tile_w=128, tile_h=8)
+    need128 = max(grt.count_pairs_numpy(c, camera, cfg128)
+                  for c in (cloud, params.to_cloud()))
+    step = lambda c: trainer.train_step_tiled(
+        params, optimizer, target, camera, c,
+        grt.pair_bucket(int(need128 * 1.2)), 0.2)
+    losses128, counts = steps(cfg128, TILES128_STEPS)
+    log(f"phase tiles128x8: {TILES128_STEPS} train_step_tiled steps at "
+        f"128x8 tiles, losses {', '.join(f'{x:.5f}' for x in losses128)}, "
+        f"launches {counts}")
+    if not all(x == x and abs(x) != float("inf") for x in losses128):
+        raise SystemExit("phase tiles128x8: non-finite loss")
+    if counts["blend_tiles"] != TILES128_STEPS or \
+            counts["blend_backward"] != TILES128_STEPS:
+        raise SystemExit("phase tiles128x8: blend_tiles and its backward "
+                         "must launch once a step")
+
     # --- train-check: tiled gradients against render_fast autograd ---
     sw, sh = 128, 96
     small = RenderConfig(width=sw, height=sh, conic_mode="standard")
@@ -483,7 +601,298 @@ def train_phases(torch):
     return rows, dict(
         step_ms=step_ms, step_host_ms=host_ms, stages_ms=stages,
         losses=losses, splats=T_SPLATS, width=W, height=H, pairs=total,
-        pairs_blended=blended, accepted=accepted, max_pairs=max_pairs)
+        pairs_blended=blended, accepted=accepted, max_pairs=max_pairs,
+        lut_losses=lut_losses, losses_128x8=losses128)
+
+
+def serve_phases(torch, cloud, rows):
+    """serve-blend, serving and the tile stream's modes (see the module
+    docstring). Appends the K1 rows to `rows`; returns the serving
+    figures."""
+    from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch import serving as srv_mod
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import splat_packed, tile_binning
+    from gsrt_torch.scene import orbit_path
+
+    W, H = WIDTH, HEIGHT
+    cfg = RenderConfig(width=W, height=H, conic_mode="standard")
+    path = orbit_path((0, 0, 6.0), 10.0, ORBIT_FRAMES, height=2.0,
+                      width=W, height_px=H, degrees=ORBIT_DEGREES,
+                      start_deg=200.0, device=DEVICE)
+    cam0 = path[0]
+    ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
+    T, npx = ntx * nty, cfg.tile_w * cfg.tile_h
+    max_pairs = grt.pair_bucket(int(grt.count_pairs_numpy(
+        cloud, cam0, cfg) * 1.1))
+
+    # --- serve-blend: K1 on the serving frame's two payloads ---
+    def capture(c):
+        with Recorder(splat_packed, "blend_packed") as rec:
+            grt.render_tiled(cloud, cam0, c, max_pairs=max_pairs,
+                             serving=True)
+            torch.cuda.synchronize()
+        (binning,), kw = rec.calls[0]
+        return binning, kw
+    compact_b, serve_kw = capture(cfg)
+    f32_b, _ = capture(cfg.replace(payload="f32"))
+    total = int(compact_b.total_pairs)
+    shown = {k: serve_kw[k] for k in ("bs", "chunk", "skip_range_check")}
+    log(f"phase serve-blend: frame 0 of the orbit, {total} pairs in {T} "
+        f"tiles, max_pairs {max_pairs}, blend {shown}")
+    plain_keys = ("width", "height", "sub_w", "sub_h", "bs", "chunk",
+                  "g_cutoff", "alpha_threshold", "alpha_clamp", "term_eps",
+                  "skip_range_check", "use_exp_lut")
+    base_kw = {k: serve_kw[k] for k in plain_keys if k in serve_kw}
+    modes = [("blend_packed_tile", compact_b, {}),
+             ("blend_packed_tile[f32]", f32_b, {}),
+             ("blend_packed_tile[hits]", f32_b, dict(track_hits=True)),
+             ("blend_packed_tile[lut]", compact_b,
+              dict(use_exp_lut=True, skip_range_check=False))]
+    k1_rows = {}
+    for name, b, extra in modes:
+        kw = {**base_kw, **extra}
+        hits = kw.pop("track_hits", False)
+        stats = {}
+        t0 = time.perf_counter()
+        cp, tp, consp, hp = splat_packed.blend_packed_tile_plain(
+            b, stats=stats, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        run = lambda: splat_packed.blend_packed(
+            b, group_stream=False, track_consumed=True, track_hits=hits,
+            **kw)
+        out = run()
+        torch.cuda.synchronize()
+        ck, tk, consk = out[:3]
+        err = max_abs_err(ck - cp, tk - tp)
+        cons_ok = torch.equal(consk, consp)
+        compact = b.payload.shape[0] == tile_binning.COMPACT_WIDTH
+        msg = ""
+        if hits:
+            d = (out[3] - hp).abs()
+            hits_ok = d.max().item() == 0 if not compact else \
+                d.max().item() <= 1 and (d != 0).float().mean().item() <= 1e-3
+            msg = f", hits differ at {(d != 0).sum().item()} px"
+        else:
+            hits_ok = True
+        blended = stats["pairs_blended"]
+        sat = consp.reshape(-1)[:T]
+        log(f"phase serve-blend: {name}: max |kernel - plain| {err:.3e} "
+            f"(atol 2e-3), consumed equal {cons_ok}{msg}, {blended} pairs "
+            f"blended of {int(b.total_pairs)}, saturated tiles "
+            f"{int((sat < sat.max()).sum())}")
+        if not (err <= 2e-3 and cons_ok and hits_ok):
+            raise SystemExit(f"phase serve-blend: {name} differs from its "
+                             f"plain version")
+        t_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * blended / F32_FLOPS
+        t_bytes = (4 * (b.payload.shape[0] * blended + T + 1 + consp.numel())
+                   + (20 if hits else 16) * W * H) / HBM_BYTES_PER_S
+        k1_rows[name] = dict(
+            name=name, route="cuda", source=BLEND_SRC, replaces=BLEND_TPU,
+            launches=0, max_abs_err=err, ms=time_cuda(run, 10),
+            plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None)
+        log(f"phase serve-blend: {name}: kernel {k1_rows[name]['ms']:.4f} "
+            f"ms, plain {plain_s * 1e3:.1f} ms, bound "
+            f"{k1_rows[name]['bound_ms']:.4f} ms "
+            f"({k1_rows[name]['bound_by']})")
+        del cp, tp, consp, hp, out, ck, tk, consk
+    del compact_b, f32_b
+
+    # --- serving: the cold orbit, then the served one (counts read) ---
+    cold = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE,
+                                 defer_overflow=4)
+    cold_first = cold(cloud, cam0)              # calibrate + warm
+    torch.cuda.synchronize()
+
+    def run_path(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        outs = [fn(cam) for cam in path]
+        ev[1].record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / len(path)
+        return outs, ev[0].elapsed_time(ev[1]) / len(path), host
+    _, cold_ms, cold_host = run_path(lambda cam: cold(cloud, cam))
+    srv = srv_mod.ServingRenderer(cfg, device=DEVICE)
+    srv(cloud, cam0)                            # calibrate + warm cutoffs
+    srv.finish()
+    srv.reset()
+    _kernels.reset_launch_counts()
+    _, served_ms, served_host = run_path(lambda cam: srv(cloud, cam))
+    srv.finish()
+    counts = _kernels.launch_counts()
+    st = srv.stats[-len(path):]
+    viol = sum(x["violations"] > 0 for x in st)
+    rerender = sum(x["full_renders"] for x in st)
+    log(f"phase serving: {ORBIT_FRAMES}-frame orbit over {ORBIT_DEGREES} "
+        f"degrees; cold {cold_ms:.4f} ms/frame (card) {cold_host:.4f} "
+        f"(host), served {served_ms:.4f} ms/frame (card) {served_host:.4f} "
+        f"(host), speedup {cold_ms / served_ms:.3f}; violation frames "
+        f"{viol}, full re-renders {rerender}; pairs first {st[0]['pairs']} "
+        f"last {st[-1]['pairs']}; cull on {sum(x['cull'] for x in st)} "
+        f"frames")
+    log(f"phase serving: launches {counts} "
+        f"({counts['blend_packed_tile'] / len(path):.3f} K1 per frame)")
+    if counts["blend_packed_tile"] != len(path) + rerender or \
+            counts["blend_packed_group"] != 0:
+        raise SystemExit("phase serving: expected one tile-stream blend "
+                         "per served frame (and per re-render) and no "
+                         "group-stream blend")
+    for k in ("expand_pairs_fused",):
+        if counts[k] <= 0:
+            raise SystemExit(f"phase serving: kernel {k} never launched")
+    k1_rows["blend_packed_tile"]["launches"] = counts["blend_packed_tile"]
+
+    # where a served frame's time goes (depth 1: the host read is in it)
+    split = srv_mod.ServingRenderer(cfg, device=DEVICE, pipeline_depth=1)
+    for cam in path[:2]:
+        split(cloud, cam)                       # calibrate, warm the cull
+    split.finish()
+    stamps = Stamps(torch)
+    stamps.wrap(grt, "_precompute", "project")
+    stamps.wrap(tile_binning, "build_tile_binning", "binning")
+    stamps.wrap(tile_binning, "cutoff_cull", "cull")
+    stamps.wrap(splat_packed, "blend_packed", "blend")
+    stamps.wrap(srv_mod, "update_cutoff_map", "cutoff")
+    read_ms = []
+    drain = split._drain_one
+
+    def timed_drain():
+        t0 = time.perf_counter()
+        out = drain()
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    split._drain_one = timed_drain
+    try:
+        for cam in path[2:2 + SPLIT_FRAMES]:
+            stamps.mark("frame:start")
+            split(cloud, cam)
+            stamps.mark("frame:end")
+    finally:
+        stamps.restore()
+        split._drain_one = drain
+    serve_split = {}
+    names = {"project:end": "project_sh", "binning:start": "extents",
+             "cull:start": "binning", "cull:end": "cull",
+             "binning:end": "binning", "blend:end": "blend",
+             "cutoff:end": "cutoff_update"}
+    for label, ms in stamps.intervals():
+        if label != "frame:start":
+            name = names.get(label, "other")
+            serve_split[name] = serve_split.get(name, 0.0) + \
+                ms / SPLIT_FRAMES
+    serve_split["host_read_host_ms"] = sum(read_ms) / SPLIT_FRAMES
+    log("phase serving: split of a served frame (card ms, mean of "
+        f"{SPLIT_FRAMES}; the host read on the host's clock): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in serve_split.items()))
+
+    # --- static camera: converges with culled pairs, no violations ---
+    static = srv_mod.ServingRenderer(cfg.replace(serving_super=STATIC_SUPER),
+                                     device=DEVICE, pipeline_depth=1)
+    outs = [static(cloud, cam0) for _ in range(STATIC_FRAMES)]
+    static.finish()
+    ss = static.stats
+    diffs = [max_abs_err(o.color - cold_first.color,
+                         o.trans - cold_first.trans) for o in outs]
+    log(f"phase serving: static camera ({STATIC_SUPER}x{STATIC_SUPER}-tile "
+        f"supertiles), pairs "
+        f"{[x['pairs'] for x in ss]}, violations "
+        f"{[x['violations'] for x in ss]}, max |frame - cold| "
+        f"{', '.join(f'{d:.3e}' for d in diffs)} (atol 3e-3)")
+    if any(x["violations"] for x in ss) or not ss[-1]["pairs"] < \
+            ss[0]["pairs"] or not all(d <= 3e-3 for d in diffs):
+        raise SystemExit("phase serving: the static camera did not "
+                         "converge")
+
+    # --- the tile stream's modes on the main path: counts per mode ---
+    for name, c in (("blend_packed_tile[f32]",
+                     cfg.replace(payload="f32", stream="tile")),
+                    ("blend_packed_tile[hits]",
+                     cfg.replace(stream="tile", payload="f32",
+                                 exact_hits=True)),
+                    ("blend_packed_tile[lut]",
+                     cfg.replace(stream="tile", use_exp_lut=True))):
+        tr = grt.GaussianRayTracer(c, "tiled", device=DEVICE)
+        tr.calibrate(cloud, cam0)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = tr(cloud, cam0)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts["blend_packed_tile"] <= 0 or not \
+                torch.isfinite(out.color).all():
+            raise SystemExit(f"phase serve-blend: {name} path did not run "
+                             f"the tile kernel")
+        k1_rows[name]["launches"] = counts["blend_packed_tile"]
+        log(f"phase serve-blend: {name} path, launches {counts}")
+    rows += list(k1_rows.values())
+    return dict(cold_ms=cold_ms, cold_host_ms=cold_host, served_ms=served_ms,
+                served_host_ms=served_host, speedup=cold_ms / served_ms,
+                violation_frames=viol, full_rerenders=rerender,
+                pairs_first=st[0]["pairs"], pairs_last=st[-1]["pairs"],
+                split_ms=serve_split,
+                static_pairs=[x["pairs"] for x in ss])
+
+
+def tiles128_render(torch, cloud, camera, rows):
+    """tiles128x8: a 1080p frame of the render cell at 128x8 tiles (counts
+    read), then blend_tiles against its plain version on its binning."""
+    from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import splat_pallas, splat_subtile
+
+    W, H = WIDTH, HEIGHT
+    cfg = RenderConfig(width=W, height=H, conic_mode="standard", tile_w=128,
+                       tile_h=8)
+    tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+    tracer.calibrate(cloud, camera)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with Recorder(splat_pallas, "blend_tiles") as rec:
+        out = tracer(cloud, camera)
+        torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    if counts["blend_tiles"] <= 0 or not torch.isfinite(out.color).all():
+        raise SystemExit("phase tiles128x8: blend_tiles did not run")
+    (binning,), kw = rec.calls[0]
+    plain_kw = dict(kw, sub_w=128, sub_h=8)
+    stats = {}
+    t0 = time.perf_counter()
+    cp, tp = splat_subtile.blend_subtiles_plain(binning, stats=stats,
+                                                **plain_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    run = lambda: splat_pallas.blend_tiles(binning, **kw)
+    ck, tk = run()
+    torch.cuda.synchronize()
+    err = max_abs_err(ck - cp, tk - tp)
+    total = int(binning.total_pairs)
+    blended, accepted = stats["pairs_blended"], stats["accepted"]
+    log(f"phase tiles128x8: {W}x{H} frame, launches {counts}; blend_tiles max "
+        f"|kernel - plain| {err:.3e} (atol 1e-4), {blended} pairs blended "
+        f"of {total}")
+    if not err <= 1e-4:
+        raise SystemExit(f"phase tiles128x8: blend_tiles differs from plain "
+                         f"by {err}")
+    t_ops = (TEST_FLOPS * blended * 1024
+             + FWD_ACCEPT_FLOPS * accepted) / F32_FLOPS
+    t_bytes = (4 * (7 * blended + binning.tile_start.numel())
+               + 16 * W * H) / HBM_BYTES_PER_S
+    rows.append(dict(
+        name="blend_tiles", route="cuda", source=TILES_SRC,
+        replaces=TILES_TPU, launches=counts["blend_tiles"], max_abs_err=err,
+        ms=time_cuda(run, 10), plain_ms=plain_s * 1e3,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None))
+    log(f"phase tiles128x8: kernel {rows[-1]['ms']:.4f} ms, plain "
+        f"{plain_s * 1e3:.1f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+        f"({rows[-1]['bound_by']})")
 
 
 def main() -> int:
@@ -674,6 +1083,12 @@ def main() -> int:
     if not d <= 2e-2:
         raise SystemExit(f"phase check: render_tiled differs by {d}")
 
+    tiles128_render(torch, cloud, camera, rows)
+    del main_tracer, tracer, out, state
+    # the serving workload's cloud is this one (extent 4.0), seen from an
+    # orbit
+    serving = serve_phases(torch, cloud, rows)
+    del cloud, camera
     train_rows, train = train_phases(torch)
     rows += train_rows
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
@@ -683,11 +1098,11 @@ def main() -> int:
                       "mrays_per_s": mrays, "stages_ms": stages,
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
-                      "max_rows": mrows, "train": train}), flush=True)
-    # the run used one card (device 0), however many the machine shows
+                      "max_rows": mrows, "serving": serving,
+                      "train": train}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

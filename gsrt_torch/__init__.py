@@ -10,10 +10,13 @@ beside it that CPU tensors take.
 Ported so far: the tiled main path — projection and SH, group-stream
 binning (the pair-expansion kernel), the packed group-stream blend
 kernel, `render_tiled`, `render_fast` and `GaussianRayTracer` in "fast"
-and "tiled" modes — and training on the tiled path: the f32 tile stream,
+and "tiled" modes; training on the tiled path — the f32 tile stream,
 the subtile blend and its backward kernel, `render_tiled_diff` and the
-trainer (`GaussianParams`, `make_optimizer`, `train_step_tiled`).
-ROADMAP.md lists what remains.
+trainer (`GaussianParams`, `make_optimizer`, `train_step_tiled`); and
+serving — the compact tile stream, the packed blend's tile mode with
+saturation tracking and exact hits, the exp LUT in every blend, the
+(128, 8)-tile blend, the cutoff cull, `gsrt_torch.serving.ServingRenderer`
+and `gsrt_torch.scene.campath`. ROADMAP.md lists what remains.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

@@ -46,8 +46,9 @@ def _lib_path(name: str) -> Path:
 
 def _fresh(name: str) -> bool:
     lib = _lib_path(name)
-    return lib.exists() and \
-        lib.stat().st_mtime >= (CSRC / f"{name}.cu").stat().st_mtime
+    newest = max(p.stat().st_mtime for p in
+                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return lib.exists() and lib.stat().st_mtime >= newest
 
 
 def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
@@ -115,10 +116,14 @@ class CudaKernel:
         err = self._fn(*args)
         if err != 0:
             msg = _load(self.lib).gsrt_error_string(err).decode()
+            if err == INVALID_CONFIGURATION:
+                msg += ": the block does not fit the compiled kernel"
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err} ({msg})")
         self.launches += 1
 
+
+INVALID_CONFIGURATION = 9   # cudaErrorInvalidConfiguration
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -134,16 +139,23 @@ EXPAND_GATHER = CudaKernel(
     [P, I, I, P, I, P, P])
 BLEND_GROUP = CudaKernel(
     "blend_packed_group", "splat_packed", "gsrt_blend_group",
-    [P, LL, P, I, I, I, I, I, I, I, F, I, F, F, F, P, P, P])
+    [P, LL, P, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P])
+BLEND_TILE = CudaKernel(
+    "blend_packed_tile", "splat_packed", "gsrt_blend_tile",
+    [P, LL, I, P, I, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P, P])
+_SUBTILE_ARGS = [P, LL, P, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P]
 BLEND_SUBTILE = CudaKernel(
-    "blend_subtiles", "splat_subtile", "gsrt_blend_subtile",
-    [P, LL, P, I, I, I, I, I, I, F, I, F, F, F, P, P, P])
+    "blend_subtiles", "splat_subtile", "gsrt_blend_subtile", _SUBTILE_ARGS)
+# the (128, 8)-tile blend is the subtile kernel at 1024-pixel tiles; it
+# keeps a count of its own
+BLEND_TILES = CudaKernel(
+    "blend_tiles", "splat_subtile", "gsrt_blend_subtile", _SUBTILE_ARGS)
 BLEND_BACKWARD = CudaKernel(
     "blend_backward", "splat_grad", "gsrt_blend_backward",
-    [P, LL, P, P, I, I, I, I, F, I, F, F, F, P, P])
+    [P, LL, P, P, I, I, I, I, F, I, F, F, F, I, P, P])
 
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_GATHER, BLEND_GROUP,
-           BLEND_SUBTILE, BLEND_BACKWARD)
+           BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD)
 
 
 def launch_counts() -> dict[str, int]:

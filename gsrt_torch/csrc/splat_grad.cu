@@ -1,9 +1,13 @@
 // Backward of the f32 tile-stream blend: nine gradients per pair.
 //
 // Replaces the TPU kernel gsrt/ops/splat_grad.py:_blend_bwd_kernel (:60,
-// reached through blend_backward): exact exp, both accept rules, the
-// term_eps stop at chunk boundaries. The LUT exponential is not ported
-// (the wrapper raises).
+// reached through blend_backward): the exact exp or the reference's exp
+// LUT (whose derivative is its segment's slope -e^{-x0}), both accept
+// rules, the term_eps stop at chunk boundaries. At 128x8-pixel tiles it is
+// the backward of the (128, 8) training path, 1024 threads a block: the
+// entry point checks that a block of that size fits the compiled kernel
+// (registers and shared memory, all static) and returns
+// cudaErrorInvalidConfiguration when it does not.
 //
 // Contract. payload and tile_start are the forward's (see
 // splat_subtile.cu). pixstate is [8, T * npx] float32, tile-major, npx =
@@ -50,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -71,7 +77,7 @@ blend_bwd_kernel(const int* __restrict__ payload, long long L,
                  const float* __restrict__ pixstate, long long npix_all,
                  int ntx, int tile_w, float g_cutoff, int skip_range_check,
                  float alpha_threshold, float alpha_clamp, float term_eps,
-                 float* __restrict__ grad) {
+                 int use_lut, float* __restrict__ grad) {
   __shared__ float s_mx[kChunk], s_my[kChunk], s_qa[kChunk], s_qb[kChunk],
       s_qc[kChunk], s_op[kChunk], s_r[kChunk], s_g[kChunk], s_b[kChunk];
   __shared__ float s_part[kMaxWarps][kRows][kSub];
@@ -121,9 +127,9 @@ blend_bwd_kernel(const int* __restrict__ payload, long long L,
         const int i = b0 + j;
         const float qa = s_qa[i], qb = s_qb[i], qc = s_qc[i], op = s_op[i];
         const float dx = px - s_mx[i], dy = py - s_my[i];
-        const float gq = 0.5f * (qa * dx * dx + 2.0f * qb * dx * dy +
-                                 qc * dy * dy);
-        const float expg = expf(-fmaxf(gq, 0.0f));
+        const float gq = gsrt::conic_response(qa, qb, qc, dx, dy);
+        const float gq_c = fmaxf(gq, 0.0f);
+        const float expg = use_lut ? gsrt::exp_neg_lut(gq_c) : expf(-gq_c);
         const float raw = op * expg;
         const bool accept =
             raw > alpha_threshold &&
@@ -144,7 +150,10 @@ blend_bwd_kernel(const int* __restrict__ payload, long long L,
                 dc_r * (T_ * cr - (cf_r - p_r) * inv_om) +
                 dc_g * (T_ * cg - (cf_g - p_g) * inv_om) +
                 dc_b * (T_ * cb - (cf_b - p_b) * inv_om) - dtn_tn * inv_om;
-            const float d_gq = -d_alpha * raw;
+            // d expg / d gq: -expg, or the LUT segment's slope
+            const float dexp =
+                use_lut ? -expf(-gsrt::lut_x0(gq_c)) : -expg;
+            const float d_gq = d_alpha * op * dexp;
             v[0] = -d_gq * (qa * dx + qb * dy);
             v[1] = -d_gq * (qb * dx + qc * dy);
             v[2] = d_gq * (0.5f * dx * dx);
@@ -187,16 +196,18 @@ int gsrt_blend_backward(const int* payload, long long L,
                         const int* tile_start, const float* pixstate, int T,
                         int ntx, int tile_w, int tile_h, float g_cutoff,
                         int skip_range_check, float alpha_threshold,
-                        float alpha_clamp, float term_eps, float* grad,
-                        void* stream) {
+                        float alpha_clamp, float term_eps, int use_lut,
+                        float* grad, void* stream) {
   const int threads = tile_w * tile_h;
   if (threads % 32 != 0 || threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t fits = gsrt::check_block_fits(blend_bwd_kernel, threads);
+  if (fits != cudaSuccess) return (int)fits;
   if (T > 0)
     blend_bwd_kernel<<<T, threads, 0, (cudaStream_t)stream>>>(
         payload, L, tile_start, pixstate, (long long)T * threads, ntx,
         tile_w, g_cutoff, skip_range_check, alpha_threshold, alpha_clamp,
-        term_eps, grad);
+        term_eps, use_lut, grad);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,12 @@
 // Front-to-back f32 blend of the tile-sorted pair stream.
 //
 // Replaces the TPU kernel gsrt/ops/splat_subtile.py:_blend_subtile_kernel
-// (:49, reached through blend_subtiles): exact exp, the skip-range or the
-// 0 <= g <= g_cutoff accept rule, alpha clamp, the term_eps stop at chunk
-// boundaries. The LUT exponential is not ported (the wrapper raises).
+// (:49, reached through blend_subtiles): the exact exp or the reference's
+// exp LUT, the skip-range or the 0 <= g <= g_cutoff accept rule, alpha
+// clamp, the term_eps stop at chunk boundaries. Launched at 128x8-pixel
+// tiles it also replaces gsrt/ops/splat_pallas.py:_blend_kernel (:65,
+// blend_tiles), which computes the same function on those tiles (the JAX
+// suite holds the two equal, tests/test_subtile_kernel.py).
 //
 // Contract. payload is [8, L] int32, row-major, float rows as their bits:
 // 0 mean x, 1 mean y (pixels, image frame), 2-4 conic a, b, c,
@@ -33,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
@@ -44,7 +49,7 @@ blend_subtile_kernel(const int* __restrict__ payload, long long L,
                      const int* __restrict__ tile_start, int ntx, int width,
                      int height, int tile_w, float g_cutoff,
                      int skip_range_check, float alpha_threshold,
-                     float alpha_clamp, float term_eps,
+                     float alpha_clamp, float term_eps, int use_lut,
                      float* __restrict__ color, float* __restrict__ trans) {
   __shared__ float s_mx[kChunk], s_my[kChunk], s_qa[kChunk], s_qb[kChunk],
       s_qc[kChunk], s_op[kChunk], s_r[kChunk], s_g[kChunk], s_b[kChunk];
@@ -83,12 +88,12 @@ blend_subtile_kernel(const int* __restrict__ payload, long long L,
     __syncthreads();
     for (int i = 0; i < n; ++i) {
       const float dx = px - s_mx[i], dy = py - s_my[i];
-      const float gq = 0.5f * (s_qa[i] * dx * dx + 2.0f * s_qb[i] * dx * dy +
-                               s_qc[i] * dy * dy);
-      const bool in_range = gq >= 0.0f && gq <= g_cutoff;
-      const float ge = skip_range_check ? gq : (in_range ? gq : 0.0f);
-      const float alpha = fminf(s_op[i] * expf(-ge), alpha_clamp);
-      if (alpha > alpha_threshold && (skip_range_check || in_range)) {
+      const float gq =
+          gsrt::conic_response(s_qa[i], s_qb[i], s_qc[i], dx, dy);
+      float alpha;
+      if (gsrt::accept_alpha(gq, s_op[i], g_cutoff, skip_range_check,
+                             alpha_threshold, alpha_clamp, use_lut != 0,
+                             alpha)) {
         const float w = alpha * T_;
         cr += w * s_r[i];
         cg += w * s_g[i];
@@ -115,16 +120,19 @@ int gsrt_blend_subtile(const int* payload, long long L,
                        const int* tile_start, int T, int ntx, int width,
                        int height, int tile_w, int tile_h, float g_cutoff,
                        int skip_range_check, float alpha_threshold,
-                       float alpha_clamp, float term_eps, float* color,
-                       float* trans, void* stream) {
+                       float alpha_clamp, float term_eps, int use_lut,
+                       float* color, float* trans, void* stream) {
   const int threads = tile_w * tile_h;
   if (threads % 32 != 0 || threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t fits =
+      gsrt::check_block_fits(blend_subtile_kernel, threads);
+  if (fits != cudaSuccess) return (int)fits;
   if (T > 0)
     blend_subtile_kernel<<<T, threads, 0, (cudaStream_t)stream>>>(
         payload, L, tile_start, ntx, width, height, tile_w, g_cutoff,
-        skip_range_check, alpha_threshold, alpha_clamp, term_eps, color,
-        trans);
+        skip_range_check, alpha_threshold, alpha_clamp, term_eps, use_lut,
+        color, trans);
   return (int)cudaGetLastError();
 }
 

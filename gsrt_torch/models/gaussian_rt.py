@@ -5,14 +5,17 @@
   depth — per-pixel visit order is exact because depth is per splat. The
   port's semantic oracle.
 * `render_tiled`: the performance path. Projection and SH, footprint
-  extents, then group-stream binning (two expand kernels) and the packed
-  blend kernel, or, with blend_impl="subtile", the f32 tile stream and
-  the subtile blend kernel. It takes the JAX package's gating; where
-  that gating leads to a stream or a blend that is not ported it raises
-  NotImplementedError.
+  extents, binning, then a blend kernel, by the JAX package's gating:
+  the group stream through the packed group kernel (the defaults), the
+  tile stream with either payload through the packed tile kernel, the f32
+  stream through the subtile kernel (blend_impl="subtile") or, at 128×8
+  tiles, through `blend_tiles`. Under `serving=True` it takes the tile
+  stream, culls by a cutoff map, and returns the saturation feedback
+  (`ServingAux`) that `gsrt_torch.serving` consumes. Only ellipse spans
+  raise NotImplementedError.
 * `GaussianRayTracer`: sizes the static pair and unit buffers from a
   NumPy count of the view (`calibrate`) and re-renders a frame that
-  overflowed them.
+  overflowed them, at once or, with defer_overflow=N, N frames later.
 
 Entry points render on the device the cloud lives on; clouds and cameras
 come from `gsrt_torch.scene` or `gsrt_torch.interop`, which default to
@@ -32,7 +35,7 @@ from gsrt_torch.ops import explut
 from gsrt_torch.ops.gaussian import (eval_gaussian_response,
                                      project_gaussians, screen_extents_abc)
 from gsrt_torch.ops.sh import eval_sh
-from gsrt_torch.ops.tile_binning import (TODO_TILE_STREAM, group_rows_k,
+from gsrt_torch.ops.tile_binning import (TODO_ELLIPSE, group_rows_k,
                                          tile_extent)
 
 
@@ -74,9 +77,6 @@ def alive_mask(depth, opacity, in_front, cfg: RenderConfig) -> torch.Tensor:
     inside the ray's depth window."""
     return (in_front & (opacity > cfg.alpha_threshold) & (depth > cfg.t_min)
             & (depth < min(cfg.t_max, cfg.init_depth)))
-
-
-TODO_BLEND_TILES = "ROADMAP.md Queue 2 item 6 (the (128, 8)-tile blend)"
 
 
 def blend_params(cfg: RenderConfig) -> dict:
@@ -176,9 +176,11 @@ class StreamPlan(NamedTuple):
     group_k: Optional[int]
 
 
-def stream_plan(cfg: RenderConfig, width: int, height: int) -> StreamPlan:
-    """The JAX package's render_tiled gating (gaussian_rt.py:406-436,
-    serving off): payload tier, span mode after its fallback, stream.
+def stream_plan(cfg: RenderConfig, width: int, height: int,
+                serving: bool = False) -> StreamPlan:
+    """The JAX package's render_tiled gating (gaussian_rt.py:403-436):
+    payload tier, span mode after its fallback, stream. Serving keeps to
+    the tile stream, whose per-tile pair positions its feedback reads.
     `render_tiled` and `GaussianRayTracer.calibrate` both read it, so the
     buffers calibrate sizes are the ones the render uses."""
     tw, th = cfg.tile_w, cfg.tile_h
@@ -191,48 +193,65 @@ def stream_plan(cfg: RenderConfig, width: int, height: int) -> StreamPlan:
     group_k = group_rows_k(ntx)
     stream = cfg.stream
     if stream == "group" and not (
-            compact and cfg.scan_impl == "logmm" and span_mode == "rect"
-            and group_k is not None):
+            compact and not serving and cfg.scan_impl == "logmm"
+            and span_mode == "rect" and group_k is not None):
         stream = "tile"
     return StreamPlan(span_mode, stream, compact, group_k)
 
 
+class ServingAux(NamedTuple):
+    """Per-frame feedback the serving loop consumes (`gsrt_torch.serving`):
+    raw binning and kernel outputs of a frame rendered with serving=True."""
+    tile_start: torch.Tensor   # [T + 1] int32 pair offsets
+    tile_count: torch.Tensor   # [T] int32 pairs per tile (culled stream)
+    pair_depth: torch.Tensor   # [max_pairs] f32 camera depth per pair
+    consumed: torch.Tensor     # [G, bs] int32 first saturated chunk index
+                               # (the group's chunk count if never)
+
+
 def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
-                 max_pairs: int = 1 << 20, max_rows: int | None = None
-                 ) -> RenderOutput:
-    """Tile-binned splatting: the group-contiguous compact stream through
-    the packed blend, or (blend_impl="subtile") the f32 tile stream through
-    the subtile blend.
+                 max_pairs: int = 1 << 20, max_rows: int | None = None,
+                 cutoff_map: torch.Tensor | None = None,
+                 serving: bool = False):
+    """Tile-binned splatting; see the module docstring for the streams.
 
     max_pairs sizes the pair buffer, max_rows the group stream's unit
     buffer (max_pairs when None); a view that needs more sets `overflow`
-    and renders the truncated stream. Other configurations the JAX package
-    renders on the tile stream raise NotImplementedError. The blends
-    compute in f32 whatever `cfg.blend_math` says: the port has no bf16
-    tier yet."""
+    and renders the truncated stream. cfg.exact_hits reports each pixel's
+    accepted pairs from the packed kernels; otherwise each pixel reports
+    its tile's pair count. With serving=True (packed blend, tiles other
+    than 128×8) the frame blends the compact or f32 tile stream at
+    128-pair chunks, `cutoff_map` [T] (optional) culls splats behind the
+    previous frame's saturation depths, and the call returns
+    (RenderOutput, ServingAux). The blends compute in f32 whatever
+    `cfg.blend_math` says: the port has no bf16 tier."""
     from gsrt_torch.ops.splat_packed import blend_packed
+    from gsrt_torch.ops.splat_pallas import blend_tiles
     from gsrt_torch.ops.splat_subtile import blend_subtiles
     from gsrt_torch.ops.tile_binning import build_tile_binning
 
-    plan = stream_plan(cfg, camera.width, camera.height)
     tw, th = cfg.tile_w, cfg.tile_h
-    subtile = cfg.blend_impl == "subtile"
-    if (tw, th) == (128, 8):
+    tiles128 = (tw, th) == (128, 8)
+    if serving and (cfg.blend_impl != "packed" or tiles128):
+        raise ValueError("serving needs the packed blend and tiles other "
+                         "than 128x8")
+    plan = stream_plan(cfg, camera.width, camera.height, serving)
+    if plan.span_mode == "ellipse":
         raise NotImplementedError(
-            f"tile shape (128, 8) blends through blend_tiles: "
-            f"{TODO_BLEND_TILES}")
-    if plan.stream != "group" and not subtile:
-        raise NotImplementedError(
-            f"this configuration takes the JAX package's {plan.stream!r} "
-            f"stream (compact={plan.compact}, span_mode={plan.span_mode!r})"
-            f"; gsrt_torch renders it only with blend_impl='subtile': see "
-            f"{TODO_TILE_STREAM}")
-    if cfg.exact_hits:
-        raise NotImplementedError("exact_hits is ROADMAP.md Queue 2 item 3")
+            f"gsrt_torch bins rect spans only: see {TODO_ELLIPSE}")
+    ntx, nty = tile_extent(camera.width, camera.height, tw, th)
+    bs = plan.group_k * ntx if plan.stream == "group" else cfg.blend_bs
     if cloud.n == 0:
-        out = _empty_output(camera, cfg)
-        return out._replace(overflow=torch.zeros((), dtype=torch.bool,
-                                                 device=camera.device))
+        out = _empty_output(camera, cfg)._replace(
+            overflow=torch.zeros((), dtype=torch.bool, device=camera.device))
+        if not serving:
+            return out
+        zi = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                        device=camera.device)
+        return out, ServingAux(
+            tile_start=zi(ntx * nty + 1), tile_count=zi(ntx * nty),
+            pair_depth=torch.zeros(max_pairs, device=camera.device),
+            consumed=zi(1, cfg.blend_bs))
 
     depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
     m2x, m2y = mean2d[:, 0], mean2d[:, 1]
@@ -241,33 +260,57 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
                                 opacity=cloud.opacity,
                                 alpha_threshold=cfg.alpha_threshold)
     alive = alive_mask(depth, cloud.opacity, in_front, cfg)
-    ntx, nty = tile_extent(camera.width, camera.height, tw, th)
     binning = build_tile_binning(
         depth, m2x, m2y, qa, qb, qc, cloud.opacity, colors[:, 0],
         colors[:, 1], colors[:, 2], rx, ry, alive,
         width=camera.width, height=camera.height, tile_w=tw, tile_h=th,
         max_pairs=max_pairs, compact=plan.compact, span_mode=plan.span_mode,
-        max_rows=max_rows, stream=plan.stream, expand_impl=cfg.expand_impl)
-    if subtile:
-        # the subtile blend stages and stops at 128-pair chunks
+        max_rows=max_rows, stream=plan.stream, expand_impl=cfg.expand_impl,
+        cutoff_map=cutoff_map, carry_depth=serving,
+        cull_super=cfg.serving_super)
+    size = dict(width=camera.width, height=camera.height)
+    exact_hits = None
+    consumed = None
+    if tiles128:
+        # the (128, 8) and subtile blends stage and stop at 128-pair chunks
+        color, trans = blend_tiles(binning, chunk=min(cfg.pair_chunk, 128),
+                                   **size, **blend_params(cfg))
+    elif cfg.blend_impl == "subtile":
         color, trans = blend_subtiles(
-            binning, width=camera.width, height=camera.height, sub_w=tw,
-            sub_h=th, chunk=min(cfg.pair_chunk, 128), **blend_params(cfg))
+            binning, sub_w=tw, sub_h=th, chunk=min(cfg.pair_chunk, 128),
+            **size, **blend_params(cfg))
     else:
-        color, trans = blend_packed(
-            binning, width=camera.width, height=camera.height, sub_w=tw,
-            sub_h=th, bs=plan.group_k * ntx, group_stream=True,
-            **blend_params(cfg))
+        res = list(blend_packed(
+            binning, sub_w=tw, sub_h=th, bs=bs,
+            group_stream=plan.stream == "group", track_consumed=serving,
+            track_hits=cfg.exact_hits,
+            # serving reads saturation positions at chunk granularity: a
+            # 384-pair chunk rounds them up so far that the cull never
+            # engages (the JAX package clamps the same way)
+            chunk=min(cfg.pair_chunk, 128) if serving else cfg.pair_chunk,
+            **size, **blend_params(cfg)))
+        color, trans = res[0], res[1]
+        consumed = res[2] if serving else None
+        exact_hits = res[-1] if cfg.exact_hits else None
     if cfg.white_background:
         color = color + trans[..., None]
 
     H, W = camera.height, camera.width
-    # hits are not tracked by the blend: each pixel reports its tile's
-    # pair count (metrics-grade, as in the JAX package)
-    hits = binning.tile_count.reshape(nty, ntx).repeat_interleave(
-        th, 0).repeat_interleave(tw, 1)[:H, :W]
-    return RenderOutput(trans=trans, color=color, passes=-(-hits // cfg.k),
-                        hits=hits, overflow=binning.overflow)
+    if exact_hits is not None:
+        hits = exact_hits
+    else:
+        # the blend does not count: each pixel reports its tile's pair
+        # count (metrics-grade, as in the JAX package)
+        hits = binning.tile_count.reshape(nty, ntx).repeat_interleave(
+            th, 0).repeat_interleave(tw, 1)[:H, :W]
+    out = RenderOutput(trans=trans, color=color, passes=-(-hits // cfg.k),
+                       hits=hits, overflow=binning.overflow)
+    if serving:
+        return out, ServingAux(tile_start=binning.tile_start,
+                               tile_count=binning.tile_count,
+                               pair_depth=binning.pair_depth,
+                               consumed=consumed)
+    return out
 
 
 # --- host-side (NumPy) buffer sizing, copied from the JAX package ---
@@ -367,10 +410,15 @@ def pair_bucket(need: int) -> int:
 class GaussianRayTracer:
     """Chooses the execution path. In "tiled" mode the static pair and unit
     buffers are sized on the first call by `calibrate` and re-sized, with a
-    re-render, when a frame overflows them."""
+    re-render, when a frame overflows them. defer_overflow=N > 0 reads a
+    frame's overflow flag N frames later instead of at once (one host
+    synchronisation per frame less): an overflowing frame is then served
+    truncated, and the frame at which its flag is read re-calibrates and
+    renders again."""
 
     def __init__(self, cfg: RenderConfig, mode: str = "fast",
-                 max_pairs: Optional[int] = None, device=None):
+                 max_pairs: Optional[int] = None, device=None,
+                 defer_overflow: int = 0):
         if mode not in ("fast", "tiled"):
             raise NotImplementedError(
                 f"mode {mode!r}: gsrt_torch ports 'fast' and 'tiled'; "
@@ -380,6 +428,8 @@ class GaussianRayTracer:
         self.device = resolve_device(device)
         self.max_pairs = max_pairs
         self.max_rows = None
+        self.defer_overflow = defer_overflow
+        self._overflow_pending: list[torch.Tensor] = []
 
     def calibrate(self, cloud: GaussianCloud, camera: Camera) -> int:
         """Size max_pairs (and, on the group stream, max_rows) from a NumPy
@@ -398,19 +448,28 @@ class GaussianRayTracer:
         self.max_pairs = pair_bucket(int(total * 1.1))
         return self.max_pairs
 
+    def _render(self, cloud, camera) -> RenderOutput:
+        return render_tiled(cloud, camera, self.cfg,
+                            max_pairs=self.max_pairs, max_rows=self.max_rows)
+
     def __call__(self, cloud: GaussianCloud, camera: Camera) -> RenderOutput:
         cloud, camera = cloud.to(self.device), camera.to(self.device)
         if self.mode == "fast":
             return render_fast(cloud, camera, self.cfg)
         if self.max_pairs is None:
             self.calibrate(cloud, camera)
-        out = render_tiled(cloud, camera, self.cfg, max_pairs=self.max_pairs,
-                           max_rows=self.max_rows)
-        if bool(out.overflow):
+        out = self._render(cloud, camera)
+        if self.defer_overflow > 0:
+            self._overflow_pending.append(out.overflow)
+            # read a flag only once it is defer_overflow frames old
+            if len(self._overflow_pending) > self.defer_overflow and \
+                    bool(self._overflow_pending.pop(0)):
+                self.calibrate(cloud, camera)
+                out = self._render(cloud, camera)
+                self._overflow_pending.clear()
+        elif bool(out.overflow):
             # the view outgrew the buffers (zoom, scene growth): re-size
             # and render again rather than serve truncated pairs
             self.calibrate(cloud, camera)
-            out = render_tiled(cloud, camera, self.cfg,
-                               max_pairs=self.max_pairs,
-                               max_rows=self.max_rows)
+            out = self._render(cloud, camera)
         return out

@@ -3,8 +3,9 @@ blend (counterpart of `gsrt.models.tiled_diff`).
 
 `render_fast` differentiates through plain tensor code but costs
 O(splats × pixels); this module makes the tiled path trainable. The
-forward is the f32 tile-stream binning and the subtile blend kernel; the
-backward is the blend's backward kernel (`gsrt_torch.ops.splat_grad`),
+forward is the f32 tile-stream binning and the subtile blend kernel
+(`blend_tiles` at 128×8 tiles, the same kernel); the backward is the
+blend's backward kernel (`gsrt_torch.ops.splat_grad`),
 which re-walks each tile's pair list and emits per-pair gradients, routed
 back to splats by `route_pair_grads`.
 
@@ -20,8 +21,8 @@ import torch
 
 from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, GaussianCloud
-from gsrt_torch.models.gaussian_rt import (TODO_BLEND_TILES, _precompute,
-                                           alive_mask, blend_params)
+from gsrt_torch.models.gaussian_rt import (_precompute, alive_mask,
+                                           blend_params)
 from gsrt_torch.ops.gaussian import screen_extents_abc
 from gsrt_torch.ops.tile_binning import tile_extent
 
@@ -76,6 +77,7 @@ class _TiledBlend(torch.autograd.Function):
     def forward(ctx, m2x, m2y, qa, qb, qc, opacity, cr, cg, cb, depth, rx,
                 ry, alive, cfg: RenderConfig, width: int, height: int,
                 max_pairs: int):
+        from gsrt_torch.ops.splat_pallas import blend_tiles
         from gsrt_torch.ops.splat_subtile import blend_subtiles
         from gsrt_torch.ops.tile_binning import build_tile_binning
         tw, th = cfg.tile_w, cfg.tile_h
@@ -94,9 +96,13 @@ class _TiledBlend(torch.autograd.Function):
                 f"max_pairs is {max_pairs}: a step on a truncated stream "
                 f"would train on a wrong image; size max_pairs with "
                 f"pair_bucket(count_pairs_numpy(...))")
-        color, trans = blend_subtiles(
-            binning, width=width, height=height, sub_w=tw, sub_h=th,
-            chunk=chunk, **blend_params(cfg))
+        if (tw, th) == (128, 8):
+            color, trans = blend_tiles(binning, width=width, height=height,
+                                       chunk=chunk, **blend_params(cfg))
+        else:
+            color, trans = blend_subtiles(
+                binning, width=width, height=height, sub_w=tw, sub_h=th,
+                chunk=chunk, **blend_params(cfg))
         ctx.save_for_backward(binning.payload, binning.tile_start,
                               binning.sorted_base, binning.sorted_touched,
                               binning.sorted_orig, color, trans)
@@ -126,10 +132,6 @@ def tiled_blend_diff(cfg: RenderConfig, camera: Camera, max_pairs: int,
     """The differentiable blend core for one (cfg, camera, buffer size):
     core(m2x, m2y, qa, qb, qc, opacity, cr, cg, cb) → (color [H, W, 3],
     trans [H, W]), background not applied."""
-    if (cfg.tile_w, cfg.tile_h) == (128, 8):
-        raise NotImplementedError(
-            f"tile shape (128, 8) blends through blend_tiles: "
-            f"{TODO_BLEND_TILES}")
 
     def core(m2x, m2y, qa, qb, qc, opacity, cr, cg, cb):
         return _TiledBlend.apply(m2x, m2y, qa, qb, qc, opacity, cr, cg, cb,

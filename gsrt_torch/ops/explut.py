@@ -1,7 +1,9 @@
 """Piecewise-linear exp(-x) lookup table: the reference's 256 segments on
 [0, 8] (slope −e^{−x₀}, intercept e^{−x₀} at each segment's left edge).
 Counterpart of `gsrt.ops.explut`; `render_fast` uses it under
-`use_exp_lut=True`."""
+`use_exp_lut=True`. `exp_neg_lut` is the form the blend kernels compute
+(the JAX package's `splat_pallas._exp_neg_lut`): the same segments with
+the entries computed rather than gathered, and no clamp at 0."""
 
 from __future__ import annotations
 
@@ -37,6 +39,20 @@ def linear_exp(x: torch.Tensor, lut: torch.Tensor,
     dx = x - qx.to(x.dtype) / scale
     seg = lut[qx.long()]
     return torch.clamp_min(seg[..., 0] * dx + seg[..., 1], 0.0)
+
+
+def lut_x0(x: torch.Tensor) -> torch.Tensor:
+    """Left edge of x's segment: clamp(trunc(32·x), 0, 255) / 32."""
+    qx = torch.clamp((x * 32.0).to(torch.int32), 0, 255)
+    return qx.to(torch.float32) * (1.0 / 32.0)
+
+
+def exp_neg_lut(x: torch.Tensor) -> torch.Tensor:
+    """exp(-x) as the blend kernels take it under use_exp_lut:
+    −e^{−x₀}·(x − x₀) + e^{−x₀}. Its derivative is −e^{−x₀}."""
+    x0 = lut_x0(x)
+    e0 = torch.exp(-x0)
+    return (-e0) * (x - x0) + e0
 
 
 def exp_neg(x: torch.Tensor, lut: torch.Tensor | None = None,

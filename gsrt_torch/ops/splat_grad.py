@@ -15,9 +15,10 @@ is needed:
     ∂T_N/∂α_i = −T_N / (1 − α_i)
     ∂L/∂c_i  = dC · α_i T_i
 
-∂L/∂α_i is zero where the pair was not accepted or where op·exp(−g)
-exceeded alpha_clamp. The walk stops where the forward's did, so pairs
-behind the stop get zeros.
+∂L/∂α_i is zero where the pair was not accepted or where op·e(g)
+exceeded alpha_clamp; ∂α/∂g = op·e'(g), with e'(g) = −exp(−g), or, under
+use_exp_lut, the slope −e^{−x₀} of g's LUT segment. The walk stops where
+the forward's did, so pairs behind the stop get zeros.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def blend_backward_plain(payload, tile_start, pixstate, *, width: int,
                          height: int, tile_w: int, tile_h: int, chunk: int,
                          g_cutoff: float, alpha_threshold: float,
                          alpha_clamp: float, term_eps: float = 1e-4,
-                         skip_range_check: bool = False) -> torch.Tensor:
+                         skip_range_check: bool = False,
+                         use_exp_lut: bool = False) -> torch.Tensor:
     """Plain version of the backward blend: [9, max_pairs] float32."""
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     npx = tile_w * tile_h
@@ -61,9 +63,10 @@ def blend_backward_plain(payload, tile_start, pixstate, *, width: int,
             continue
         f = decode_pairs(payload[:, lo:hi])
         px, py = tile_pixels(tile, ntx, tile_w, tile_h, dev)
-        dx, dy, expg, raw, accept = pair_alphas(
+        dx, dy, expg, dexp, raw, accept = pair_alphas(
             f, px, py, g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
-            skip_range_check=skip_range_check, floor_g=True)
+            skip_range_check=skip_range_check, use_exp_lut=use_exp_lut,
+            floor_g=True)
         zero = torch.zeros_like(raw)
         alpha = torch.where(accept, torch.clamp_max(raw, alpha_clamp), zero)
         one_minus = 1.0 - alpha
@@ -81,7 +84,7 @@ def blend_backward_plain(payload, tile_start, pixstate, *, width: int,
                    - d_tn * t_n * inv_om)
         d_alpha = torch.where(accept[:, sl] & (raw[:, sl] <= alpha_clamp),
                               d_alpha, zero[:, sl])
-        d_gq = -d_alpha * raw[:, sl]
+        d_gq = d_alpha * f["op"][sl] * dexp[:, sl]
         dx, dy = dx[:, sl], dy[:, sl]
         qa, qb, qc = f["qa"][sl], f["qb"][sl], f["qc"][sl]
         grad[:, lo:lo + n_live] = torch.stack([
@@ -111,14 +114,15 @@ def blend_backward(payload, tile_start, pixstate, *, width: int, height: int,
     tail)."""
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     T = ntx * nty
-    check_stream(payload, tile_start, T, tile_w, tile_h, chunk, use_exp_lut)
+    check_stream(payload, tile_start, T, tile_w, tile_h, chunk)
     _check_pixstate(pixstate, payload, T, tile_w * tile_h)
     if not payload.is_cuda:
         return blend_backward_plain(
             payload, tile_start, pixstate, width=width, height=height,
             tile_w=tile_w, tile_h=tile_h, chunk=chunk, g_cutoff=g_cutoff,
             alpha_threshold=alpha_threshold, alpha_clamp=alpha_clamp,
-            term_eps=term_eps, skip_range_check=skip_range_check)
+            term_eps=term_eps, skip_range_check=skip_range_check,
+            use_exp_lut=use_exp_lut)
     # zeroed: the kernel stores only the columns its walk reaches
     grad = torch.zeros((GRAD_ROWS, payload.shape[1]), dtype=torch.float32,
                        device=payload.device)
@@ -127,5 +131,5 @@ def blend_backward(payload, tile_start, pixstate, *, width: int, height: int,
             payload.data_ptr(), payload.shape[1], tile_start.data_ptr(),
             pixstate.data_ptr(), T, ntx, tile_w, tile_h, g_cutoff,
             int(skip_range_check), alpha_threshold, alpha_clamp, term_eps,
-            grad.data_ptr(), _kernels.stream_ptr(payload))
+            int(use_exp_lut), grad.data_ptr(), _kernels.stream_ptr(payload))
     return grad

@@ -1,18 +1,34 @@
-"""Front-to-back EWA blend of the group-contiguous compact pair stream.
+"""Front-to-back EWA blend of the packed pair streams.
 
-Counterpart of `gsrt.ops.splat_packed.blend_packed` in the mode the main
-path runs (group_stream=True, compact payload). On a CUDA tensor it
+Counterpart of `gsrt.ops.splat_packed.blend_packed`. On CUDA tensors it
 launches `csrc/splat_packed.cu` (which replaces the TPU kernel
-`_blend_packed_kernel`); on a CPU tensor it runs `blend_packed_plain`, a
-per-tile loop of tensor code computing the same function.
+`_blend_packed_kernel`): the group kernel for the group-contiguous compact
+stream (group_stream=True), the tile kernel for the tile-sorted stream
+with the compact or the f32 payload. On CPU tensors it runs the plain
+versions, per-tile loops of tensor code computing the same functions.
 
-Semantics, shared by both: each tile walks its pairs in payload order
-(the per-tile depth order), with alpha = min(op·exp(−g), alpha_clamp),
-g = t1² + t2² from the bf16 Cholesky factors (the response's ½ folded in),
-accepted when alpha > alpha_threshold (and g ≤ g_cutoff unless
-skip_range_check). The group's pair range is read in batches of
-tile_w·tile_h columns starting at the group's first pair; before each
-batch the tile stops if no pixel of it has trans > term_eps.
+Semantics, shared by kernels and plain versions: each tile walks its pairs
+in payload order (the per-tile depth order). The response is g = t1² + t2²
+from the bf16 Cholesky factors (compact; the ½ folded in) or
+½(a·dx² + 2b·dx·dy + c·dy²) from the f32 conic; alpha = min(op·e(g),
+alpha_clamp) with e the exact exp(−g) or the reference's LUT, accepted when
+alpha > alpha_threshold and, unless skip_range_check, 0 ≤ g ≤ g_cutoff
+(then e(0) outside the range).
+
+* Group stream: the group's pair range is read in batches of
+  tile_w·tile_h columns starting at the group's first pair; before each
+  batch the tile stops if no pixel of it has trans > term_eps.
+* Tile stream: the JAX kernel's chunk gate. The group's pairs fall into
+  chunks of `chunk` columns from the group's chunk-aligned start; a tile's
+  pairs in chunk j are blended iff the tile is unsaturated at j's start
+  (some pixel, padding pixels included, has trans > term_eps), or j is
+  the tile's last chunk and the column after its segment lies inside j
+  and belongs to this group (a later tile, or the dead columns of a last
+  group padded past T). `consumed` [G, bs] counts, per tile, the group's
+  chunk starts at which the tile's max trans is ≥ term_eps (the group's
+  chunk count for padding columns); `hits` [H, W] counts each pixel's
+  accepted pairs in the chunks its tile blends. The group stream also
+  gives hits, counted over the batches it blends.
 """
 
 from __future__ import annotations
@@ -20,21 +36,26 @@ from __future__ import annotations
 import torch
 
 from gsrt_torch import _kernels
-from gsrt_torch.ops.tile_binning import (COMPACT_WIDTH, TileBinning,
-                                         tile_extent, unpack_bf16_hi,
+from gsrt_torch.ops import explut
+from gsrt_torch.ops.tile_binning import (COMPACT_WIDTH, PAYLOAD_WIDTH,
+                                         TileBinning, tile_extent,
+                                         unpack15, unpack_bf16_hi,
                                          unpack_bf16_lo, unpack_mean_rel,
                                          unpack_rgba8)
 
 _RH = 0.7071067811865476   # sqrt(1/2): folds the response's ½ into t1, t2
 
 
-def _check(binning: TileBinning, T: int) -> None:
+def _check(binning: TileBinning, T: int, compact_only: bool) -> bool:
+    """Validate the stream; returns whether the payload is compact."""
     pay, ts = binning.payload, binning.tile_start
     if pay.dtype != torch.int32 or ts.dtype != torch.int32:
         raise TypeError("payload and tile_start must be int32")
-    if pay.dim() != 2 or pay.shape[0] != COMPACT_WIDTH:
-        raise ValueError(f"payload must be [{COMPACT_WIDTH}, L], got "
-                         f"{tuple(pay.shape)}")
+    rows = (COMPACT_WIDTH,) if compact_only else (COMPACT_WIDTH,
+                                                  PAYLOAD_WIDTH)
+    if pay.dim() != 2 or pay.shape[0] not in rows:
+        raise ValueError(f"payload must be [{' or '.join(map(str, rows))}, "
+                         f"L], got {tuple(pay.shape)}")
     if ts.shape != (T + 1,):
         raise ValueError(f"tile_start must be [{T + 1}], got "
                          f"{tuple(ts.shape)}")
@@ -42,6 +63,7 @@ def _check(binning: TileBinning, T: int) -> None:
         raise ValueError("payload and tile_start must share a device")
     if not (pay.is_contiguous() and ts.is_contiguous()):
         raise ValueError("payload and tile_start must be contiguous")
+    return pay.shape[0] == COMPACT_WIDTH
 
 
 def decode_pairs(cols: torch.Tensor) -> dict:
@@ -57,32 +79,93 @@ def decode_pairs(cols: torch.Tensor) -> dict:
                 rgb=torch.stack([r, g, b], -1), op=op)
 
 
-def _blend_tile(f: dict, batch: torch.Tensor, px, py, *, g_cutoff,
-                skip_range_check, alpha_threshold, alpha_clamp, term_eps):
-    """One tile: f holds the decoded fields of its n pairs in order, batch
-    [n] each pair's batch index. Returns (color [P, 3], trans [P], the
-    number of pairs blended before the early stop)."""
+def decode_f32_pairs(cols: torch.Tensor) -> dict:
+    """Decode f32 payload columns [8, n] into float32 fields."""
+    f = lambda r: cols[r].view(torch.float32)
+    cr, cg = unpack15(cols[5])
+    cb, op = unpack15(cols[6])
+    return dict(mx=f(0), my=f(1), qa=f(2), qb=f(3), qc=f(4),
+                rgb=torch.stack([cr, cg, cb], -1), op=op)
+
+
+def response(f: dict, px, py) -> torch.Tensor:
+    """g [P, n] of a tile's pixels × its decoded pairs; px, py in the
+    payload's frame (tile-relative for compact, the image for f32)."""
     dx = px[:, None] - f["mx"][None, :]
     dy = py[:, None] - f["my"][None, :]
-    t1 = f["l11"][None, :] * dx + f["l21"][None, :] * dy
-    t2 = f["l22"][None, :] * dy
-    gq = t1 * t1 + t2 * t2
-    alpha = torch.clamp_max(f["op"][None, :] * torch.exp(-gq), alpha_clamp)
-    accept = alpha > alpha_threshold
-    if not skip_range_check:
-        accept &= gq <= g_cutoff
-    alpha = torch.where(accept, alpha, torch.zeros_like(alpha))
+    if "l11" in f:
+        t1 = f["l11"][None, :] * dx + f["l21"][None, :] * dy
+        t2 = f["l22"][None, :] * dy
+        return t1 * t1 + t2 * t2
+    return 0.5 * (f["qa"] * dx * dx + 2.0 * f["qb"] * dx * dy
+                  + f["qc"] * dy * dy)
+
+
+def alphas(gq, op, *, g_cutoff, alpha_threshold, alpha_clamp,
+           skip_range_check, use_exp_lut):
+    """(alpha [P, n], zero where not accepted; accept [P, n])."""
+    expf = explut.exp_neg_lut if use_exp_lut else lambda v: torch.exp(-v)
+    if skip_range_check:
+        alpha = torch.clamp_max(op[None, :] * expf(gq), alpha_clamp)
+        accept = alpha > alpha_threshold
+    else:
+        in_range = (gq >= 0.0) & (gq <= g_cutoff)
+        alpha = torch.clamp_max(
+            op[None, :] * expf(torch.where(in_range, gq,
+                                           torch.zeros_like(gq))),
+            alpha_clamp)
+        accept = in_range & (alpha > alpha_threshold)
+    return torch.where(accept, alpha, torch.zeros_like(alpha)), accept
+
+
+def _blend_tile(f: dict, batch: torch.Tensor, px, py, *, term_eps, **kw):
+    """One tile of the group stream: f holds the decoded fields of its n
+    pairs in order, batch [n] each pair's batch index. Returns (color
+    [P, 3], trans [P], hits [P], the number of pairs blended before the
+    early stop)."""
+    alpha, accept = alphas(response(f, px, py), f["op"], **kw)
     incl = torch.cumprod(1.0 - alpha, dim=1)
     excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
     # trans at the start of each pair's batch, from the batch's first pair
     first = torch.searchsorted(batch, batch)
     live = (excl[:, first] > term_eps).any(dim=0)      # a prefix of pairs
     n_live = int(live.sum())
+    hits = accept[:, :n_live].sum(1, dtype=torch.int32)
     if n_live == 0:
         return torch.zeros((px.shape[0], 3), device=px.device), \
-            torch.ones_like(px), 0
+            torch.ones_like(px), hits, 0
     w = (alpha * excl)[:, :n_live]
-    return w @ f["rgb"][:n_live], incl[:, n_live - 1], n_live
+    return w @ f["rgb"][:n_live], incl[:, n_live - 1], hits, n_live
+
+
+class _Frame:
+    """Padded framebuffers a plain version fills tile by tile."""
+
+    def __init__(self, ntx, nty, sub_w, sub_h, device):
+        self.ntx, self.sub_w, self.sub_h = ntx, sub_w, sub_h
+        self.color = torch.zeros((nty * sub_h, ntx * sub_w, 3), device=device)
+        self.trans = torch.ones((nty * sub_h, ntx * sub_w), device=device)
+        self.hits = torch.zeros((nty * sub_h, ntx * sub_w),
+                                dtype=torch.int32, device=device)
+
+    def put(self, tile, color, trans, hits):
+        ty, tx = divmod(tile, self.ntx)
+        ys, xs, h, w = ty * self.sub_h, tx * self.sub_w, self.sub_h, \
+            self.sub_w
+        self.color[ys:ys + h, xs:xs + w] = color.reshape(h, w, 3)
+        self.trans[ys:ys + h, xs:xs + w] = trans.reshape(h, w)
+        self.hits[ys:ys + h, xs:xs + w] = hits.reshape(h, w)
+
+    def crop(self, width, height):
+        return (self.color[:height, :width].contiguous(),
+                self.trans[:height, :width].contiguous(),
+                self.hits[:height, :width].contiguous())
+
+
+def _tile_pixels(sub_w, sub_h, device):
+    pidx = torch.arange(sub_w * sub_h, device=device)
+    return ((pidx % sub_w).to(torch.float32),
+            (pidx // sub_w).to(torch.float32))
 
 
 def blend_packed_plain(binning: TileBinning, *, width: int, height: int,
@@ -91,22 +174,23 @@ def blend_packed_plain(binning: TileBinning, *, width: int, height: int,
                        alpha_threshold: float = 1.0 / 255.0,
                        alpha_clamp: float = 0.99, term_eps: float = 1e-4,
                        skip_range_check: bool = False,
+                       use_exp_lut: bool = False, track_hits: bool = False,
                        stats: dict | None = None):
     """Plain version of the group-stream blend: (color [H, W, 3],
-    trans [H, W]) float32. A `stats` dict receives "pairs_blended", the
-    pairs all tiles blend before their early stop (the data-dependent
-    work a roofline bound counts)."""
+    trans [H, W]) float32, then hits [H, W] int32 with track_hits. A
+    `stats` dict receives "pairs_blended", the pairs all tiles blend before
+    their early stop (the data-dependent work a roofline bound counts)."""
     ntx, nty = tile_extent(width, height, sub_w, sub_h)
     T = ntx * nty
     dev = binning.payload.device
     npx = sub_w * sub_h
-    pidx = torch.arange(npx, device=dev)
-    px = (pidx % sub_w).to(torch.float32)
-    py = (pidx // sub_w).to(torch.float32)
-    color = torch.zeros((nty * sub_h, ntx * sub_w, 3), device=dev)
-    trans = torch.ones((nty * sub_h, ntx * sub_w), device=dev)
+    px, py = _tile_pixels(sub_w, sub_h, dev)
+    frame = _Frame(ntx, nty, sub_w, sub_h, dev)
     ts = binning.tile_start.tolist()
     pay = binning.payload
+    kw = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
+              alpha_clamp=alpha_clamp, term_eps=term_eps,
+              skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
     blended = 0
     for g0 in range(0, T, bs):
         start, end = ts[g0], ts[min(g0 + bs, T)]
@@ -125,20 +209,85 @@ def blend_packed_plain(binning: TileBinning, *, width: int, height: int,
             if hi <= lo:
                 continue
             f = {k: v[lo:hi] for k, v in f_all.items()}
-            c, t, n_live = _blend_tile(
-                f, batch_all[lo:hi].contiguous(), px, py, g_cutoff=g_cutoff,
-                skip_range_check=skip_range_check,
-                alpha_threshold=alpha_threshold, alpha_clamp=alpha_clamp,
-                term_eps=term_eps)
+            c, t, h, n_live = _blend_tile(f, batch_all[lo:hi].contiguous(),
+                                          px, py, **kw)
             blended += n_live
-            ty, tx = divmod(tile, ntx)
-            ys, xs = ty * sub_h, tx * sub_w
-            color[ys:ys + sub_h, xs:xs + sub_w] = c.reshape(sub_h, sub_w, 3)
-            trans[ys:ys + sub_h, xs:xs + sub_w] = t.reshape(sub_h, sub_w)
+            frame.put(tile, c, t, h)
     if stats is not None:
         stats["pairs_blended"] = blended
-    return color[:height, :width].contiguous(), \
-        trans[:height, :width].contiguous()
+    color, trans, hits = frame.crop(width, height)
+    return (color, trans, hits) if track_hits else (color, trans)
+
+
+def blend_packed_tile_plain(binning: TileBinning, *, width: int,
+                            height: int, sub_w: int, sub_h: int, bs: int,
+                            chunk: int, g_cutoff: float = 5.6,
+                            alpha_threshold: float = 1.0 / 255.0,
+                            alpha_clamp: float = 0.99,
+                            term_eps: float = 1e-4,
+                            skip_range_check: bool = False,
+                            use_exp_lut: bool = False,
+                            stats: dict | None = None):
+    """Plain version of the tile-stream blend, either payload: (color
+    [H, W, 3], trans [H, W], consumed [G, bs] int32, hits [H, W] int32).
+    A `stats` dict receives "pairs_blended", the pairs in the chunks the
+    tiles blend."""
+    ntx, nty = tile_extent(width, height, sub_w, sub_h)
+    T = ntx * nty
+    G = -(-T // bs)
+    pay = binning.payload
+    dev = pay.device
+    compact = pay.shape[0] == COMPACT_WIDTH
+    decode = decode_pairs if compact else decode_f32_pairs
+    lx, ly = _tile_pixels(sub_w, sub_h, dev)
+    frame = _Frame(ntx, nty, sub_w, sub_h, dev)
+    consumed = torch.zeros(G * bs, dtype=torch.int32)
+    ts = binning.tile_start.tolist()
+    kw = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
+              alpha_clamp=alpha_clamp, skip_range_check=skip_range_check,
+              use_exp_lut=use_exp_lut)
+    blended = 0
+    for g0 in range(0, G * bs, bs):
+        # the group's chunks start at its first pair, rounded down
+        end_g = ts[min(g0 + bs, T)]
+        astart = (ts[g0] // chunk) * chunk
+        total_chunks = -(-(end_g - astart) // chunk)
+        consumed[g0:g0 + bs] = total_chunks
+        for tile in range(g0, min(g0 + bs, T)):
+            lo, hi = ts[tile], ts[tile + 1]
+            if hi <= lo:
+                continue
+            f = decode(pay[:, lo:hi])
+            ty, tx = divmod(tile, ntx)
+            px, py = (lx, ly) if compact else \
+                (lx + tx * sub_w, ly + ty * sub_h)
+            alpha, accept = alphas(response(f, px, py), f["op"], **kw)
+            trans = torch.ones_like(lx)
+            color = torch.zeros((lx.shape[0], 3), device=dev)
+            hits = torch.zeros(lx.shape[0], dtype=torch.int32, device=dev)
+            jf, jl = (lo - astart) // chunk, (hi - 1 - astart) // chunk
+            force_last = (hi - astart) % chunk != 0 and \
+                (hi < end_g or g0 + bs > T)
+            for j in range(jf, jl + 1):
+                if bool((trans > term_eps).any()) or (j == jl and force_last):
+                    a = max(lo, astart + j * chunk) - lo
+                    b = min(hi, astart + (j + 1) * chunk) - lo
+                    al = alpha[:, a:b]
+                    incl = torch.cumprod(1.0 - al, dim=1)
+                    excl = torch.cat([torch.ones_like(incl[:, :1]),
+                                      incl[:, :-1]], dim=1)
+                    color += (al * excl * trans[:, None]) @ f["rgb"][a:b]
+                    trans = trans * incl[:, -1]
+                    hits += accept[:, a:b].sum(1, dtype=torch.int32)
+                    blended += b - a
+                if consumed[tile] == total_chunks and \
+                        not bool((trans >= term_eps).any()):
+                    consumed[tile] = j + 1
+            frame.put(tile, color, trans, hits)
+    if stats is not None:
+        stats["pairs_blended"] = blended
+    color, trans, hits = frame.crop(width, height)
+    return color, trans, consumed.reshape(G, bs).to(dev), hits
 
 
 def blend_packed(binning: TileBinning, *, width: int, height: int,
@@ -147,40 +296,72 @@ def blend_packed(binning: TileBinning, *, width: int, height: int,
                  alpha_threshold: float = 1.0 / 255.0,
                  alpha_clamp: float = 0.99, term_eps: float = 1e-4,
                  skip_range_check: bool = False, use_exp_lut: bool = False,
-                 group_stream: bool = True):
-    """Blend the group-contiguous compact stream: (color [H, W, 3],
-    trans [H, W]) float32. bs is the group size in tiles (k full tile
-    rows). The JAX kernel's LUT and tile-stream modes are not ported and
-    raise."""
-    if use_exp_lut or not group_stream:
-        raise NotImplementedError(
-            "gsrt_torch.blend_packed runs the group stream with exact exp "
-            "only; the LUT and tile-stream modes are ROADMAP.md Queue 2 "
-            "item 3")
+                 track_consumed: bool = False, track_hits: bool = False,
+                 chunk: int = 128, group_stream: bool = True):
+    """Run the packed blend: (color [H, W, 3], trans [H, W]) float32, then
+    consumed [G, bs] int32 with track_consumed (the first chunk index at
+    which each tile was saturated, the group's chunk count if never), then
+    hits [H, W] int32 with track_hits. bs is the group size in tiles; on
+    the group stream it is k full tile rows and `chunk` is not read (the
+    port's group kernel stops per batch of tile_w·tile_h columns). The
+    payload is the compact [5, L] or, on the tile stream, the f32 [8, L]
+    one. The JAX kernel's scan_impl and math_dtype pick TPU arithmetic and
+    have no counterpart: both streams blend in f32, pair by pair."""
     ntx, nty = tile_extent(width, height, sub_w, sub_h)
     T = ntx * nty
-    _check(binning, T)
+    compact = _check(binning, T, compact_only=group_stream)
     npx = sub_w * sub_h
     if npx % 32 != 0 or npx > 1024:
         raise ValueError("tile_w * tile_h must be a multiple of 32, <= 1024")
-    if bs % ntx != 0:
+    if bs <= 0 or chunk <= 0:
+        raise ValueError("bs and chunk must be positive")
+    if group_stream and bs % ntx != 0:
         raise ValueError("a group must be whole tile rows (bs % ntx == 0)")
+    if group_stream and track_consumed:
+        raise ValueError(
+            "track_consumed reads per-tile chunk positions, which the group "
+            "stream does not have: serving blends the tile stream")
     kw = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
               alpha_clamp=alpha_clamp, term_eps=term_eps,
-              skip_range_check=skip_range_check)
-    pay = binning.payload
+              skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
+    pay, ts = binning.payload, binning.tile_start
     if not pay.is_cuda:
-        return blend_packed_plain(binning, width=width, height=height,
-                                  sub_w=sub_w, sub_h=sub_h, bs=bs, **kw)
-    color = torch.empty((height, width, 3), dtype=torch.float32,
-                        device=pay.device)
-    trans = torch.empty((height, width), dtype=torch.float32,
-                        device=pay.device)
-    with torch.cuda.device(pay.device):
-        _kernels.BLEND_GROUP(
-            pay.data_ptr(), pay.shape[1], binning.tile_start.data_ptr(), T,
-            ntx, bs, width, height, sub_w, sub_h, g_cutoff,
-            int(skip_range_check), alpha_threshold, alpha_clamp, term_eps,
-            color.data_ptr(), trans.data_ptr(), _kernels.stream_ptr(pay))
-    return color, trans
-
+        if group_stream:
+            return blend_packed_plain(binning, width=width, height=height,
+                                      sub_w=sub_w, sub_h=sub_h, bs=bs,
+                                      track_hits=track_hits, **kw)
+        color, trans, consumed, hits = blend_packed_tile_plain(
+            binning, width=width, height=height, sub_w=sub_w, sub_h=sub_h,
+            bs=bs, chunk=chunk, **kw)
+    else:
+        dev = pay.device
+        color = torch.empty((height, width, 3), dtype=torch.float32,
+                            device=dev)
+        trans = torch.empty((height, width), dtype=torch.float32, device=dev)
+        hits = torch.empty((height, width), dtype=torch.int32, device=dev) \
+            if track_hits else None
+        hits_ptr = hits.data_ptr() if track_hits else None
+        args = (g_cutoff, int(skip_range_check), alpha_threshold,
+                alpha_clamp, term_eps, int(use_exp_lut))
+        with torch.cuda.device(dev):
+            if group_stream:
+                _kernels.BLEND_GROUP(
+                    pay.data_ptr(), pay.shape[1], ts.data_ptr(), T, ntx, bs,
+                    width, height, sub_w, sub_h, *args, color.data_ptr(),
+                    trans.data_ptr(), hits_ptr, _kernels.stream_ptr(pay))
+                return (color, trans, hits) if track_hits else (color, trans)
+            G = -(-T // bs)
+            consumed = torch.empty((G, bs), dtype=torch.int32, device=dev) \
+                if track_consumed else None
+            _kernels.BLEND_TILE(
+                pay.data_ptr(), pay.shape[1], int(compact), ts.data_ptr(), T,
+                ntx, bs, chunk, width, height, sub_w, sub_h, *args,
+                color.data_ptr(), trans.data_ptr(), hits_ptr,
+                consumed.data_ptr() if track_consumed else None,
+                _kernels.stream_ptr(pay))
+    res = (color, trans)
+    if track_consumed:
+        res += (consumed,)
+    if track_hits:
+        res += (hits,)
+    return res

@@ -7,15 +7,15 @@ launches `csrc/splat_subtile.cu` (which replaces the TPU kernel
 a per-tile loop of tensor code computing the same function.
 
 Semantics, shared by both: each tile walks its own contiguous segment
-[tile_start[t], tile_start[t + 1]) of the f32 payload in order (the
-per-tile depth order), with g = ½(a·dx² + 2b·dx·dy + c·dy²) at integer
-pixel coordinates, alpha = min(op·exp(−g), alpha_clamp), accepted when
-alpha > alpha_threshold (and 0 ≤ g ≤ g_cutoff unless skip_range_check);
-colour and opacity decode from the pack15 words. The segment is read in
-chunks of `chunk` pairs; before each chunk the tile stops if no pixel of
-it (padding pixels past the image edge included) has trans > term_eps.
-`blend_backward` takes the same stop, so both agree on the last pair that
-counts.
+[tile_start[t], tile_start[t + 1]) of the f32 payload in order (the per-tile
+depth order), with g = ½(a·dx² + 2b·dx·dy + c·dy²) at integer pixel
+coordinates, alpha = min(op·e(g), alpha_clamp), with e the exact exp(−g) or,
+under use_exp_lut, the reference's 256-segment LUT, accepted when alpha >
+alpha_threshold (and 0 ≤ g ≤ g_cutoff unless skip_range_check); colour and
+opacity decode from the pack15 words. The segment is read in chunks of `chunk`
+pairs; before each chunk the tile stops if no pixel of it (padding pixels past
+the image edge included) has trans > term_eps. `blend_backward` takes the same
+stop, so both agree on the last pair that counts.
 """
 
 from __future__ import annotations
@@ -23,20 +23,16 @@ from __future__ import annotations
 import torch
 
 from gsrt_torch import _kernels
-from gsrt_torch.ops.tile_binning import (PAYLOAD_WIDTH, TileBinning,
-                                         tile_extent, unpack15)
+from gsrt_torch.ops import explut
+from gsrt_torch.ops.splat_packed import decode_f32_pairs as decode_pairs
+from gsrt_torch.ops.tile_binning import PAYLOAD_WIDTH, TileBinning, tile_extent
 
 KERNEL_CHUNK = 128   # pairs the CUDA kernels stage per batch
 
 
 def check_stream(payload: torch.Tensor, tile_start: torch.Tensor, T: int,
-                 tile_w: int, tile_h: int, chunk: int,
-                 use_exp_lut: bool) -> None:
+                 tile_w: int, tile_h: int, chunk: int) -> None:
     """Validate what the subtile forward and backward kernels take."""
-    if use_exp_lut:
-        raise NotImplementedError(
-            "the LUT blend is not ported for the f32 stream: ROADMAP.md "
-            "Queue 2 item 3")
     if payload.dtype != torch.int32 or tile_start.dtype != torch.int32:
         raise TypeError("payload and tile_start must be int32")
     if payload.dim() != 2 or payload.shape[0] != PAYLOAD_WIDTH:
@@ -59,15 +55,6 @@ def check_stream(payload: torch.Tensor, tile_start: torch.Tensor, T: int,
                          f"batch they stage and stop at; got {chunk}")
 
 
-def decode_pairs(cols: torch.Tensor) -> dict:
-    """Decode f32 payload columns [8, n] into float32 fields."""
-    f = lambda r: cols[r].view(torch.float32)
-    cr, cg = unpack15(cols[5])
-    cb, op = unpack15(cols[6])
-    return dict(mx=f(0), my=f(1), qa=f(2), qb=f(3), qc=f(4),
-                rgb=torch.stack([cr, cg, cb], -1), op=op)
-
-
 def tile_pixels(tile: int, ntx: int, tile_w: int, tile_h: int, device):
     """Pixel coordinates (x [P], y [P]) of a tile, row-major."""
     pidx = torch.arange(tile_w * tile_h, device=device)
@@ -77,12 +64,13 @@ def tile_pixels(tile: int, ntx: int, tile_w: int, tile_h: int, device):
 
 
 def pair_alphas(f: dict, px, py, *, g_cutoff, alpha_threshold,
-                skip_range_check, floor_g: bool = False):
-    """[P, n] fields of a tile's pixels × pairs: dx, dy, exp(−g), the
-    unclamped op·exp(−g) and accept. The forward exponentiates g as it is
-    (skip_range_check) or zeroed outside [0, g_cutoff]; the backward
-    (`floor_g`) floors it at 0. The three agree wherever a pair is
-    accepted and g ≥ 0."""
+                skip_range_check, use_exp_lut: bool = False,
+                floor_g: bool = False):
+    """[P, n] fields of a tile's pixels × pairs: dx, dy, e(g), its
+    derivative e'(g), the unclamped op·e(g) and accept; e is exp(−g) or
+    the LUT. The forward exponentiates g as it is (skip_range_check) or
+    zeroed outside [0, g_cutoff]; the backward (`floor_g`) floors it at 0.
+    The three agree wherever a pair is accepted and g ≥ 0."""
     dx = px[:, None] - f["mx"][None, :]
     dy = py[:, None] - f["my"][None, :]
     gq = 0.5 * (f["qa"] * dx * dx + 2.0 * f["qb"] * dx * dy
@@ -94,12 +82,17 @@ def pair_alphas(f: dict, px, py, *, g_cutoff, alpha_threshold,
         ge = gq
     else:
         ge = torch.where(in_range, gq, torch.zeros_like(gq))
-    expg = torch.exp(-ge)
+    if use_exp_lut:
+        expg = explut.exp_neg_lut(ge)
+        dexp = -torch.exp(-explut.lut_x0(ge))   # the segment's slope
+    else:
+        expg = torch.exp(-ge)
+        dexp = -expg
     raw = f["op"][None, :] * expg
     accept = raw > alpha_threshold
     if not skip_range_check:
         accept = accept & in_range
-    return dx, dy, expg, raw, accept
+    return dx, dy, expg, dexp, raw, accept
 
 
 def live_pairs(excl: torch.Tensor, chunk: int, term_eps: float) -> int:
@@ -117,6 +110,7 @@ def blend_subtiles_plain(binning: TileBinning, *, width: int, height: int,
                          alpha_threshold: float = 1.0 / 255.0,
                          alpha_clamp: float = 0.99, term_eps: float = 1e-4,
                          skip_range_check: bool = False,
+                         use_exp_lut: bool = False,
                          stats: dict | None = None):
     """Plain version of the subtile blend: (color [H, W, 3], trans [H, W])
     float32. A `stats` dict receives "pairs_blended", the pairs all tiles
@@ -137,9 +131,9 @@ def blend_subtiles_plain(binning: TileBinning, *, width: int, height: int,
             continue
         f = decode_pairs(pay[:, lo:hi])
         px, py = tile_pixels(tile, ntx, sub_w, sub_h, dev)
-        _, _, _, raw, accept = pair_alphas(
+        _, _, _, _, raw, accept = pair_alphas(
             f, px, py, g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
-            skip_range_check=skip_range_check)
+            skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
         alpha = torch.where(accept, torch.clamp_max(raw, alpha_clamp),
                             torch.zeros_like(raw))
         incl = torch.cumprod(1.0 - alpha, dim=1)
@@ -168,28 +162,30 @@ def blend_subtiles(binning: TileBinning, *, width: int, height: int,
                    alpha_threshold: float = 1.0 / 255.0,
                    alpha_clamp: float = 0.99, term_eps: float = 1e-4,
                    skip_range_check: bool = False,
-                   use_exp_lut: bool = False):
+                   use_exp_lut: bool = False, kernel=None):
     """Blend the f32 tile stream: (color [H, W, 3], trans [H, W]) float32.
     `binning` must have been built with compact=False and tile_w=sub_w,
-    tile_h=sub_h."""
+    tile_h=sub_h. `kernel` is the launch counter the CUDA launch goes to
+    (the subtile blend's own unless a caller names another)."""
     ntx, nty = tile_extent(width, height, sub_w, sub_h)
     T = ntx * nty
     pay, ts = binning.payload, binning.tile_start
-    check_stream(pay, ts, T, sub_w, sub_h, chunk, use_exp_lut)
+    check_stream(pay, ts, T, sub_w, sub_h, chunk)
+    kw = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
+              alpha_clamp=alpha_clamp, term_eps=term_eps,
+              skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
     if not pay.is_cuda:
-        return blend_subtiles_plain(
-            binning, width=width, height=height, sub_w=sub_w, sub_h=sub_h,
-            chunk=chunk, g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
-            alpha_clamp=alpha_clamp, term_eps=term_eps,
-            skip_range_check=skip_range_check)
+        return blend_subtiles_plain(binning, width=width, height=height,
+                                    sub_w=sub_w, sub_h=sub_h, chunk=chunk,
+                                    **kw)
     color = torch.empty((height, width, 3), dtype=torch.float32,
                         device=pay.device)
     trans = torch.empty((height, width), dtype=torch.float32,
                         device=pay.device)
     with torch.cuda.device(pay.device):
-        _kernels.BLEND_SUBTILE(
+        (kernel or _kernels.BLEND_SUBTILE)(
             pay.data_ptr(), pay.shape[1], ts.data_ptr(), T, ntx, width,
             height, sub_w, sub_h, g_cutoff, int(skip_range_check),
-            alpha_threshold, alpha_clamp, term_eps, color.data_ptr(),
-            trans.data_ptr(), _kernels.stream_ptr(pay))
+            alpha_threshold, alpha_clamp, term_eps, int(use_exp_lut),
+            color.data_ptr(), trans.data_ptr(), _kernels.stream_ptr(pay))
     return color, trans

@@ -1,29 +1,39 @@
-"""Screen-tile binning of projected splats, in two streams.
+"""Screen-tile binning of projected splats, in three streams.
 
 Counterpart of `gsrt.ops.tile_binning` for rect spans.
 
-* The group-contiguous compact stream (`compact=True`), the path
-  `render_tiled` takes at its defaults. Splats are depth-sorted once; each
-  expands to (splat × row-group) units, where a group is k full tile rows
-  (bs = k·ntx tiles); one stable sort of the units by group id makes the
-  pairs contiguous per group and depth-ordered per tile; the emit
-  expansion then writes the compact payload directly.
-* The tile-sorted f32 stream (`compact=False`), which training and the
-  subtile blend read. Depth-sorted splats expand to pairs, one stable
-  sort by tile id makes each tile's pairs one contiguous, depth-ordered
-  segment, and the payload carries the f32 features unrounded. With
+* The group-contiguous compact stream (`compact=True, stream="group"`),
+  the path `render_tiled` takes at its defaults. Splats are depth-sorted
+  once; each expands to (splat × row-group) units, where a group is k full
+  tile rows (bs = k·ntx tiles); one stable sort of the units by group id
+  makes the pairs contiguous per group and depth-ordered per tile; the
+  emit expansion then writes the compact payload directly.
+* The tile-sorted compact stream (`compact=True, stream="tile"`), which
+  serving and the packed blend's tile mode read. Depth-sorted splats
+  expand to pairs (copy mode, or the emit mode with
+  `expand_impl="binned"`), and one stable sort by tile id makes each
+  tile's pairs one contiguous, depth-ordered segment of the compact
+  payload.
+* The tile-sorted f32 stream (`compact=False`), which training, the
+  subtile blend and the (128, 8)-tile blend read. As the compact tile
+  stream, but the payload carries the f32 features unrounded. With
   `with_ids` it also carries each pair's depth-order index and the
   per-splat bookkeeping that routes pair gradients back to splats.
 
+Serving adds two hooks: `cutoff_map` culls, before the histogram, the
+splats that lie behind the previous frame's saturation depth in every
+tile they touch (`cutoff_cull`), and `carry_depth` returns each sorted
+pair's camera depth in `TileBinning.pair_depth`.
+
 The data contract is the JAX package's: the same pairs, the same per-tile
 depth order, the same fields, the same tile_start / tile_count /
-total_pairs / overflow.
+total_pairs / overflow / pair_depth.
 
 Sorts are `torch.sort` plus index gathers and the tile histogram is a
 scatter-add of rectangle corner marks followed by two prefix sums: none of
 this is a TPU kernel. Payloads keep their live rows and columns only: the
-JAX package pads the compact payload to eight rows and the f32 payload by
-a chunk + 128 column tail for the TPU's DMA windows.
+JAX package pads the compact payload to eight rows and both payloads by a
+chunk + 128 column tail for the TPU's DMA windows.
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ N_FEATURES = 7
 PACK_RANGE = 4.0           # pack15 covers [0, PACK_RANGE) in 15 bits
 _PACK_BIAS = 1 << 30
 
-TODO_TILE_STREAM = ("ROADMAP.md Queue 1 item 8 (the compact tile stream)")
+TODO_ELLIPSE = "ROADMAP.md Queue 1 item 8 (ellipse spans)"
+SUPER = 8   # tiles per supertile side for the cutoff coarsening
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -166,6 +177,11 @@ class TileBinning(NamedTuple):
                                # depth-sorted splat
     sorted_orig: torch.Tensor | None = None     # [N] int32 original index
                                # of each depth-sorted slot
+    # set with carry_depth=True (serving):
+    pair_depth: torch.Tensor | None = None      # [max_pairs] f32 camera
+                               # depth of each payload column's splat
+                               # (the bf16 half of qcd on the compact
+                               # streams); defined on live columns
 
 
 def tile_extent(width: int, height: int, tile_w: int, tile_h: int):
@@ -217,41 +233,87 @@ def group_rows_k(ntx: int, bs_max: int = 128) -> int | None:
     return best
 
 
+def cutoff_cull(depth, x0, x1, y0, y1, cutoff_map, ntx: int, nty: int,
+                super_size: int = SUPER) -> torch.Tensor:
+    """Serving's depth cull: keep[s] when splat s's camera depth is within
+    the previous frame's saturation cutoff of some tile its footprint
+    touches, tested conservatively on a supertile max map.
+
+    cutoff_map [nty·ntx] f32 holds, per tile, the depth behind which that
+    tile saturated (+inf keeps everything). Tiles are coarsened to
+    super_size² supertiles by their max (the padding past the grid counts
+    as -inf), clipped to ±1e30 as the JAX package clips them for its
+    matrix-product gather; each splat reads the four supertiles at the
+    corners of its tile rectangle. A splat whose rectangle spans more than
+    two supertiles along an axis, which the corners would under-cover, is
+    kept. Returns keep [N] bool, a superset of the exact per-tile test."""
+    s = super_size
+    nsx, nsy = -(-ntx // s), -(-nty // s)
+    cm = torch.nn.functional.pad(cutoff_map.reshape(nty, ntx),
+                                 (0, nsx * s - ntx, 0, nsy * s - nty),
+                                 value=float("-inf"))
+    sm = cm.reshape(nsy, s, nsx, s).amax(dim=(1, 3)).reshape(-1)
+    sm = torch.clamp(sm, -1e30, 1e30)
+    sx0, sx1, sy0, sy1 = x0 // s, x1 // s, y0 // s, y1 // s
+    big = (sx1 - sx0 > 1) | (sy1 - sy0 > 1)
+    est = torch.maximum(
+        torch.maximum(sm[(sy0 * nsx + sx0).long()],
+                      sm[(sy0 * nsx + sx1).long()]),
+        torch.maximum(sm[(sy1 * nsx + sx0).long()],
+                      sm[(sy1 * nsx + sx1).long()]))
+    return (depth <= est) | big
+
+
 def build_tile_binning(
     depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, rx, ry, alive,
     *, width: int, height: int, tile_w: int = 32, tile_h: int = 16,
     max_pairs: int = 1 << 20, compact: bool = True, span_mode: str = "rect",
     max_rows: int | None = None, stream: str = "group",
-    expand_impl: str = "fused", with_ids: bool = False,
+    expand_impl: str = "fused", with_ids: bool = False, cutoff_map=None,
+    carry_depth: bool = False, cull_super: int = SUPER,
 ) -> TileBinning:
     """Bin splats into per-tile depth-ordered pairs.
 
     Per-splat inputs are [N] columns and need not be depth-sorted.
-    compact=True builds the group-contiguous compact stream (stream must
-    be "group"); compact=False the tile-sorted f32 stream, expanded by
-    `expand_impl` ("fused", "pallas", or "xla" for the plain version on
-    the CPU), with the gradient-routing bookkeeping when `with_ids`. Only
-    rect spans are ported; what is not raises NotImplementedError."""
-    if span_mode != "rect" or (compact and stream != "group"):
+    compact=True builds the compact payload, contiguous per group of k
+    tile rows (stream="group") or per tile (stream="tile");
+    compact=False the tile-sorted f32 stream. The tile streams expand
+    with `expand_impl`: "fused" or "pallas" (the copy kernels), "binned"
+    (the emit kernel on the compact stream; the gather kernel on the f32
+    stream, as in the JAX package), or "xla" (the plain version, CPU
+    only). with_ids adds the gradient-routing bookkeeping (f32 stream);
+    cutoff_map culls by serving's saturation depths (`cutoff_cull`,
+    supertiles of cull_super tiles) before the histogram, so the counts
+    describe the culled stream; carry_depth fills `pair_depth`. Only rect
+    spans are ported: ellipse spans raise NotImplementedError."""
+    if span_mode != "rect":
         raise NotImplementedError(
-            f"gsrt_torch bins rect spans into the group stream (compact) "
-            f"or the f32 tile stream; got compact={compact},"
-            f" stream={stream!r}, span_mode={span_mode!r}: see "
-            f"{TODO_TILE_STREAM}")
+            f"gsrt_torch bins rect spans only; span_mode={span_mode!r}: see "
+            f"{TODO_ELLIPSE}")
+    if stream not in ("group", "tile"):
+        raise ValueError(f"unknown stream {stream!r}")
+    group = compact and stream == "group"
     if with_ids and compact:
         raise ValueError("with_ids needs the f32 stream (compact=False)")
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     T = ntx * nty
     k = group_rows_k(ntx)
-    if compact and (k is None or ntx > 127):
-        raise NotImplementedError(
-            f"tile grid ntx={ntx} has no group shape; see {TODO_TILE_STREAM}")
+    if compact and ntx > 127:
+        raise ValueError("the compact payload packs the tile x-span in 7 "
+                         f"bits: ntx={ntx} > 127")
+    if group and k is None:
+        raise ValueError(f"tile grid ntx={ntx} has no group shape; use "
+                         f"stream='tile'")
     if ntx >= (1 << 12) or nty >= (1 << 12) or T >= (1 << 20):
         raise ValueError("tile grid exceeds the packed-operand bit budget")
 
     x0, x1, y0, y1, touched = compute_tile_spans(
         m2x, m2y, rx, ry, alive, width, height, tile_w, tile_h)
     opacity = torch.where(alive, opacity, torch.zeros_like(opacity))
+    if cutoff_map is not None:
+        keep = cutoff_cull(depth, x0, x1, y0, y1, cutoff_map, ntx, nty,
+                           super_size=cull_super)
+        touched = torch.where(keep, touched, torch.zeros_like(touched))
     counts = tile_histogram(x0, x1, y0, y1, touched > 0, ntx, nty).reshape(T)
     total = touched.sum(dtype=torch.int32)
     overflow = total > max_pairs
@@ -261,25 +323,122 @@ def build_tile_binning(
     # overflow truncates the deepest pairs; clamping keeps every segment
     # inside the payload until the caller re-calibrates
     tile_start = torch.minimum(tile_start, torch.clamp_max(total, max_pairs))
-    if not compact:
-        return _build_f32_stream(
+    bk = dict(counts=counts, tile_start=tile_start, total=total,
+              overflow=overflow)
+    if group:
+        return _build_group_stream(
             depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
-            x0, x1, y0, touched, ntx=ntx, T=T, max_pairs=max_pairs,
-            expand_impl=expand_impl, with_ids=with_ids, counts=counts,
-            tile_start=tile_start, total=total, overflow=overflow)
-    return _build_group_stream(
+            x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
+            tile_h=tile_h, max_pairs=max_pairs,
+            max_units=max_rows if max_rows is not None else max_pairs,
+            k_rows=k, carry_depth=carry_depth, **bk)
+    if compact:
+        return _build_compact_stream(
+            depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+            x0, x1, y0, touched, ntx=ntx, T=T, tile_w=tile_w,
+            tile_h=tile_h, max_pairs=max_pairs, expand_impl=expand_impl,
+            carry_depth=carry_depth, **bk)
+    return _build_f32_stream(
         depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
-        x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
-        tile_h=tile_h, max_pairs=max_pairs,
-        max_units=max_rows if max_rows is not None else max_pairs,
-        k_rows=k, counts=counts, tile_start=tile_start, total=total,
-        overflow=overflow)
+        x0, x1, y0, touched, ntx=ntx, T=T, max_pairs=max_pairs,
+        expand_impl=expand_impl, with_ids=with_ids,
+        carry_depth=carry_depth, **bk)
+
+
+def _expand_copy(tab: torch.Tensor, base: torch.Tensor, max_pairs: int,
+                 expand_impl: str) -> torch.Tensor:
+    """The tile streams' splat → pair copy, by `expand_impl`."""
+    from gsrt_torch.ops import pair_expand
+    if expand_impl == "fused":
+        return pair_expand.expand_pairs_fused(tab, base, max_pairs)
+    if expand_impl in ("pallas", "binned"):
+        return pair_expand.expand_pairs(tab, base, max_pairs)
+    if expand_impl == "xla":
+        if tab.is_cuda:
+            raise ValueError(
+                "expand_impl='xla' is the plain version and runs on CPU "
+                "tensors only; on CUDA use 'fused', 'pallas' or 'binned'")
+        return pair_expand.expand_pairs_plain(tab, base, max_pairs)
+    raise ValueError(f"unknown expand_impl {expand_impl!r}")
+
+
+def _depth_order(depth, touched):
+    """Splats that emit pairs first, front to back: (order, touched in
+    that order, each sorted splat's first pair or _DEAD_BASE)."""
+    from gsrt_torch.ops.pair_expand import _DEAD_BASE
+    key = torch.where(touched > 0, depth,
+                      torch.full_like(depth, float("inf")))
+    order = torch.argsort(key, stable=True)
+    touched_s = touched[order]
+    offsets = torch.cumsum(touched_s, 0, dtype=torch.int32)
+    base = torch.where(touched_s > 0, offsets - touched_s,
+                       torch.full_like(offsets, _DEAD_BASE))
+    return order, touched_s, base
+
+
+def _build_compact_stream(
+    depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, x0, x1, y0,
+    touched, *, ntx, T, tile_w, tile_h, max_pairs, expand_impl,
+    carry_depth, counts, tile_start, total, overflow,
+) -> TileBinning:
+    """Depth sort, expand splats → pairs, stable sort by tile id, compact
+    payload [5, max_pairs] (`_build_compact` + `_finish_compact` of the
+    JAX package). With expand_impl="binned" the emit kernel writes the
+    payload rows and only rgba is zeroed on dead columns; the copy
+    expansions zero every feature row there, as in the JAX package."""
+    from gsrt_torch.ops.pair_expand import expand_pairs_binned
+
+    dev = depth.device
+    order, touched_s, base = _depth_order(depth, touched)
+    w_span = torch.clamp_min(x1 - x0 + 1, 1)
+    l11 = torch.sqrt(torch.clamp_min(qa_c, 1e-12))
+    l21 = qb_c / torch.clamp_min(l11, 1e-12)
+    l22 = torch.sqrt(torch.clamp_min(qc_c - l21 * l21, 1e-12))
+    tab = torch.stack([x0 | (y0 << 12) | (w_span << 24), x0,
+                       m2x.view(torch.int32), m2y.view(torch.int32),
+                       pack_bf16_pair(l11, l21), pack_bf16_pair(l22, depth),
+                       pack_rgba8(cr, cg, cb, opacity)])[:, order]
+    tab[1] = base
+    live_total = torch.clamp_max(total, max_pairs)
+    if expand_impl == "binned":
+        rb = expand_pairs_binned(tab, base, max_pairs, total=live_total,
+                                 ntx=ntx, T=T, tile_w=tile_w, tile_h=tile_h)
+        tile_s, perm = torch.sort(rb[4], stable=True)
+        feats = rb[:4, perm]
+    else:
+        e = _expand_copy(tab, base, max_pairs, expand_impl)
+        gx0, gy0 = e[0] & 0xFFF, (e[0] >> 12) & 0xFFF
+        gw = torch.clamp_min((e[0] >> 24) & 0x7F, 1)
+        slots = torch.arange(max_pairs, dtype=torch.int32, device=dev)
+        rank = slots - e[1]
+        q = torch.div(rank, gw, rounding_mode="floor")
+        tx, ty = gx0 + (rank - q * gw), gy0 + q
+        tile = torch.where(slots < live_total, ty * ntx + tx,
+                           torch.full_like(slots, T))
+        mx_rel = e[2].view(torch.float32) - tx.to(torch.float32) * tile_w
+        my_rel = e[3].view(torch.float32) - ty.to(torch.float32) * tile_h
+        # a mean past the coarse tier's ±2048 px would decode clamped: the
+        # JAX package drops such a pair (its response there is ~0)
+        mean_sat = ((mx_rel.abs() >= MEAN_COARSE_BIAS - 0.5)
+                    | (my_rel.abs() >= MEAN_COARSE_BIAS - 0.5))
+        rgba = torch.where(mean_sat, torch.zeros_like(e[6]), e[6])
+        feats = torch.stack([pack_mean_rel(mx_rel, my_rel), e[4], e[5],
+                             rgba])
+        tile_s, perm = torch.sort(tile, stable=True)
+        feats = feats[:, perm]
+        feats = torch.where((tile_s >= T)[None, :], torch.zeros_like(feats),
+                            feats)
+    payload = torch.cat([feats, torch.clamp_max(tile_s, T)[None, :]])
+    return TileBinning(
+        payload=payload, tile_start=tile_start, tile_count=counts,
+        total_pairs=total, overflow=overflow,
+        pair_depth=unpack_bf16_lo(feats[2]) if carry_depth else None)
 
 
 def _build_group_stream(
     depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
     x0, x1, y0, y1, touched, *, ntx, nty, T, tile_w, tile_h, max_pairs,
-    max_units, k_rows, counts, tile_start, total, overflow,
+    max_units, k_rows, carry_depth, counts, tile_start, total, overflow,
 ) -> TileBinning:
     """Depth sort, level-1 expand (splats → units), stable unit sort by
     group id, level-2 emit expand (units → compact payload)."""
@@ -352,51 +511,33 @@ def _build_group_stream(
         total=torch.clamp_max(total, max_pairs), ntx=ntx, T=T,
         tile_w=tile_w, tile_h=tile_h)                          # [5, MP]
 
-    return TileBinning(payload=payload, tile_start=tile_start,
-                       tile_count=counts, total_pairs=total,
-                       overflow=overflow | (units_total > max_units))
+    return TileBinning(
+        payload=payload, tile_start=tile_start, tile_count=counts,
+        total_pairs=total, overflow=overflow | (units_total > max_units),
+        pair_depth=unpack_bf16_lo(payload[2]) if carry_depth else None)
 
 
 def _build_f32_stream(
     depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, x0, x1, y0,
-    touched, *, ntx, T, max_pairs, expand_impl, with_ids, counts,
-    tile_start, total, overflow,
+    touched, *, ntx, T, max_pairs, expand_impl, with_ids, carry_depth,
+    counts, tile_start, total, overflow,
 ) -> TileBinning:
     """Depth sort, expand splats → pairs, stable sort by tile id, f32
     payload [8, max_pairs]."""
-    from gsrt_torch.ops import pair_expand
-
     dev = depth.device
-    live = touched > 0
     bits = lambda a: a.view(torch.int32)
 
-    # --- depth sort: splats that emit pairs first, front to back. The
-    # table is 4 geometry rows + the 7 feature rows (the JAX table's
-    # twelfth row, camera depth, rides only for serving); row 3 carries
-    # the pair count through the sort and then holds the base ---
-    key = torch.where(live, depth, torch.full_like(depth, float("inf")))
-    order = torch.argsort(key)
-    tab = torch.stack([x0, y0, torch.clamp_min(x1 - x0 + 1, 1), touched,
-                       bits(m2x), bits(m2y), bits(qa_c), bits(qb_c),
-                       bits(qc_c), pack15(cr, cg), pack15(cb, opacity)]
-                      )[:, order]
-    touched_s = tab[3].clone()
-    offsets = torch.cumsum(touched_s, 0, dtype=torch.int32)
-    base = torch.where(touched_s > 0, offsets - touched_s,
-                       torch.full_like(offsets, pair_expand._DEAD_BASE))
+    # --- the table: 4 geometry rows (row 3 the base) + the 7 feature
+    # rows, and the camera depth for serving's pair_depth ---
+    order, touched_s, base = _depth_order(depth, touched)
+    rows = [x0, y0, torch.clamp_min(x1 - x0 + 1, 1), x0, bits(m2x),
+            bits(m2y), bits(qa_c), bits(qb_c), bits(qc_c), pack15(cr, cg),
+            pack15(cb, opacity)]
+    if carry_depth:
+        rows.append(bits(depth))
+    tab = torch.stack(rows)[:, order]
     tab[3] = base
-    if expand_impl == "fused":
-        rows = pair_expand.expand_pairs_fused(tab, base, max_pairs)
-    elif expand_impl in ("pallas", "binned"):   # binned emit is compact-only
-        rows = pair_expand.expand_pairs(tab, base, max_pairs)
-    elif expand_impl == "xla":
-        if tab.is_cuda:
-            raise ValueError(
-                "expand_impl='xla' is the plain version and runs on CPU "
-                "tensors only; on CUDA use 'fused' or 'pallas'")
-        rows = pair_expand.expand_pairs_plain(tab, base, max_pairs)
-    else:
-        raise ValueError(f"unknown expand_impl {expand_impl!r}")
+    rows = _expand_copy(tab, base, max_pairs, expand_impl)
     gx0, gy0, gw, gbase = rows[0], rows[1], rows[2], rows[3]
 
     slots = torch.arange(max_pairs, dtype=torch.int32, device=dev)
@@ -423,4 +564,6 @@ def _build_f32_stream(
         total_pairs=total, overflow=overflow,
         sorted_base=base if with_ids else None,
         sorted_touched=touched_s if with_ids else None,
-        sorted_orig=_i32(order) if with_ids else None)
+        sorted_orig=_i32(order) if with_ids else None,
+        pair_depth=rows[11][perm].view(torch.float32) if carry_depth
+        else None)

@@ -1,3 +1,5 @@
+from gsrt_torch.scene.campath import dolly_path, interpolate_path, orbit_path
 from gsrt_torch.scene.catalog import demo_gauss_splat, random_cloud
 
-__all__ = ["demo_gauss_splat", "random_cloud"]
+__all__ = ["demo_gauss_splat", "random_cloud", "orbit_path", "dolly_path",
+           "interpolate_path"]

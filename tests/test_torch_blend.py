@@ -57,11 +57,11 @@ def _jax_binning(n, seed, scale_range, max_pairs=1 << 16):
     return jb, tb
 
 
-def _jax_blend(jb, math_dtype="f32"):
+def _jax_blend(jb, math_dtype="f32", **kw):
     color, trans = j_blend(
         jb, width=W, height=H, sub_w=TW, sub_h=TH, bs=BS, group_stream=True,
         interpret=True, scan_impl="logmm", math_dtype=math_dtype,
-        chunk=384, **KW)
+        chunk=384, **{**KW, **kw})
     return np.asarray(color), np.asarray(trans)
 
 
@@ -83,6 +83,17 @@ def test_blend_matches_jax_on_same_payload(scene, request):
     tc, tt = t_sp.blend_packed(tb, width=W, height=H, sub_w=TW, sub_h=TH,
                                bs=BS, **KW)
     assert tc.shape == (H, W, 3) and tt.shape == (H, W)
+    np.testing.assert_allclose(tc.numpy(), jc, atol=2e-3)
+    np.testing.assert_allclose(tt.numpy(), jt, atol=2e-3)
+
+
+def test_blend_lut_matches_jax_on_same_payload(dense):
+    # the LUT chord sits above exp: with it the range test stays on
+    jb, tb = dense
+    lut = dict(use_exp_lut=True, skip_range_check=False)
+    jc, jt = _jax_blend(jb, **lut)
+    tc, tt = t_sp.blend_packed(tb, width=W, height=H, sub_w=TW, sub_h=TH,
+                               bs=BS, **{**KW, **lut})
     np.testing.assert_allclose(tc.numpy(), jc, atol=2e-3)
     np.testing.assert_allclose(tt.numpy(), jt, atol=2e-3)
 
@@ -127,11 +138,16 @@ def test_decode_pairs_matches_packers():
 
 
 def test_blend_rejects_unported_modes(sparse):
+    # the LUT and the tile stream are ported; saturation tracking on the
+    # group stream is not (serving reads the tile stream), nor a group
+    # that is not whole tile rows or a payload of another width
     _, tb = sparse
     kw = dict(width=W, height=H, sub_w=TW, sub_h=TH, bs=BS)
-    for bad in (dict(use_exp_lut=True), dict(group_stream=False)):
-        with pytest.raises(NotImplementedError):
-            t_sp.blend_packed(tb, **kw, **bad)
+    with pytest.raises(ValueError, match="group stream"):
+        t_sp.blend_packed(tb, track_consumed=True, **kw)
+    c, t, hits = t_sp.blend_packed(tb, use_exp_lut=True, track_hits=True,
+                                   **kw)
+    assert hits.dtype == torch.int32 and int(hits.max()) > 0
     with pytest.raises(ValueError):
         t_sp.blend_packed(tb._replace(payload=tb.payload[:4].contiguous()),
                           **kw)

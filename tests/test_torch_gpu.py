@@ -5,11 +5,14 @@ imports neither jax nor gsrt, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerances: the expand kernels are compared bit for bit in every mode; the
-packed blend kernel at atol 2e-3 on color and trans, the subtile blend
-kernel at 1e-4 (f32 summation order and the exp implementation differ
-from the plain version's); the backward kernel per gradient row, divided
-by the row's largest magnitude, at 1e-3 (the same, plus the block
-reduction's order); gradients of the autograd function on the card
+packed blend kernels at atol 2e-3 on color and trans, and on the tile stream
+with `consumed` equal and `hits` equal on the f32 payload (on the compact
+payload at most 0.1% of pixels off by one: the exp differs in its last bits
+between the kernel and PyTorch, and a few products land on the other side of
+alpha_threshold); the subtile blend kernel at 1e-4 (f32 summation order and the
+exp implementation differ from the plain version's); the backward kernel per
+gradient row, divided by the row's largest magnitude, at 1e-3 (the same, plus
+the block reduction's order); gradients of the autograd function on the card
 against the plain versions on the CPU, normalised, at 1e-3.
 """
 
@@ -25,6 +28,7 @@ from gsrt_torch.models import tiled_diff as t_td
 from gsrt_torch.ops import pair_expand as t_pe
 from gsrt_torch.ops import splat_grad as t_grad
 from gsrt_torch.ops import splat_packed as t_sp
+from gsrt_torch.ops import splat_pallas as t_pallas
 from gsrt_torch.ops import splat_subtile as t_sub
 from gsrt_torch.ops import tile_binning as t_tb
 from gsrt_torch.scene import random_cloud
@@ -141,6 +145,60 @@ def test_render_tiled_cuda_matches_cpu(cuda):
                                out_cpu.trans.numpy(), atol=2e-3)
 
 
+@pytest.mark.parametrize("use_exp_lut", [False, True])
+@pytest.mark.parametrize("chunk", [128, 384])
+@pytest.mark.parametrize("compact", [True, False])
+def test_tile_blend_kernel_matches_plain(cuda, compact, chunk, use_exp_lut):
+    W, H = 320, 256
+    cfg = RenderConfig(width=W, height=H, tile_w=16, tile_h=16)
+    cloud, cam = random_cloud(20_000, seed=1, width=W, height=H,
+                              device=cuda)
+    d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+    rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
+                                     5.6, opacity=cloud.opacity)
+    alive = t_rt.alive_mask(d, cloud.opacity, inf, cfg)
+    b = t_tb.build_tile_binning(
+        d, m2[:, 0], m2[:, 1], q[:, 0], q[:, 1], q[:, 2], cloud.opacity,
+        col[:, 0], col[:, 1], col[:, 2], rx, ry, alive, width=W, height=H,
+        tile_w=16, tile_h=16, max_pairs=1 << 19, compact=compact,
+        stream="tile", carry_depth=True)
+    assert not bool(b.overflow)
+    kw = dict(width=W, height=H, sub_w=16, sub_h=16, bs=128, chunk=chunk,
+              skip_range_check=not use_exp_lut, use_exp_lut=use_exp_lut)
+    before = _kernels.BLEND_TILE.launches
+    ck, tk, consk, hk = t_sp.blend_packed(
+        b, track_consumed=True, track_hits=True, group_stream=False, **kw)
+    cp, tp, consp, hp = t_sp.blend_packed_tile_plain(b, **kw)
+    assert _kernels.BLEND_TILE.launches == before + 1
+    assert (ck - cp).abs().max().item() <= 2e-3
+    assert (tk - tp).abs().max().item() <= 2e-3
+    assert torch.equal(consk, consp)
+    assert (consp[0] < consp[0].max()).any()          # some tiles saturate
+    diff = (hk - hp).abs()
+    if compact:
+        assert diff.max().item() <= 1
+        assert (diff != 0).float().mean().item() <= 1e-3
+    else:
+        assert torch.equal(hk, hp)
+    # the modes alone give the same image
+    c2, t2 = t_sp.blend_packed(b, group_stream=False, **kw)
+    assert torch.equal(c2, ck) and torch.equal(t2, tk)
+
+
+def test_blend_tiles_kernel_matches_plain(cuda):
+    b, kw = _f32_binning(cuda, (128, 8), False)
+    before = _kernels.BLEND_TILES.launches
+    for lut in (False, True):
+        ck, tk = t_pallas.blend_tiles(b, use_exp_lut=lut,
+                                      skip_range_check=not lut, **kw)
+        cp, tp = t_sub.blend_subtiles_plain(
+            b, sub_w=128, sub_h=8, use_exp_lut=lut, skip_range_check=not lut,
+            **kw)
+        assert (ck - cp).abs().max().item() <= 1e-4
+        assert (tk - tp).abs().max().item() <= 1e-4
+    assert _kernels.BLEND_TILES.launches == before + 2
+
+
 def _f32_binning(cuda, tile, wall: bool):
     """A 160x96 view of 3000 splats binned on the f32 tile stream; with
     `wall`, three image-covering splats at a clamped alpha sit 30 splats
@@ -172,8 +230,19 @@ def _f32_binning(cuda, tile, wall: bool):
 @pytest.mark.parametrize("wall", [False, True])
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
 def test_subtile_kernels_match_plain(cuda, tile, wall, skip_range_check):
+    _subtile_kernels_match_plain(cuda, tile, wall, skip_range_check, False)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (128, 8)])
+def test_subtile_kernels_lut_match_plain(cuda, tile):
+    # at (128, 8) the backward runs 1024-thread blocks
+    _subtile_kernels_match_plain(cuda, tile, True, False, True)
+
+
+def _subtile_kernels_match_plain(cuda, tile, wall, skip_range_check,
+                                 use_exp_lut):
     b, kw = _f32_binning(cuda, tile, wall)
-    kw["skip_range_check"] = skip_range_check
+    kw.update(skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
     fwd = _kernels.BLEND_SUBTILE.launches
     ck, tk = t_sub.blend_subtiles(b, sub_w=tile[0], sub_h=tile[1], **kw)
     stats = {}

@@ -66,10 +66,21 @@ def _assert_rows_close(got, want, atol):
 @pytest.mark.parametrize("skip_range_check", [True, False])
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
 def test_blend_backward_matches_jax(tile, skip_range_check):
+    _blend_backward_matches_jax(tile, skip_range_check, False)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8)])
+def test_blend_backward_lut_matches_jax(tile):
+    # the LUT's derivative is its segment's slope; the range test stays on
+    _blend_backward_matches_jax(tile, False, True)
+
+
+def _blend_backward_matches_jax(tile, skip_range_check, use_exp_lut):
     jb = jax_binning(make_columns(seed=21, n=60), tile)
     tb = carry_over(jb)
     size = dict(width=W, height=H, chunk=128,
-                skip_range_check=skip_range_check, **BLEND)
+                skip_range_check=skip_range_check, use_exp_lut=use_exp_lut,
+                **BLEND)
     pix = _pixstate(tb, tile, np.random.default_rng(5), sub_w=tile[0],
                     sub_h=tile[1], **size)
     kw = dict(tile_w=tile[0], tile_h=tile[1], **size)
@@ -124,9 +135,9 @@ def test_blend_backward_validates_inputs():
                                  **kw).abs().max() == 0
     with pytest.raises(ValueError, match="pixstate"):
         t_grad.blend_backward(tb.payload, tb.tile_start, pix[:, :-1], **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_grad.blend_backward(tb.payload, tb.tile_start, pix,
-                              use_exp_lut=True, **kw)
+    # the LUT is ported: zero cotangents give zero gradients in it too
+    assert t_grad.blend_backward(tb.payload, tb.tile_start, pix,
+                                 use_exp_lut=True, **kw).abs().max() == 0
 
 
 def test_route_pair_grads_sums_each_splats_pairs():
@@ -167,8 +178,17 @@ def _port_grads(fn, cloud):
         {k: getattr(leaf, k).grad.numpy() for k in cloud._fields}
 
 
-@pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8)])
 def test_render_tiled_diff_matches_jax_and_render_fast(tile):
+    _render_tiled_diff_matches(tile)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (128, 8)])
+def test_render_tiled_diff_lut_matches_jax_and_render_fast(tile):
+    _render_tiled_diff_matches(tile, use_exp_lut=True)
+
+
+def _render_tiled_diff_matches(tile, **cfg_kw):
     jc, jcam = j_random_cloud(200, seed=5, width=W, height=H)
     # three splats behind the camera: culled, and their gradients must be 0
     means = np.array(jc.means)
@@ -179,7 +199,7 @@ def test_render_tiled_diff_matches_jax_and_render_fast(tile):
                             np.asarray(jcam.fy), np.asarray(jcam.cx),
                             np.asarray(jcam.cy), W, H, device="cpu")
     kw = dict(width=W, height=H, conic_mode="standard", tile_w=tile[0],
-              tile_h=tile[1], pair_chunk=128)
+              tile_h=tile[1], pair_chunk=128, **cfg_kw)
     jcfg, cfg = JCfg(**kw), RenderConfig(**kw)
 
     def j_loss(cl):
@@ -220,8 +240,13 @@ def test_render_tiled_diff_raises_on_overflow_and_unported_tiles():
     cfg = RenderConfig(width=W, height=H, tile_w=16, tile_h=16)
     with pytest.raises(RuntimeError, match="max_pairs"):
         t_td.render_tiled_diff(c, cam, cfg, max_pairs=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_td.render_tiled_diff(c, cam, cfg.replace(tile_w=128, tile_h=8), MP)
+    # (128, 8) tiles train through blend_tiles (held against the JAX
+    # package in test_render_tiled_diff_matches_jax_and_render_fast)
+    _, _, g128 = _port_grads(
+        lambda cl: t_td.render_tiled_diff(
+            cl, cam, cfg.replace(tile_w=128, tile_h=8), MP), c)
+    assert all(np.isfinite(g).all() and np.abs(g).max() > 0
+               for g in g128.values())
     # a clipped colour still passes its gradient (straight-through pack15)
     hot = c._replace(sh=c.sh * 0 + 20.0)
     _, _, g = _port_grads(lambda cl: t_td.render_tiled_diff(cl, cam, cfg, MP),

@@ -59,8 +59,9 @@ def port_out(scene):
 
 
 def _canonical(payload, tile_start, T, bs):
-    """Per-tile pair lists, each in payload order, tiles ascending."""
-    pay = np.asarray(payload)[:5]
+    """Per-tile pair lists, each in payload order, tiles ascending (rows
+    past the payload's fifth ride along)."""
+    pay = np.asarray(payload)
     ts = np.asarray(tile_start)
     parts = []
     for g0 in range(0, T, bs):
@@ -80,17 +81,17 @@ def test_binning_matches_jax(scene):
             alive]
     jb = j_build(*cols, width=W, height=H, tile_w=32, tile_h=16, chunk=384,
                  max_pairs=MP, expand_impl="fused", interpret=True,
-                 compact=True, max_rows=MR, stream="group")
+                 compact=True, max_rows=MR, stream="group", carry_depth=True)
     tb = t_tb.build_tile_binning(
         *(torch.as_tensor(np.array(a)) for a in cols), width=W, height=H,
-        max_pairs=MP, max_rows=MR)
+        max_pairs=MP, max_rows=MR, carry_depth=True)
     for name in ("tile_start", "tile_count", "total_pairs", "overflow"):
         np.testing.assert_array_equal(getattr(tb, name).numpy(),
                                       np.asarray(getattr(jb, name)))
     total = int(tb.total_pairs)
     assert total > 5000 and tb.payload.shape == (5, MP)
     T, bs = 8 * 16, 8 * 16
-    j = _canonical(np.asarray(jb.payload)[:, :MP], jb.tile_start, T, bs)
+    j = _canonical(np.asarray(jb.payload)[:5, :MP], jb.tile_start, T, bs)
     t = _canonical(tb.payload.numpy(), tb.tile_start.numpy(), T, bs)
     assert j.shape == t.shape == (5, total)
     np.testing.assert_array_equal(t[4], j[4])      # tile ids, in order
@@ -101,6 +102,16 @@ def test_binning_matches_jax(scene):
             b = (j[row] >> shift) & 0xFFFF
             assert np.abs(a - b).max() <= 1, (row, shift)
     assert (tb.payload[4, total:] == T).all()
+    # the depth half of qcd, column by column, as the JAX package carries it
+    jd = np.asarray(jb.pair_depth)
+    np.testing.assert_array_equal(
+        _canonical(np.concatenate([tb.payload.numpy(),
+                                   tb.pair_depth.numpy()[None].view(
+                                       np.int32)]), tb.tile_start.numpy(),
+                   T, bs)[5],
+        _canonical(np.concatenate([np.asarray(jb.payload)[:5, :MP],
+                                   jd[None, :MP].view(np.int32)]),
+                   jb.tile_start, T, bs)[5])
 
 
 def test_render_tiled_matches_jax_defaults(scene, port_out):
@@ -184,9 +195,83 @@ def test_calibrate_gates_on_post_fallback_span_mode():
                                 dict(scan_impl="roll"),
                                 dict(tile_w=128, tile_h=8)])
 def test_unported_streams_raise(scene, kw):
-    _, _, c, cam = scene
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_rt.render_tiled(c, cam, RenderConfig(width=W, height=H, **kw))
+    """Each configuration the JAX package renders on another stream than
+    the group stream: ellipse spans are not ported and raise; the others
+    (the compact or f32 tile stream through the packed tile kernel, the
+    (128, 8) tiles through blend_tiles) match the JAX package with its
+    f32 blend, atol 1e-4."""
+    jc, jcam, c, cam = scene
+    if kw.get("span_mode") == "ellipse":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_rt.render_tiled(c, cam, RenderConfig(width=W, height=H, **kw))
+        return
+    plan = t_rt.stream_plan(RenderConfig(width=W, height=H, **kw), W, H)
+    assert plan.stream == "tile"
+    j = j_rt.render_tiled(jc, jcam, JCfg(width=W, height=H, blend_math="f32",
+                                         **kw), max_pairs=MP, interpret=True)
+    t = t_rt.render_tiled(c, cam, RenderConfig(width=W, height=H, **kw),
+                          max_pairs=MP)
+    assert not bool(t.overflow)
+    np.testing.assert_allclose(t.color.numpy(), np.asarray(j.color),
+                               atol=1e-4)
+    np.testing.assert_allclose(t.trans.numpy(), np.asarray(j.trans),
+                               atol=1e-4)
+    np.testing.assert_array_equal(t.hits.numpy(), np.asarray(j.hits))
+
+
+@pytest.mark.parametrize("stream", ["tile", "group"])
+def test_exact_hits_and_lut_match_jax(scene, stream):
+    """exact_hits and the LUT together. On the tile stream the port gates
+    chunks as the JAX kernel does, so hits agree except where the compact
+    payload's two forms of the response round across alpha_threshold
+    (at most 0.1% of pixels, by one). The port's group kernel stops per
+    tile and per batch of tile_w·tile_h columns where the JAX kernel
+    gates 384-pair chunks of interleaved tiles, so hits agree exactly in
+    the tiles that never saturate and may be fewer in the others."""
+    jc, jcam, c, cam = scene
+    kw = dict(width=W, height=H, stream=stream, exact_hits=True,
+              use_exp_lut=True)
+    j = j_rt.render_tiled(jc, jcam, JCfg(blend_math="f32", **kw),
+                          max_pairs=MP, max_rows=MR, interpret=True)
+    t = t_rt.render_tiled(c, cam, RenderConfig(**kw), max_pairs=MP,
+                          max_rows=MR)
+    jh, th = np.asarray(j.hits), t.hits.numpy()
+    assert jh.max() > 10
+    atol = 1e-4 if stream == "tile" else 2e-3
+    np.testing.assert_allclose(t.color.numpy(), np.asarray(j.color),
+                               atol=atol)
+    np.testing.assert_allclose(t.trans.numpy(), np.asarray(j.trans),
+                               atol=atol)
+    if stream == "tile":
+        diff = th - jh
+        assert np.abs(diff).max() <= 1 and (diff != 0).mean() <= 1e-3
+        return
+    tiles = lambda a: a.reshape(H // 16, 16, W // 32, 32).swapaxes(1, 2)
+    never_sat = (tiles(t.trans.numpy()).min((2, 3)) >= 1e-4)
+    assert never_sat.any() and (~never_sat).any()
+    np.testing.assert_array_equal(tiles(th)[never_sat], tiles(jh)[never_sat])
+    assert (th <= jh).all()
+
+
+def test_reference_demo_renders_tiled():
+    """The reference's own configuration (REFERENCE_DEMO: LUT exp,
+    conic_mode "reference") renders tiled, against the JAX package and
+    against the port's render_fast."""
+    from gsrt.core.config import REFERENCE_DEMO as J_DEMO
+    from gsrt.scene.catalog import demo_gauss_splat as j_demo
+
+    from gsrt_torch import REFERENCE_DEMO
+    jc, jcam = j_demo(16, 16)
+    c, cam = _port(jc, jcam)
+    j = j_rt.render_tiled(jc, jcam, J_DEMO.replace(blend_math="f32"),
+                          max_pairs=1 << 14, interpret=True)
+    t = t_rt.render_tiled(c, cam, REFERENCE_DEMO, max_pairs=1 << 14)
+    np.testing.assert_allclose(t.color.numpy(), np.asarray(j.color),
+                               atol=1e-5)
+    fast = t_rt.render_fast(c, cam, REFERENCE_DEMO)
+    np.testing.assert_allclose(t.color.numpy(), fast.color.numpy(),
+                               atol=2e-2)
+    assert float(t.trans.min()) < 0.5
 
 
 def test_reference_mode_not_ported():

@@ -159,9 +159,20 @@ def test_pack15_matches_jax_bitwise():
 @pytest.mark.parametrize("skip_range_check", [True, False])
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
 def test_blend_subtiles_matches_jax(tile, skip_range_check):
+    _blend_subtiles_matches_jax(tile, skip_range_check, False)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
+def test_blend_subtiles_lut_matches_jax(tile):
+    # the LUT chord sits above exp: with it the range test stays on
+    _blend_subtiles_matches_jax(tile, False, True)
+
+
+def _blend_subtiles_matches_jax(tile, skip_range_check, use_exp_lut):
     jb = jax_binning(make_columns(seed=11, n=60), tile)
     kw = dict(width=W, height=H, sub_w=tile[0], sub_h=tile[1], chunk=128,
-              skip_range_check=skip_range_check, **BLEND)
+              skip_range_check=skip_range_check, use_exp_lut=use_exp_lut,
+              **BLEND)
     jc, jt = j_sub.blend_subtiles(jb, interpret=True, **kw)
     tc, tt = t_sub.blend_subtiles(carry_over(jb), **kw)
     assert tc.shape == (H, W, 3) and tt.shape == (H, W)
@@ -193,8 +204,6 @@ def test_blend_subtiles_stops_at_chunk_boundary():
 def test_blend_subtiles_validates_inputs():
     tb = port_binning(make_columns(seed=1), (16, 16))
     kw = dict(width=W, height=H, sub_w=16, sub_h=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_sub.blend_subtiles(tb, use_exp_lut=True, **kw)
     with pytest.raises(TypeError):
         t_sub.blend_subtiles(tb._replace(payload=tb.payload.float()), **kw)
     with pytest.raises(ValueError):
@@ -204,13 +213,21 @@ def test_blend_subtiles_validates_inputs():
 
 
 def test_render_tiled_subtile_matches_jax():
+    _render_tiled_subtile_matches_jax(False)
+
+
+def test_render_tiled_subtile_lut_matches_jax():
+    _render_tiled_subtile_matches_jax(True)
+
+
+def _render_tiled_subtile_matches_jax(use_exp_lut):
     jc, jcam = j_random_cloud(200, seed=5, width=W, height=H)
     c = cloud_from_numpy(*(np.asarray(a) for a in jc), device="cpu")
     cam = camera_from_numpy(np.asarray(jcam.view), np.asarray(jcam.fx),
                             np.asarray(jcam.fy), np.asarray(jcam.cx),
                             np.asarray(jcam.cy), W, H, device="cpu")
     kw = dict(width=W, height=H, tile_w=16, tile_h=16, blend_impl="subtile",
-              white_background=True)
+              white_background=True, use_exp_lut=use_exp_lut)
     j = j_rt.render_tiled(jc, jcam, JCfg(**kw), max_pairs=MP, interpret=True)
     t = t_rt.render_tiled(c, cam, RenderConfig(**kw), max_pairs=MP)
     assert not bool(t.overflow)
@@ -223,3 +240,26 @@ def test_render_tiled_subtile_matches_jax():
     out = tr(c, cam)        # calibrates the pair buffer for the tile stream
     assert tr.max_rows is None and not bool(out.overflow)
     np.testing.assert_allclose(out.color.numpy(), t.color.numpy(), atol=1e-6)
+
+
+def test_blend_tiles_matches_jax():
+    """The (128, 8)-tile blend (the subtile kernel's function at that
+    shape) against the JAX package's round-1 kernel, exp and LUT."""
+    from gsrt.ops import splat_pallas as j_pallas
+
+    from gsrt_torch.ops import splat_pallas as t_pallas
+    w, h = 256, 32
+    cols = make_columns(seed=13, n=300)
+    cols[1] = cols[1] * (w / W)              # spread the means over 256 px
+    jb = j_tb.build_tile_binning(
+        *(jnp.asarray(c) for c in cols), width=w, height=h, tile_w=128,
+        tile_h=8, chunk=128, max_pairs=MP, interpret=True)
+    tb = carry_over(jb)
+    for lut in (False, True):
+        kw = dict(width=w, height=h, chunk=128, skip_range_check=not lut,
+                  use_exp_lut=lut, **BLEND)
+        jc, jt = j_pallas.blend_tiles(jb, interpret=True, **kw)
+        tc, tt = t_pallas.blend_tiles(tb, **kw)
+        assert 0.02 < float(tt.mean()) < 0.98
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+        np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-5)
