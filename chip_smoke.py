@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. device  — needs CUDA; prints the card's name and power limit
-             (nvidia-smi) and torch's view of it;
+1. device  — needs CUDA; takes one card (the first the caller lets it
+             see); prints the card's name and power limit (nvidia-smi)
+             and torch's view of it;
 2. build   — compiles every kernel of the path from gsrt_torch/csrc with
              nvcc (one process per source, in parallel);
 3. capture — renders the main path once with recording wrappers around the
@@ -57,7 +58,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
              with the LUT and 2 at 128x8 tiles, counts read, finite losses;
 14. train-check — a small scene where the tiled gradients (kernels) are
              held against render_fast under autograd on the card, each
-             divided by its largest magnitude, atol 2e-3.
+             divided by its largest magnitude, atol 2e-3;
+15. tri-cast — the binned primary cast's kernel against its plain version
+             bit for bit (t and triangle ids) on the inputs captured from
+             an SH render of soup359k (rect spans, 32x16 tiles), on
+             soup359k's exact spans and on bigtris (rect and exact, 16x8
+             tiles); bigtris' binned primary (binning + cast) timed as
+             tools/tri_bench.py times it, its launches counted;
+16. tri-traverse — the packed-cluster traversal kernel against its plain
+             version on soup359k: closest hit (t, slots and executed
+             visits equal) on the PT render's first bounce wave, as the
+             path hands it over, and on the 1080p primary bundle; any hit
+             on the SH render's first shadow bundle (hit mask equal, every
+             t a hit of its triangle); visits a block executed and planned;
+17. tri-render — SH, AO and PT on soup359k through
+             gsrt_torch.models.path_tracer (primary_impl "auto"), SH with
+             exact spans and SH with primary_impl "block": counts set to 0
+             just before each and read just after (one cast a render but
+             none in "block", the any-hit traversal in SH and AO, the
+             closest-hit one in PT and in "block"), no overflow flag, ms
+             per render on the card's and the host's clocks.
 
 The render workload is the JAX package's benchmark: random_cloud(1M, seed=0,
 scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig defaults.
@@ -67,6 +87,14 @@ RenderConfig(conic_mode="standard") defaults. The training workload is
 random_cloud(100K, seed=0) at 800x600, SH degree 3,
 RenderConfig(conic_mode="standard") defaults (32x16 tiles), the target its own
 tiled render, the start init_params of it with the means moved by 0.02·N(0, 1).
+The triangle workloads are tools/tri_bench.py's generator (centres
+U(-2, 2)^3, each vertex its centre + N(0, sd), NumPy default_rng(0)) seen
+from look_at((0, 0, -7), (0, 0, 0)) at 55 degrees, 1920x1080: bigtris is
+its scene uncut (20,000 triangles, sd 1); soup359k has the bathroom scene's
+359,309 triangles (docs/lumibench_r3.json) at sd 0.05, one Lambertian
+material (0.73) and the sky, RenderConfig defaults (32x16 tiles), SH with
+the light at (0, 4, -4), radius 0.5, 2 shadow rays; AO with 4 rays of
+radius 2; PT with 1 sample and 16 bounces.
 Before the last line the script prints one JSON object with a row per kernel
 (launches, error against the plain version, times, roofline bound); the last
 line is {"ok": true, "device": {...}}.
@@ -75,6 +103,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -122,6 +151,30 @@ ORBIT_FRAMES, ORBIT_DEGREES, SPLIT_FRAMES, STATIC_FRAMES = 48, 60.0, 5, 3
 # this scene does (the orbit's cull drops a few thousand pairs at most).
 STATIC_SUPER = 2
 
+# --- the triangle workload and its kernels (Q2.7 cast, Q2.8 traversal) ---
+CAST_SRC = "gsrt_torch/csrc/tri_cast.cu"
+TRAVERSE_SRC = "gsrt_torch/csrc/tri_kernel.cu"
+CAST_TPU = "gsrt/ops/tri_binning.py:357"
+TRAVERSE_TPU = "gsrt/ops/tri_kernel.py:266"
+BIGTRIS = 20_000        # tools/tri_bench.py's bigtris scene, uncut
+SOUP_TRIS = 359_309     # the bathroom scene's count, docs/lumibench_r3.json
+SOUP_SD = 0.05          # vertex offsets of soup359k: centre + N(0, 0.05)
+LIGHT_POS, LIGHT_RADIUS, AO_RADIUS = (0.0, 4.0, -4.0), 0.5, 2.0
+PT_SAMPLES, PT_BOUNCES = 1, 16
+RB = 512                # rays a traversal block, closest_hit_packed's default
+# f32 operations per (pixel, pair) of a chunk that is cast, counted from
+# tri_cast.cu: pvec 9, det 5, |det| test 1, 1/det 1, u 6, v 6, t 1, the
+# seven acceptance tests (u + v among them) 7, the running minimum 2; and
+# per pair cast, shared by the tile's pixels: qvec 9, e2 . qvec 5.
+CAST_FLOPS, CAST_PAIR_FLOPS = 38, 14
+# Per (ray, triangle) of a cluster past the cull, tri_kernel.cu: pvec 9,
+# det 5, |det| test 1, 1/det 1, tvec 3, u 6, qvec 9, v 6, t 6, the six
+# acceptance tests 6, the running minimum 1.
+MT_FLOPS = 53
+# Per (ray, cluster) of an executed visit, the slab test: 6 sub, 6 mul,
+# 12 min/max, 1 compare.
+SLAB_FLOPS = 25
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -161,9 +214,16 @@ class Recorder:
 
 
 def phase_device():
+    # the run uses one card: the first the caller lets it see
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = \
+        "0" if visible is None else visible.split(",")[0]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("phase device: no CUDA device")
+    if torch.cuda.device_count() != 1:
+        raise SystemExit(f"phase device: {torch.cuda.device_count()} devices "
+                         f"visible, the run takes one")
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -895,6 +955,374 @@ def tiles128_render(torch, cloud, camera, rows):
         f"({rows[-1]['bound_by']})")
 
 
+def tri_soup(n: int, sd: float, seed: int = 0):
+    """tools/tri_bench.py's generator: n centres U(-2, 2)^3, each vertex
+    its centre + N(0, sd) (NumPy, as there)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    a = c + rng.normal(0, sd, c.shape).astype(np.float32)
+    b = c + rng.normal(0, sd, c.shape).astype(np.float32)
+    return c, a, b
+
+
+def tri_scene(verts):
+    """A one-material (Lambertian 0.73) triangle scene, as the port's
+    users hand arrays over (interop.scene_from_numpy)."""
+    import numpy as np
+    from gsrt_torch.interop import scene_from_numpy
+    z3, z = np.zeros((0, 3), np.float32), np.zeros(0, np.float32)
+    fields = dict(
+        sph_center=z3, sph_radius=z, sph_mat=z.astype(np.int32),
+        box_min=z3, box_max=z3, box_mat=z.astype(np.int32),
+        tri_v0=verts[0], tri_v1=verts[1], tri_v2=verts[2],
+        tri_mat=np.zeros(verts[0].shape[0], np.int32),
+        materials=dict(model=np.int32([0]), diffuse=np.float32([[0.73] * 3]),
+                       fuzziness=np.float32([0]),
+                       refraction_index=np.float32([1]),
+                       texture_id=np.int32([-1])))
+    return scene_from_numpy(fields, device=DEVICE)
+
+
+def cast_row(torch, name, binning, dirs, origin, kw):
+    """Q2.7 against its plain version on one binning, bit for bit; the
+    row with its times and bound."""
+    from gsrt_torch.ops import tri_binning
+    stats = {}
+    t0 = time.perf_counter()
+    t_p, id_p = tri_binning.cast_primary_plain(binning, dirs, origin,
+                                               stats=stats, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    run = lambda: tri_binning.cast_primary(binning, dirs, origin, **kw)
+    t_k, id_k = run()
+    torch.cuda.synchronize()
+    if not (torch.equal(t_k, t_p) and torch.equal(id_k, id_p)):
+        raise SystemExit(
+            f"phase tri-cast: {name} differs from its plain version: "
+            f"{int((t_k != t_p).sum())} t, {int((id_k != id_p).sum())} ids")
+    W, H, npx = kw["width"], kw["height"], kw["tile_w"] * kw["tile_h"]
+    total, cast = int(binning.total_pairs), int(stats["pairs"])
+    t_ops = (CAST_FLOPS * npx + CAST_PAIR_FLOPS) * cast / F32_FLOPS
+    # zmin of every pair, the rest of the payload where cast, tile_start,
+    # the directions; t and id out
+    t_bytes = (4 * (total + 10 * cast + binning.tile_start.numel())
+               + 20 * W * H) / HBM_BYTES_PER_S
+    hit = (t_k < 3e38).float().mean().item()
+    row = dict(name=name, route="cuda", source=CAST_SRC, replaces=CAST_TPU,
+               launches=0, max_abs_err=0.0, ms=time_cuda(run, 20),
+               plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=None, pairs=total, pairs_cast=cast,
+               chunks_cast=int(stats["chunks"]), hit_fraction=hit)
+    log(f"phase tri-cast: {name}: bit-equal to plain, {W}x{H} at "
+        f"{kw['tile_w']}x{kw['tile_h']} tiles, {total} pairs, {cast} cast "
+        f"in {stats['chunks']} chunks, {hit:.4f} of pixels hit; kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def traverse_row(torch, name, tt, args, kw):
+    """Q2.8 against its plain version on one ray bundle: closest hit with
+    t, slots and executed visits equal; any hit with the hit mask equal
+    and every returned t a hit of its triangle (max_abs_err: the largest
+    |t - plain t| over the hits). The row times the kernel alone, on the
+    bundle's prepared rays and plan."""
+    from gsrt_torch.ops import tri_kernel
+    any_hit = kw.get("any_hit", False)
+    stats = {}
+    t0 = time.perf_counter()
+    t_p, s_p, h_p, plan_p = tri_kernel.closest_hit_packed_plain(
+        tt, *args, stats=stats, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t_k, s_k, h_k, plan = tri_kernel.closest_hit_packed(tt, *args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(h_k, h_p):
+        raise SystemExit(f"phase tri-traverse: {name}: hit masks differ on "
+                         f"{int((h_k != h_p).sum())} rays")
+    same = (torch.equal(t_k, t_p) and torch.equal(s_k, s_p)
+            and torch.equal(plan.actual, plan_p.actual))
+    if not any_hit and not same:
+        raise SystemExit(f"phase tri-traverse: {name}: t, slots or executed "
+                         f"visits differ from the plain version")
+    err = (t_k - t_p)[h_k].abs().max().item() if bool(h_k.any()) else 0.0
+    # every hit is a hit of the triangle in its slot, inside the window
+    orig, dirn, t_min, t_max = args
+    rays, plan_t, R = tri_kernel._prepare(tt, orig, dirn, t_min, t_max, RB,
+                                          None)
+    ray = rays[:, :R, None, None]
+    tri = tt.table[s_k.long() // tri_kernel.K, :,
+                   s_k.long() % tri_kernel.K][:, None, :, None]
+    t_re = tri_kernel._mt(*ray, tri)[:, 0, 0]
+    ok = (~h_k | (torch.isfinite(t_re)
+                  & ((t_re - t_k).abs() <= 1e-5 * t_k.abs())))
+    if not bool(ok.all()):
+        raise SystemExit(f"phase tri-traverse: {name}: {int((~ok).sum())} "
+                         f"returned t are no hit of their triangle")
+    run = lambda: tri_kernel.traverse(tt, rays, plan_t, RB, any_hit)
+    Rp, B = rays.shape[1], rays.shape[1] // RB
+    visits, tested = int(plan.actual.sum()), int(stats["clusters_tested"])
+    t_ops = (MT_FLOPS * tested * RB * tri_kernel.K
+             + SLAB_FLOPS * visits * tri_kernel.SUP * RB) / F32_FLOPS
+    t_bytes = (4 * (tt.table.numel() + 6 * tt.cl_min.shape[0]
+                    + 2 * int(plan.total) + B + 1) + 40 * Rp + 4 * B) \
+        / HBM_BYTES_PER_S
+    row = dict(name=name, route="cuda", source=TRAVERSE_SRC,
+               replaces=TRAVERSE_TPU, launches=0, max_abs_err=err,
+               ms=time_cuda(run, 5), plain_ms=plain_s * 1e3,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               library_ms=None, rays=R, blocks=B,
+               visits_planned_per_block=int(plan.total) / B,
+               visits_per_block=visits / B,
+               clusters_tested_per_block=tested / B,
+               hit_fraction=h_k.float().mean().item(),
+               equal_to_plain=same)
+    log(f"phase tri-traverse: {name}: {R} rays in {B} blocks, hits equal"
+        f"{', t, slots and visits equal' if same else ''}, max |t - plain "
+        f"t| {err:.3e}; visits a block "
+        f"{row['visits_per_block']:.2f} executed of "
+        f"{row['visits_planned_per_block']:.2f} planned, "
+        f"{row['clusters_tested_per_block']:.2f} clusters past the cull; "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def tri_phases(torch, rows):
+    """tri-cast, tri-traverse and tri-render (see the module docstring).
+    Appends the Q2.7 and Q2.8 rows to `rows`; returns the figures."""
+    from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch.core.types import look_at, make_camera
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import tri_binning, tri_kernel
+
+    W, H = WIDTH, HEIGHT
+    camera = make_camera(look_at((0, 0, -7.0), (0, 0, 0.0)), 55.0, W, H,
+                         device=DEVICE)
+    cfg = RenderConfig(width=W, height=H, samples=PT_SAMPLES,
+                       bounces=PT_BOUNCES)
+    t0 = time.perf_counter()
+    soup = pt.with_tri_table(tri_scene(tri_soup(SOUP_TRIS, SOUP_SD)))
+    tt = soup.tri_table
+    torch.cuda.synchronize()
+    log(f"phase tri-cast: soup359k {SOUP_TRIS} triangles, "
+        f"{tt.cl_min.shape[0]} clusters, {tt.sup_min.shape[0]} "
+        f"super-clusters, made and clustered in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sh = lambda **kw: pt.render_shadow_rays(  # noqa: E731
+        soup, camera, cfg, LIGHT_POS, LIGHT_RADIUS, seed=SEED,
+        return_flags=True, **kw)
+
+    # --- tri-cast: capture the SH render's cast and occlusion calls ---
+    with Recorder(tri_binning, "cast_primary") as rec_cast, \
+            Recorder(tri_kernel, "closest_hit_packed") as rec_trav:
+        sh()
+        torch.cuda.synchronize()
+    if len(rec_cast.calls) != 1 or len(rec_trav.calls) != cfg.shadow_rays:
+        raise SystemExit("phase tri-cast: expected one cast and one "
+                         "traversal per shadow ray in the SH render")
+    (binning, dirs, origin), cast_kw = rec_cast.calls[0]
+    tri_rows = {"cast_primary": cast_row(torch, "cast_primary", binning,
+                                         dirs, origin, cast_kw)}
+    tri_rows["cast_primary"]["at"] = "soup359k, rect spans, 32x16 tiles"
+    v = (soup.tri_v0, soup.tri_v1, soup.tri_v2)
+    need = tri_binning.count_tri_pairs_numpy(*v, camera, tile_w=cfg.tile_w,
+                                             tile_h=cfg.tile_h,
+                                             span_exact=True)
+    exact = tri_binning.build_tri_binning(
+        *v, camera, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+        max_pairs=int(need * 1.2) + 1024, span_exact=True)
+    tri_rows["cast_primary[exact]"] = cast_row(
+        torch, "cast_primary[exact]", exact, dirs, origin, cast_kw)
+    tri_rows["cast_primary[exact]"]["at"] = \
+        "soup359k, exact spans, 32x16 tiles"
+    del exact
+
+    # bigtris at 16x8 tiles, rect and exact; the binned primary cast
+    # (binning + cast) timed as tools/tri_bench.py times it
+    big_v = tuple(torch.as_tensor(a, device=DEVICE)
+                  for a in tri_soup(BIGTRIS, 1.0))
+    cfg16 = RenderConfig(width=W, height=H, tile_w=16, tile_h=8)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    _, big_dirs = pt.generate_camera_rays(gen, camera, cfg16)
+    big_kw = dict(width=W, height=H, tile_w=16, tile_h=8,
+                  t_min=cfg16.t_min, t_max=cfg16.t_max)
+    bigtris = {}
+    for span_exact in (False, True):
+        name = "cast_primary[bigtris" + (",exact]" if span_exact else "]")
+        need = tri_binning.count_tri_pairs_numpy(
+            *big_v, camera, tile_w=16, tile_h=8, span_exact=span_exact)
+        mp = int(need * 1.2) + 1024
+
+        def binned(span_exact=span_exact, mp=mp):
+            b = tri_binning.build_tri_binning(
+                *big_v, camera, tile_w=16, tile_h=8, max_pairs=mp,
+                span_exact=span_exact)
+            return b, tri_binning.cast_primary(b, big_dirs, camera.position,
+                                               **big_kw)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        b, _ = binned()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        if counts["cast_primary"] != 1 or bool(b.overflow):
+            raise SystemExit(f"phase tri-cast: {name}: launches {counts}, "
+                             f"overflow {bool(b.overflow)}")
+        tri_rows[name] = cast_row(torch, name, b, big_dirs, camera.position,
+                                  big_kw)
+        tri_rows[name]["launches"] = counts["cast_primary"]
+        tri_rows[name]["at"] = (f"bigtris, {'exact' if span_exact else 'rect'}"
+                                f" spans, 16x8 tiles")
+        fig = bigtris["exact" if span_exact else "rect"] = dict(
+            pairs_needed=need, max_pairs=mp,
+            binned_primary_ms=time_cuda(binned, 8))
+        log(f"phase tri-cast: {name}: binned primary (binning + cast) "
+            f"{fig['binned_primary_ms']:.4f} ms, launches {counts}")
+        del b
+
+    # --- tri-traverse: closest hit on PT's first bounce wave (as the path
+    # hands it over: coherence-sorted, retired rays parked) and on the
+    # 1080p primary bundle (bounce 0 of primary_impl "block"); any hit on
+    # the SH render's first shadow bundle ---
+    with Recorder(tri_kernel, "closest_hit_packed") as rec_pt:
+        pt.render_path_traced(soup, camera, cfg, seed=SEED)
+        torch.cuda.synchronize()
+    if len(rec_pt.calls) != cfg.bounces - 1:
+        raise SystemExit("phase tri-traverse: expected one traversal per "
+                         "bounce after the first in the PT render")
+    (_, *wave), wave_kw = rec_pt.calls[0]
+    del rec_pt
+    tri_rows["closest_hit_packed"] = traverse_row(
+        torch, "closest_hit_packed", tt, tuple(wave), wave_kw)
+    tri_rows["closest_hit_packed"]["at"] = \
+        "soup359k, the PT render's first bounce wave"
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    orig, dirn = pt.generate_camera_rays(gen, camera, cfg)
+    tri_rows["closest_hit_packed[primary]"] = traverse_row(
+        torch, "closest_hit_packed[primary]", tt,
+        (orig, dirn, cfg.t_min, cfg.t_max), {})
+    tri_rows["closest_hit_packed[primary]"]["at"] = \
+        "soup359k, the 1080p primary bundle"
+    (_, *any_args), any_kw = rec_trav.calls[0]
+    tri_rows["closest_hit_packed_any"] = traverse_row(
+        torch, "closest_hit_packed_any", tt, tuple(any_args), any_kw)
+    tri_rows["closest_hit_packed_any"]["at"] = \
+        "soup359k, the SH render's first shadow bundle"
+    del rec_cast, rec_trav, binning, dirs, orig, dirn, wave
+
+    # --- tri-render: SH, AO and PT through their entry points, counts
+    # set to 0 just before each and read just after ---
+    renders = {
+        "SH": sh,
+        "AO": lambda: pt.render_ambient_occlusion(
+            soup, camera, cfg, seed=SEED, ao_radius=AO_RADIUS,
+            return_flags=True),
+        "PT": lambda: pt.render_path_traced(soup, camera, cfg, seed=SEED,
+                                            return_flags=True),
+        "SH[exact]": lambda: sh(tri_span_exact=True),
+        "SH[block]": lambda: sh(primary_impl="block")}
+    want = {"SH": ("closest_hit_packed_any",),
+            "AO": ("closest_hit_packed_any",),
+            "PT": ("closest_hit_packed",),
+            "SH[exact]": ("closest_hit_packed_any",),
+            "SH[block]": ("closest_hit_packed", "closest_hit_packed_any")}
+    figures, launches = {}, {}
+    for name, render in renders.items():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        start.record()
+        img, flags = render()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = _kernels.launch_counts()
+        flags = {k: bool(v) for k, v in flags.items()}
+        log(f"phase tri-render: {name}: {start.elapsed_time(end):.3f} ms on "
+            f"the card's clock, {host_ms:.3f} ms on the host's; launches "
+            f"{counts}; flags {flags}; mean colour "
+            f"{img.mean().item():.5f}")
+        casts = int(name != "SH[block]")
+        if counts["cast_primary"] != casts or \
+                any(counts[k] <= 0 for k in want[name]) or \
+                (casts and counts["expand_pairs_fused"] <= 0):
+            raise SystemExit(f"phase tri-render: {name} did not run its "
+                             f"kernels: {counts}")
+        if any(flags.values()):
+            raise SystemExit(f"phase tri-render: {name} overflowed: {flags}")
+        if img.shape != (H, W, 3) or not torch.isfinite(img).all() or \
+                not 0.01 < img.mean().item() < 0.99:
+            raise SystemExit(f"phase tri-render: {name} image is off")
+        figures[name] = dict(ms=start.elapsed_time(end), host_ms=host_ms,
+                             launches=counts, mean=img.mean().item())
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + (v if name in ("SH", "AO",
+                                                              "PT") else 0)
+    # where a render's time goes: CUDA events at its stage boundaries, then
+    # the kernels' device time from torch.profiler over one more render
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name in ("SH", "AO", "PT"):
+        stamps = Stamps(torch)
+        stamps.wrap(tri_binning, "build_tri_binning", "binning")
+        stamps.wrap(tri_binning, "cast_primary", "cast")
+        stamps.wrap(tri_kernel, "plan_visits", "plan")
+        stamps.wrap(tri_kernel, "traverse", "traverse")
+        try:
+            stamps.mark("render:start")
+            renders[name]()
+            stamps.mark("render:end")
+        finally:
+            stamps.restore()
+        split = {}
+        for label, ms in stamps.intervals():
+            stage, edge = label.split(":")
+            key = stage if edge == "end" and stage != "render" else "other"
+            split[key] = split.get(key, 0.0) + ms
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            renders[name]()
+            torch.cuda.synchronize()
+        # the device's own events (kernels, copies, fills), as the
+        # profiler's table sums them; the CPU ops that launched them are
+        # not counted again
+        device_ms = {e.key: e.self_device_time_total / 1e3
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)}
+        busy = sum(device_ms.values())
+        top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:4]
+        figures[name].update(
+            split_ms=split, device_busy_ms=busy,
+            device_busy_share=busy / figures[name]["ms"] if busy else None,
+            top_device_ms=dict(top) if busy else None)
+        log(f"phase tri-render: {name} split (card ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + (f"; profiler: device busy {busy:.3f} ms, "
+               f"{busy / figures[name]['ms']:.3f} of the render; top "
+               + ", ".join(f"{k} {v:.3f}" for k, v in top)
+               if busy else "; profiler: no device time, busy share not "
+               "measured"))
+
+    tri_rows["cast_primary"]["launches"] = launches["cast_primary"]
+    tri_rows["cast_primary[exact]"]["launches"] = \
+        figures["SH[exact]"]["launches"]["cast_primary"]
+    for k in ("closest_hit_packed", "closest_hit_packed_any"):
+        tri_rows[k]["launches"] = launches[k]
+    tri_rows["closest_hit_packed[primary]"]["launches"] = \
+        figures["SH[block]"]["launches"]["closest_hit_packed"]
+    rows += list(tri_rows.values())
+    return dict(width=W, height=H, soup_triangles=SOUP_TRIS,
+                clusters=tt.cl_min.shape[0],
+                super_clusters=tt.sup_min.shape[0], renders=figures,
+                pt_samples=PT_SAMPLES, pt_bounces=PT_BOUNCES,
+                bigtris=bigtris)
+
+
 def main() -> int:
     phase_device()
     try:
@@ -1091,6 +1519,7 @@ def main() -> int:
     del cloud, camera
     train_rows, train = train_phases(torch)
     rows += train_rows
+    tri = tri_phases(torch, rows)
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                 for r in rows))
 
@@ -1099,7 +1528,7 @@ def main() -> int:
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
                       "max_rows": mrows, "serving": serving,
-                      "train": train}), flush=True)
+                      "train": train, "tri": tri}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

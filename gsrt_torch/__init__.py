@@ -16,7 +16,10 @@ trainer (`GaussianParams`, `make_optimizer`, `train_step_tiled`); and
 serving — the compact tile stream, the packed blend's tile mode with
 saturation tracking and exact hits, the exp LUT in every blend, the
 (128, 8)-tile blend, the cutoff cull, `gsrt_torch.serving.ServingRenderer`
-and `gsrt_torch.scene.campath`. ROADMAP.md lists what remains.
+and `gsrt_torch.scene.campath`; and triangle ray tracing — the path
+tracer's shadow (SH), ambient-occlusion (AO) and path-traced (PT) renders
+over sphere, box and triangle scenes, the binned primary cast kernel and
+the packed-cluster traversal kernel. ROADMAP.md lists what remains.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

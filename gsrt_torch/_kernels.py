@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
-           "splat_grad")
+           "splat_grad", "tri_cast", "tri_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -154,8 +154,20 @@ BLEND_BACKWARD = CudaKernel(
     "blend_backward", "splat_grad", "gsrt_blend_backward",
     [P, LL, P, P, I, I, I, I, F, I, F, F, F, I, P, P])
 
+TRI_CAST = CudaKernel(
+    "cast_primary", "tri_cast", "gsrt_tri_cast",
+    [P, P, LL, P, I, I, I, I, I, I, P, F, F, P, P, P])
+# one entry point, two modes: each keeps a count of its own
+_TRAVERSE_ARGS = [P, P, I, P, P, P, I, P, I, I, I, P, P, P, P]
+TRI_CLOSEST_HIT = CudaKernel(
+    "closest_hit_packed", "tri_kernel", "gsrt_tri_traverse", _TRAVERSE_ARGS)
+TRI_ANY_HIT = CudaKernel(
+    "closest_hit_packed_any", "tri_kernel", "gsrt_tri_traverse",
+    _TRAVERSE_ARGS)
+
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_GATHER, BLEND_GROUP,
-           BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD)
+           BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
+           TRI_CLOSEST_HIT, TRI_ANY_HIT)
 
 
 def launch_counts() -> dict[str, int]:

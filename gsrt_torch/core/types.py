@@ -1,5 +1,5 @@
-"""Core types of the port: the splat cloud, the pinhole camera, and the
-device rule every entry point follows.
+"""Core types of the port: the splat cloud, the path tracer's material
+table, the pinhole camera, and the device rule every entry point follows.
 
 Counterpart of `gsrt.core.types`. The cloud stays a struct of arrays with
 the JAX package's layouts ([N, 3] means, [N, 6] upper-triangular Σ, [N]
@@ -47,6 +47,25 @@ class GaussianCloud(NamedTuple):
 
     def to(self, device) -> "GaussianCloud":
         return GaussianCloud(*(t.to(device) for t in self))
+
+
+class Materials(NamedTuple):
+    """Material table of the path tracer, `gsrt.core.types.Materials`'s
+    fields and model constants: model ∈ {0 lambertian, 1 metallic,
+    2 dielectric, 3 isotropic, 4 diffuse_light}; texture_id ≥ 0 indexes a
+    texture atlas (-1 = untextured; the port renders no textures yet)."""
+
+    model: torch.Tensor              # [M] int32
+    diffuse: torch.Tensor            # [M, 3]
+    fuzziness: torch.Tensor          # [M]
+    refraction_index: torch.Tensor   # [M]
+    texture_id: torch.Tensor | None = None  # [M] int32
+
+    LAMBERTIAN = 0
+    METALLIC = 1
+    DIELECTRIC = 2
+    ISOTROPIC = 3
+    DIFFUSE_LIGHT = 4
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Weight carry-over: build the port's objects from the JAX package's
-arrays, handed over as NumPy.
+"""Weight carry-over: build the port's objects (clouds, cameras, training
+parameters, path-tracer scenes) from the JAX package's arrays, handed over
+as NumPy.
 
 The JAX package's cloud and camera hold device arrays; `np.asarray` turns
 each field into NumPy, and these functions put the same bits on the
@@ -13,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
+from gsrt_torch.core.types import (Camera, GaussianCloud, Materials,
+                                   resolve_device)
+from gsrt_torch.models.path_tracer import PrimitiveScene
 from gsrt_torch.models.trainer import GaussianParams
 
 
@@ -36,6 +39,28 @@ def camera_from_numpy(view, fx, fy, cx, cy, width: int, height: int,
     return Camera(view=_f32(view, dev), fx=_f32(fx, dev), fy=_f32(fy, dev),
                   cx=_f32(cx, dev), cy=_f32(cy, dev), width=int(width),
                   height=int(height))
+
+
+def scene_from_numpy(fields: dict, device=None) -> PrimitiveScene:
+    """A primitive scene from the JAX package's `PrimitiveScene` arrays as
+    NumPy: `fields` maps the scene's field names (sph_center, ..., tri_mat,
+    and any of tri_uv0/1/2) to arrays and "materials" to a dict of the
+    Materials fields. Integer fields stay int32, the rest become f32, so
+    both packages trace bit-identical geometry. Fields the port does not
+    render yet (textures, cylinders, ...) are passed on and make the
+    renders raise."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        dtype = np.int32 if np.issubdtype(a.dtype, np.integer) \
+            else np.float32
+        return torch.as_tensor(np.array(a, dtype=dtype), device=dev)
+    mats = Materials(**{k: conv(v) for k, v in fields["materials"].items()})
+    return PrimitiveScene(materials=mats, **{
+        k: conv(v) for k, v in fields.items() if k != "materials"})
 
 
 def params_from_numpy(means, log_scales, quats, opacity_logit, sh,

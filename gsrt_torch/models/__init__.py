@@ -1,5 +1,8 @@
 from gsrt_torch.models.gaussian_rt import (GaussianRayTracer, RenderOutput,
                                            render_fast, render_tiled)
+from gsrt_torch.models.path_tracer import (
+    PrimitiveScene, render_ambient_occlusion, render_path_traced,
+    render_path_traced_calibrated, render_shadow_rays, with_tri_table)
 from gsrt_torch.models.tiled_diff import render_tiled_diff
 from gsrt_torch.models.trainer import (GaussianParams, init_params,
                                        make_optimizer, random_init,
@@ -8,4 +11,6 @@ from gsrt_torch.models.trainer import (GaussianParams, init_params,
 __all__ = ["GaussianRayTracer", "RenderOutput", "render_fast",
            "render_tiled", "render_tiled_diff", "GaussianParams",
            "init_params", "random_init", "make_optimizer", "train_step",
-           "train_step_tiled"]
+           "train_step_tiled", "PrimitiveScene", "with_tri_table",
+           "render_path_traced", "render_path_traced_calibrated",
+           "render_shadow_rays", "render_ambient_occlusion"]

@@ -13,7 +13,10 @@ alpha_threshold); the subtile blend kernel at 1e-4 (f32 summation order and the
 exp implementation differ from the plain version's); the backward kernel per
 gradient row, divided by the row's largest magnitude, at 1e-3 (the same, plus
 the block reduction's order); gradients of the autograd function on the card
-against the plain versions on the CPU, normalised, at 1e-3.
+against the plain versions on the CPU, normalised, at 1e-3; the triangle
+kernels bit for bit (the binned cast's t and ids; the traversal's t, slots,
+hits and executed visits in both modes: both round Möller–Trumbore as
+written).
 """
 
 from __future__ import annotations
@@ -291,3 +294,67 @@ def test_tiled_diff_gradients_cuda_match_cpu(cuda):
         assert torch.isfinite(g).all(), name
         scale = w.abs().max().item()
         assert ((g - w).abs().max().item() / scale) <= 1e-3, name
+
+
+def _tri_soup(n, seed, spread=2.0, size=0.6):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    a = c + rng.normal(0, size, (n, 3)).astype(np.float32)
+    b = c + rng.normal(0, size, (n, 3)).astype(np.float32)
+    return c, a, b
+
+
+@pytest.mark.parametrize("span_exact", [False, True])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_tri_cast_kernel_bitwise(cuda, tile, span_exact):
+    from gsrt_torch.core.types import look_at, make_camera
+    from gsrt_torch.models import path_tracer as t_pt
+    from gsrt_torch.ops import tri_binning as t_tbin
+    W, H = 200, 120
+    cam = make_camera(look_at((0, 0, -7.0), (0, 0, 0)), 55.0, W, H,
+                      device=cuda)
+    v0, v1, v2 = (torch.as_tensor(a, device=cuda)
+                  for a in _tri_soup(2000, 5))
+    b = t_tbin.build_tri_binning(v0, v1, v2, cam, tile_w=tile[0],
+                                 tile_h=tile[1], max_pairs=1 << 19,
+                                 span_exact=span_exact)
+    assert not bool(b.overflow)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, dirs = t_pt.generate_camera_rays(gen, cam, RenderConfig(width=W,
+                                                               height=H))
+    before = _kernels.TRI_CAST.launches
+    kw = dict(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
+    t_k, id_k = t_tbin.cast_primary(b, dirs, cam.position, **kw)
+    t_p, id_p = t_tbin.cast_primary_plain(b, dirs, cam.position, **kw)
+    assert _kernels.TRI_CAST.launches == before + 1
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    assert (t_k < 3e38).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("rb", [128, 512])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tri_traverse_kernel_matches_plain(cuda, any_hit, rb):
+    from gsrt_torch.ops import tri_kernel as t_tk
+    v0, v1, v2 = (torch.as_tensor(a, device=cuda)
+                  for a in _tri_soup(5000, 6, spread=3.0, size=0.2))
+    tt = t_tk.build_tri_table(v0, v1, v2)
+    rng = np.random.default_rng(7)
+    R = 3000
+    o = rng.uniform(-1, 1, (R, 3)).astype(np.float32)
+    o[: R // 2] = np.float32([0, 0, -8]) + 0.3 * o[: R // 2]
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    d[: R // 2] = np.float32([0, 0, 1]) + 0.2 * d[: R // 2]
+    o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    tmax = torch.as_tensor(rng.uniform(1, 20, R).astype(np.float32),
+                           device=cuda)
+    kernel = _kernels.TRI_ANY_HIT if any_hit else _kernels.TRI_CLOSEST_HIT
+    before = kernel.launches
+    got = t_tk.closest_hit_packed(tt, o, d, 1e-3, tmax, rb=rb,
+                                  any_hit=any_hit)
+    want = t_tk.closest_hit_packed_plain(tt, o, d, 1e-3, tmax, rb=rb,
+                                         any_hit=any_hit)
+    assert kernel.launches == before + 1
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[3].actual, want[3].actual)
+    assert got[2].float().mean() > 0.2

@@ -26,13 +26,15 @@ from gsrt.scene import catalog as j_catalog
 
 from gsrt_torch import RenderConfig
 from gsrt_torch.core import types as t_types
-from gsrt_torch.interop import camera_from_numpy, cloud_from_numpy
+from gsrt_torch.interop import (camera_from_numpy, cloud_from_numpy,
+                                scene_from_numpy)
 from gsrt_torch.models import gaussian_rt as t_rt
 from gsrt_torch.ops import explut as t_explut
 from gsrt_torch.ops import gaussian as t_gauss
 from gsrt_torch.ops import sh as t_sh
 from gsrt_torch.ops import tile_binning as t_tb
 from gsrt_torch.scene import catalog as t_catalog
+from gsrt_torch.scene import primitives_catalog as t_primcat
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -288,6 +290,12 @@ def test_port_imports_neither_jax_nor_gsrt():
     files = sorted((REPO / "gsrt_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    # the triangle path's modules are among them
+    names = {str(f.relative_to(REPO / "gsrt_torch")) for f in files[:-1]}
+    assert {"ops/primitives.py", "ops/morton.py", "ops/clusters.py",
+            "ops/tri_kernel.py", "ops/tri_binning.py",
+            "models/path_tracer.py", "scene/primitives_catalog.py",
+            "interop.py"} <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "optax", "gsrt")]
@@ -309,5 +317,9 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError):
         cloud_from_numpy(np.zeros((1, 3)), np.zeros((1, 6)), np.zeros(1),
                          np.zeros((1, 1, 3)))
+    with pytest.raises(RuntimeError):
+        t_primcat.cornell_box(16, 16)
+    with pytest.raises(RuntimeError):
+        scene_from_numpy({"materials": {}})
     c, _ = t_catalog.random_cloud(10, device="cpu")
     assert c.device.type == "cpu"
