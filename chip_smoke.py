@@ -65,19 +65,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
              soup359k's exact spans and on bigtris (rect and exact, 16x8
              tiles); bigtris' binned primary (binning + cast) timed as
              tools/tri_bench.py times it, its launches counted;
-16. tri-traverse — the packed-cluster traversal kernel against its plain
-             version on soup359k: closest hit (t, slots and executed
-             visits equal) on the PT render's first bounce wave, as the
-             path hands it over, and on the 1080p primary bundle; any hit
-             on the SH render's first shadow bundle (hit mask equal, every
-             t a hit of its triangle); visits a block executed and planned;
+16. tri-traverse — the packed-cluster traversal kernel's build
+             (registers, spills, shared memory, resident blocks, the SASS
+             instructions of its per-triangle loop where cuobjdump exists),
+             then the kernel against its plain version on soup359k:
+             closest hit (t, slots and executed visits equal) on the PT
+             render's first bounce wave, as the path hands it over, and on
+             the 1080p primary bundle; any hit on the SH render's first
+             shadow bundle (hit mask equal, every t a hit of its
+             triangle); visits a block executed and planned; the cull
+             passes per (warp, cluster) and (block, cluster); the plain
+             version again with the TPU kernel's block cull, the rays whose
+             result differs counted (closest hit: each a tie at rtol 1e-5;
+             any hit: the hit masks equal); bounds by the warp cull's
+             tests and the block cull's, and the instruction floor;
 17. tri-render — SH, AO and PT on soup359k through
              gsrt_torch.models.path_tracer (primary_impl "auto"), SH with
              exact spans and SH with primary_impl "block": counts set to 0
              just before each and read just after (one cast a render but
              none in "block", the any-hit traversal in SH and AO, the
              closest-hit one in PT and in "block"), no overflow flag, ms
-             per render on the card's and the host's clocks.
+             per render on the card's and the host's clocks, the mean
+             colour; then for SH, AO and PT the split by stage, every
+             traversal launch's card ms and visits a block, and the
+             profiler's device-busy share.
 
 The render workload is the JAX package's benchmark: random_cloud(1M, seed=0,
 scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig defaults.
@@ -162,6 +173,7 @@ SOUP_SD = 0.05          # vertex offsets of soup359k: centre + N(0, 0.05)
 LIGHT_POS, LIGHT_RADIUS, AO_RADIUS = (0.0, 4.0, -4.0), 0.5, 2.0
 PT_SAMPLES, PT_BOUNCES = 1, 16
 RB = 512                # rays a traversal block, closest_hit_packed's default
+SMS, LANES = 132, 128   # H100 SXM: SMs, FP32 lanes an SM (4 x 32 issue slots)
 # f32 operations per (pixel, pair) of a chunk that is cast, counted from
 # tri_cast.cu: pvec 9, det 5, |det| test 1, 1/det 1, u 6, v 6, t 1, the
 # seven acceptance tests (u + v among them) 7, the running minimum 2; and
@@ -174,6 +186,11 @@ MT_FLOPS = 53
 # Per (ray, cluster) of an executed visit, the slab test: 6 sub, 6 mul,
 # 12 min/max, 1 compare.
 SLAB_FLOPS = 25
+# Mean colours of SH, AO and PT on soup359k as the traversal kernel with the
+# block cull (commit 8f9a83f) renders them on this card, from
+# tools/traverse_ab.py; the warp cull leaves every pixel as it was there.
+BLOCK_CULL_MEANS = {"SH": 0.6437165141105652, "AO": 0.6900080442428589,
+                    "PT": 0.7811987400054932}
 
 
 def log(msg: str) -> None:
@@ -1023,20 +1040,124 @@ def cast_row(torch, name, binning, dirs, origin, kw):
     return row
 
 
-def traverse_row(torch, name, tt, args, kw):
+def traverse_kernel_info(rb: int) -> dict:
+    """Registers, shared memory, spills and resident blocks of the built
+    traversal kernel (gsrt_tri_traverse_info), and the SASS of its
+    per-triangle loop where cuobjdump is installed."""
+    import ctypes
+    from gsrt_torch import _kernels
+    fn = _kernels._load("tri_kernel").gsrt_tri_traverse_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    buf = (ctypes.c_int * 5)()
+    if fn(rb, buf) != 0:
+        raise SystemExit("phase tri-traverse: gsrt_tri_traverse_info failed")
+    info = dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "spill_bytes", "blocks_per_sm"), buf))
+    info.update(threads=rb, sass=sass_inner_loop(
+        _kernels._lib_path("tri_kernel"), os.path.dirname(_kernels._nvcc())))
+    return info
+
+
+def sass_inner_loop(lib, cuda_bin: str):
+    """The innermost loop of tri_traverse_kernel's SASS that holds
+    Moller-Trumbore's reciprocals (one MUFU.RCP a test): its instructions
+    and tests an iteration, or None without cuobjdump. The reciprocal's
+    slow path lies outside the loop and is not counted."""
+    import re
+    import shutil
+    tool = os.path.join(cuda_bin, "cuobjdump")
+    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    try:
+        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=120).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    insts, labels, pending, inside = [], {}, [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "tri_traverse_kernel" in line
+            continue
+        if not inside:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insts.append((addr, m.group(2).strip()))
+    loops = []
+    for addr, text in insts:
+        if "BRA" not in text.split()[0 if not text.startswith("@") else 1]:
+            continue
+        tgt = re.search(r"(\.L_x_\d+)", text)
+        tgt = labels.get(tgt.group(1)) if tgt else None
+        if tgt is None:
+            hexa = re.search(r"0x([0-9a-f]+)", text)
+            tgt = int(hexa.group(1), 16) if hexa else None
+        if tgt is None or tgt > addr:
+            continue
+        body = [t for a, t in insts if tgt <= a <= addr]
+        rcp = sum("MUFU.RCP" in t for t in body)
+        if rcp:
+            loops.append((len(body), rcp))
+    if not loops:
+        return None
+    n, rcp = min(loops)
+    return dict(instructions=n, tests=rcp, per_test=n / rcp)
+
+
+def max_sm_clock_hz():
+    """The card's top SM clock (nvidia-smi clocks.max.sm), or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        return float(out[0]) * 1e6
+    except (OSError, subprocess.TimeoutExpired, ValueError, IndexError):
+        return None
+
+
+def traverse_row(torch, name, tt, args, kw, info, clock_hz):
     """Q2.8 against its plain version on one ray bundle: closest hit with
     t, slots and executed visits equal; any hit with the hit mask equal
     and every returned t a hit of its triangle (max_abs_err: the largest
-    |t - plain t| over the hits). The row times the kernel alone, on the
-    bundle's prepared rays and plan."""
+    |t - plain t| over the hits). The plain version also runs with the TPU
+    kernel's block cull (cull_rays = RB): the rays whose result differs
+    from the warp cull's are counted; in closest hit each must agree in t
+    to rtol 1e-5 (a tie), in any hit the hit masks must be equal. The row
+    times the kernel alone, on the bundle's prepared rays and plan, and
+    bounds it by the tests the warp cull needs, beside the block cull's."""
     from gsrt_torch.ops import tri_kernel
     any_hit = kw.get("any_hit", False)
-    stats = {}
+    G = tri_kernel.CULL_RAYS
+    stats, stats_b = {}, {}
     t0 = time.perf_counter()
     t_p, s_p, h_p, plan_p = tri_kernel.closest_hit_packed_plain(
         tt, *args, stats=stats, **kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t_b, s_b, h_b, plan_b = tri_kernel.closest_hit_packed_plain(
+        tt, *args, stats=stats_b, cull_rays=RB, **kw)
+    torch.cuda.synchronize()
+    plain_b_s = time.perf_counter() - t0
+    differ = (t_b != t_p) | (s_b != s_p)
+    n_differ = int(differ.sum())
+    tie = ((t_b - t_p).abs() <= 1e-5 * t_b.abs()) & (h_b == h_p)
+    n_untied = int((differ & ~tie).sum())
+    if (n_untied if not any_hit else int((h_b != h_p).sum())) or \
+            not torch.equal(plan_b.actual, plan_p.actual):
+        raise SystemExit(f"phase tri-traverse: {name}: the warp cull "
+                         f"changes {n_untied} rays beyond a tie, or the "
+                         f"hit mask or the visits, against the block cull")
     t_k, s_k, h_k, plan = tri_kernel.closest_hit_packed(tt, *args, **kw)
     torch.cuda.synchronize()
     if not torch.equal(h_k, h_p):
@@ -1063,31 +1184,69 @@ def traverse_row(torch, name, tt, args, kw):
                          f"returned t are no hit of their triangle")
     run = lambda: tri_kernel.traverse(tt, rays, plan_t, RB, any_hit)
     Rp, B = rays.shape[1], rays.shape[1] // RB
-    visits, tested = int(plan.actual.sum()), int(stats["clusters_tested"])
-    t_ops = (MT_FLOPS * tested * RB * tri_kernel.K
-             + SLAB_FLOPS * visits * tri_kernel.SUP * RB) / F32_FLOPS
+    visits = int(plan.actual.sum())
+    warp_pass, block_pass = (int(stats["group_clusters_tested"]),
+                             int(stats["clusters_tested"]))
+    block_cull_pass = int(stats_b["clusters_tested"])
+    candidates = int(stats["group_candidates"])
+    tests = warp_pass * G * tri_kernel.K
+    kernel_tests = candidates * G * tri_kernel.K  # what the kernel runs
+    slab = SLAB_FLOPS * visits * tri_kernel.SUP * RB
+    t_ops = (MT_FLOPS * tests + slab) / F32_FLOPS
+    t_ops_b = (MT_FLOPS * block_cull_pass * RB * tri_kernel.K
+               + slab) / F32_FLOPS
     t_bytes = (4 * (tt.table.numel() + 6 * tt.cl_min.shape[0]
                     + 2 * int(plan.total) + B + 1) + 40 * Rp + 4 * B) \
         / HBM_BYTES_PER_S
+    sass = info["sass"]
+    floor_ms = (kernel_tests * sass["per_test"] / (SMS * LANES * clock_hz)
+                * 1e3 if sass and clock_hz else None)
     row = dict(name=name, route="cuda", source=TRAVERSE_SRC,
                replaces=TRAVERSE_TPU, launches=0, max_abs_err=err,
                ms=time_cuda(run, 5), plain_ms=plain_s * 1e3,
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               library_ms=None, rays=R, blocks=B,
+               library_ms=None, block_cull_bound_ms=max(t_ops_b, t_bytes)
+               * 1e3, instruction_floor_ms=floor_ms, rays=R, blocks=B,
                visits_planned_per_block=int(plan.total) / B,
-               visits_per_block=visits / B,
-               clusters_tested_per_block=tested / B,
+               visits_per_block=visits / B, tests=tests,
+               kernel_tests=kernel_tests, warp_cluster_passes=warp_pass,
+               warp_cluster_candidates=candidates,
+               block_cluster_passes=block_pass,
+               block_cull_cluster_passes=block_cull_pass,
+               clusters_tested_per_block=block_pass / B,
+               rays_differing_from_block_cull=n_differ,
+               plain_block_cull_ms=plain_b_s * 1e3,
                hit_fraction=h_k.float().mean().item(),
                equal_to_plain=same)
+    if clock_hz:
+        row["lane_cycles_per_test"] = (row["ms"] * 1e-3 * SMS * LANES
+                                       * clock_hz / kernel_tests)
     log(f"phase tri-traverse: {name}: {R} rays in {B} blocks, hits equal"
         f"{', t, slots and visits equal' if same else ''}, max |t - plain "
         f"t| {err:.3e}; visits a block "
         f"{row['visits_per_block']:.2f} executed of "
-        f"{row['visits_planned_per_block']:.2f} planned, "
-        f"{row['clusters_tested_per_block']:.2f} clusters past the cull; "
-        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"{row['visits_planned_per_block']:.2f} planned; cull passes "
+        f"(warp, cluster) {warp_pass} = {warp_pass / B:.2f} a block "
+        f"({warp_pass * G / (B * RB):.2f} clusters a ray), (block, "
+        f"cluster) {block_pass} = {block_pass / B:.2f} a block; the "
+        f"kernel's candidates (with the best before the visit) {candidates}"
+        f" = {candidates / B:.2f} a block; the block "
+        f"cull's (block, cluster) {block_cull_pass} = "
+        f"{block_cull_pass / B:.2f} a block; rays differing from the block "
+        f"cull {n_differ} ("
+        + ("any hit: hit masks equal)" if any_hit
+           else "all ties at rtol 1e-5)"))
+    log(f"phase tri-traverse: {name}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.1f} ms (block cull {plain_b_s * 1e3:.1f} ms), "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; the block "
+        f"cull's {row['block_cull_bound_ms']:.4f} ms), instruction floor "
+        + (f"{floor_ms:.4f} ms ({kernel_tests} tests run x "
+           f"{sass['per_test']:.2f} "
+           f"instructions / ({SMS} SMs x {LANES} lanes x "
+           f"{clock_hz / 1e6:.0f} MHz)), "
+           f"{row['lane_cycles_per_test']:.1f} lane-cycles a test run"
+           if floor_ms else "not measured"))
     return row
 
 
@@ -1195,20 +1354,35 @@ def tri_phases(torch, rows):
                          "bounce after the first in the PT render")
     (_, *wave), wave_kw = rec_pt.calls[0]
     del rec_pt
+    info = traverse_kernel_info(RB)
+    clock_hz = max_sm_clock_hz()
+    sass = info["sass"]
+    log(f"phase tri-traverse: kernel build: {info['registers']} registers, "
+        f"{info['spill_bytes']} bytes spilled a thread, "
+        f"{info['static_smem_bytes']} B static + "
+        f"{info['dynamic_smem_bytes']} B dynamic shared memory, "
+        f"{info['blocks_per_sm']} blocks of {RB} threads an SM; SASS "
+        + (f"per-triangle loop {sass['instructions']} instructions for "
+           f"{sass['tests']} tests ({sass['per_test']:.2f} a test)"
+           if sass else "not read (no cuobjdump)")
+        + f"; top SM clock "
+        + (f"{clock_hz / 1e6:.0f} MHz" if clock_hz else "not read"))
     tri_rows["closest_hit_packed"] = traverse_row(
-        torch, "closest_hit_packed", tt, tuple(wave), wave_kw)
+        torch, "closest_hit_packed", tt, tuple(wave), wave_kw, info,
+        clock_hz)
     tri_rows["closest_hit_packed"]["at"] = \
         "soup359k, the PT render's first bounce wave"
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     orig, dirn = pt.generate_camera_rays(gen, camera, cfg)
     tri_rows["closest_hit_packed[primary]"] = traverse_row(
         torch, "closest_hit_packed[primary]", tt,
-        (orig, dirn, cfg.t_min, cfg.t_max), {})
+        (orig, dirn, cfg.t_min, cfg.t_max), {}, info, clock_hz)
     tri_rows["closest_hit_packed[primary]"]["at"] = \
         "soup359k, the 1080p primary bundle"
     (_, *any_args), any_kw = rec_trav.calls[0]
     tri_rows["closest_hit_packed_any"] = traverse_row(
-        torch, "closest_hit_packed_any", tt, tuple(any_args), any_kw)
+        torch, "closest_hit_packed_any", tt, tuple(any_args), any_kw, info,
+        clock_hz)
     tri_rows["closest_hit_packed_any"]["at"] = \
         "soup359k, the SH render's first shadow bundle"
     del rec_cast, rec_trav, binning, dirs, orig, dirn, wave
@@ -1245,7 +1419,9 @@ def tri_phases(torch, rows):
         log(f"phase tri-render: {name}: {start.elapsed_time(end):.3f} ms on "
             f"the card's clock, {host_ms:.3f} ms on the host's; launches "
             f"{counts}; flags {flags}; mean colour "
-            f"{img.mean().item():.5f}")
+            f"{img.mean().item():.7f}"
+            + (f" (the block-cull kernel's: {BLOCK_CULL_MEANS[name]:.7f})"
+               if name in BLOCK_CULL_MEANS else ""))
         casts = int(name != "SH[block]")
         if counts["cast_primary"] != casts or \
                 any(counts[k] <= 0 for k in want[name]) or \
@@ -1266,7 +1442,15 @@ def tri_phases(torch, rows):
     # the kernels' device time from torch.profiler over one more render
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    traverse = tri_kernel.traverse
     for name in ("SH", "AO", "PT"):
+        actuals = []        # each traversal launch's visits a block
+
+        def recorded(*args):
+            out = traverse(*args)
+            actuals.append(out[2])
+            return out
+        tri_kernel.traverse = recorded
         stamps = Stamps(torch)
         stamps.wrap(tri_binning, "build_tri_binning", "binning")
         stamps.wrap(tri_binning, "cast_primary", "cast")
@@ -1278,11 +1462,21 @@ def tri_phases(torch, rows):
             stamps.mark("render:end")
         finally:
             stamps.restore()
-        split = {}
+            tri_kernel.traverse = traverse
+        split, launch_ms = {}, []
         for label, ms in stamps.intervals():
             stage, edge = label.split(":")
             key = stage if edge == "end" and stage != "render" else "other"
             split[key] = split.get(key, 0.0) + ms
+            if label == "traverse:end":
+                launch_ms.append(ms)
+        visits = [a.float().mean().item() for a in actuals]
+        figures[name]["traverse_launches"] = [
+            dict(ms=ms, visits_per_block=v) for ms, v in zip(launch_ms,
+                                                              visits)]
+        log(f"phase tri-render: {name} traversal launches (card ms, visits "
+            f"a block): " + ", ".join(f"{ms:.2f} ({v:.1f})" for ms, v in
+                                       zip(launch_ms, visits)))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             renders[name]()

@@ -19,11 +19,16 @@
    visit j + 1 runs only if its entry distance is below the block's largest
    best t taken before visit j (clamped at 0; in any-hit mode a ray that
    has a hit counts as −inf), so the executed-visit count `plan.actual`
-   follows the TPU kernel's. Each cluster is culled by a slab test of its
-   AABB against every ray's window [tmin, min(tmax, best)] (any hit:
-   empty once the ray has a hit) and otherwise tested densely with
-   Möller–Trumbore; a ray keeps the smallest t, ties to the smallest
-   triangle slot, and takes a later cluster's only when strictly nearer.
+   follows the TPU kernel's. Each cluster is culled for each group of
+   `CULL_RAYS` consecutive rays (one warp of the kernel) by a slab test of
+   its AABB against each ray's window [tmin, min(tmax, best)] (any hit:
+   empty once the ray has a hit); where some ray of the group reaches it,
+   every ray of the group tests it densely with Möller–Trumbore. A ray
+   keeps the smallest t, ties to the smallest triangle slot, and takes a
+   later cluster's only when strictly nearer. The TPU kernel culls for the
+   whole block (`cull_rays=rb` in the plain version); the two differ only
+   where rounding lets a ray hit a triangle of a cluster that its own
+   window misses.
 
 The returned index is a slot; `order[slot]` is the triangle id.
 """
@@ -42,6 +47,7 @@ GEOM = 9           # geometry rows per cluster: v0 xyz, e1 xyz, e2 xyz
 RAY_ROWS = 8       # ox oy oz dx dy dz tmin tmax
 INF_BITS = 0x7F800000
 PLAIN_PAIRS = 1 << 24   # ray-triangle products per batch of the plain version
+CULL_RAYS = 32          # rays culled together: one warp of the kernel
 
 
 class TriTable(NamedTuple):
@@ -249,26 +255,34 @@ def traverse(tt: TriTable, rays, plan: VisitPlan, rb: int, any_hit: bool):
     actual = torch.empty(B, dtype=torch.int32, device=rays.device)
     table = tt.table.contiguous()
     box = torch.cat([tt.cl_min, tt.cl_max], 1).contiguous()
+    sup_box = torch.cat([tt.sup_min, tt.sup_max], 1).contiguous()
     kernel = _kernels.TRI_ANY_HIT if any_hit else _kernels.TRI_CLOSEST_HIT
     with torch.cuda.device(rays.device):
-        kernel(table.data_ptr(), box.data_ptr(), table.shape[0],
+        kernel(table.data_ptr(), box.data_ptr(), sup_box.data_ptr(),
+               table.shape[0],
                plan.block_start.data_ptr(), plan.visit.data_ptr(),
                plan.visit_near.data_ptr(), plan.visit.shape[0],
-               rays.data_ptr(), Rp, rb, int(any_hit), t.data_ptr(),
-               slot.data_ptr(), actual.data_ptr(),
+               rays.data_ptr(), Rp, rb, CULL_RAYS, int(any_hit),
+               t.data_ptr(), slot.data_ptr(), actual.data_ptr(),
                _kernels.stream_ptr(rays))
     return t, slot, actual
 
 
 def closest_hit_packed_plain(tt: TriTable, orig, dirn, t_min, t_max, *,
                              rb: int = 512, max_visits: int | None = None,
-                             any_hit: bool = False, stats: dict | None = None):
+                             any_hit: bool = False, stats: dict | None = None,
+                             cull_rays: int = CULL_RAYS):
     """The plain PyTorch version of `closest_hit_packed` on any device.
-    `stats` receives the executed block-visits and the clusters that passed
-    the cull ("visits", "clusters_tested")."""
+    `cull_rays` rays are culled together (the kernel's CULL_RAYS; `rb`
+    gives the TPU kernel's block cull). `stats` receives the executed
+    block-visits ("visits"), the (block, cluster) pairs where some group
+    passed the cull ("clusters_tested"), the (group, cluster) pairs that
+    passed it ("group_clusters_tested") and those that passed it with the
+    best before their visit ("group_candidates": the pairs the kernel
+    tests, a superset)."""
     rays, plan, R = _prepare(tt, orig, dirn, t_min, t_max, rb, max_visits)
-    return _finish(*_traverse_plain(tt, rays, plan, rb, any_hit, stats),
-                   plan, R)
+    return _finish(*_traverse_plain(tt, rays, plan, rb, any_hit, stats,
+                                    cull_rays), plan, R)
 
 
 def _mt(ox, oy, oz, dx, dy, dz, tmin, tmax, g):
@@ -296,14 +310,18 @@ def _mt(ox, oy, oz, dx, dy, dz, tmin, tmax, g):
 
 
 def _traverse_plain(tt: TriTable, rays, plan: VisitPlan, rb: int,
-                    any_hit: bool, stats: dict | None = None):
+                    any_hit: bool, stats: dict | None = None,
+                    cull_rays: int = CULL_RAYS):
     """The kernel's walk in tensor code: every block that goes on takes
     its next visit in one step. Möller–Trumbore runs, PLAIN_PAIRS products
-    at a time, only on the (block, cluster) pairs that pass the cull with
+    at a time, only on the (group, cluster) pairs that pass the cull with
     the best before the visit; the cull with the running best, cluster by
     cluster, then selects among them, as it can only narrow."""
+    if rb % cull_rays:
+        raise ValueError(f"cull_rays={cull_rays} does not divide rb={rb}")
     dev = rays.device
     B = rays.shape[1] // rb
+    G, ng = cull_rays, rb // cull_rays
     inf = float("inf")
     f = rays.reshape(RAY_ROWS, B, rb)
     ox, oy, oz, dx, dy, dz, tmin, tmax = f
@@ -319,8 +337,12 @@ def _traverse_plain(tt: TriTable, rays, plan: VisitPlan, rb: int,
     geo = tt.table.reshape(-1, SUP, GEOM, K)
     box = torch.cat([tt.cl_min, tt.cl_max], 1).reshape(-1, SUP, 6)
     go = nv > 0
-    n_visits, n_tested = 0, torch.zeros((), dtype=torch.int64, device=dev)
+    n_visits = 0
+    n_block = torch.zeros((), dtype=torch.int64, device=dev)
+    n_group = torch.zeros((), dtype=torch.int64, device=dev)
+    n_cand = torch.zeros((), dtype=torch.int64, device=dev)
     batch = max(1, PLAIN_PAIRS // (rb * K))
+    gbatch = max(1, PLAIN_PAIRS // (G * K))
     j = 0
     while bool(go.any()):
         act = go.nonzero()[:, 0]
@@ -334,12 +356,13 @@ def _traverse_plain(tt: TriTable, rays, plan: VisitPlan, rb: int,
         go_next = (j + 1 < nv[act]) & (nxt < best_max)
         for s in range(0, act.numel(), batch):
             blk = act[s:s + batch]
+            nb = blk.numel()
             c = plan.visit[bs[blk] + j].long()
             btb, bib = bt[blk], bi[blk]
 
             def cull(cj, best):
-                """Does any ray of each block reach cluster cj's AABB
-                inside its window, given its best t? [b, 1]"""
+                """Does some ray of each group reach cluster cj's AABB
+                inside its window, given its best t? [b, ng]"""
                 bx = box[c, cj]                                # [b, 6]
                 lim = (torch.where(torch.isfinite(best),
                                    torch.full_like(best, -inf), tmax[blk])
@@ -356,24 +379,27 @@ def _traverse_plain(tt: TriTable, rays, plan: VisitPlan, rb: int,
                     torch.minimum(torch.maximum(l0, h0),
                                   torch.maximum(l1, h1)),
                     torch.minimum(torch.maximum(l2, h2), lim))
-                return (t_in <= t_out).any(1, keepdim=True)
+                return (t_in <= t_out).reshape(nb, ng, G).any(2)
 
             # each ray's first minimum over each candidate cluster
-            cand = torch.cat([cull(cj, btb) for cj in range(SUP)], 1)
-            tc = torch.full((blk.numel(), SUP, rb), inf, device=dev)
-            ic = torch.zeros((blk.numel(), SUP, rb), dtype=torch.int64,
-                             device=dev)
-            pb, pc = cand.nonzero(as_tuple=True)
-            for q in range(0, pb.numel(), batch):
-                qb, qc = pb[q:q + batch], pc[q:q + batch]
-                r = lambda a: a[blk[qb]][:, :, None]           # noqa: E731
+            cand = torch.stack([cull(cj, btb) for cj in range(SUP)], 1)
+            n_cand += cand.sum()
+            tc = torch.full((nb, SUP, ng, G), inf, device=dev)
+            ic = torch.zeros((nb, SUP, ng, G), dtype=torch.int64, device=dev)
+            pb, pc, pg = cand.nonzero(as_tuple=True)
+            for q in range(0, pb.numel(), gbatch):
+                qb, qc, qg = (a[q:q + gbatch] for a in (pb, pc, pg))
+                r = lambda a: a[blk[qb]].reshape(-1, ng, G)[       # noqa
+                    torch.arange(qb.numel(), device=dev), qg][:, :, None]
                 t = _mt(r(ox), r(oy), r(oz), r(dx), r(dy), r(dz), r(tmin),
-                        r(tmax), geo[c[qb], qc][:, None])      # [n, rb, K]
-                tc[qb, qc], ic[qb, qc] = t.min(-1)
+                        r(tmax), geo[c[qb], qc][:, None])      # [n, G, K]
+                tc[qb, qc, qg], ic[qb, qc, qg] = t.min(-1)
+            tc, ic = tc.reshape(nb, SUP, rb), ic.reshape(nb, SUP, rb)
             for cj in range(SUP):
                 run = cull(cj, btb)
-                n_tested += run.sum()
-                upd = run & (tc[:, cj] < btb)
+                n_block += run.any(1).sum()
+                n_group += run.sum()
+                upd = run.repeat_interleave(G, 1) & (tc[:, cj] < btb)
                 btb = torch.where(upd, tc[:, cj], btb)
                 slot = ((c * SUP + cj) * K)[:, None] + ic[:, cj]
                 bib = torch.where(upd, slot.to(torch.int32), bib)
@@ -384,5 +410,7 @@ def _traverse_plain(tt: TriTable, rays, plan: VisitPlan, rb: int,
         go[act] = go_next
         j += 1
     if stats is not None:
-        stats.update(visits=n_visits, clusters_tested=int(n_tested))
+        stats.update(visits=n_visits, clusters_tested=int(n_block),
+                     group_clusters_tested=int(n_group),
+                     group_candidates=int(n_cand))
     return bt.reshape(-1), bi.reshape(-1), actual

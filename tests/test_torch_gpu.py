@@ -331,7 +331,7 @@ def test_tri_cast_kernel_bitwise(cuda, tile, span_exact):
     assert (t_k < 3e38).float().mean() > 0.2
 
 
-@pytest.mark.parametrize("rb", [128, 512])
+@pytest.mark.parametrize("rb", [128, 512, 1024])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_tri_traverse_kernel_matches_plain(cuda, any_hit, rb):
     from gsrt_torch.ops import tri_kernel as t_tk
@@ -358,3 +358,85 @@ def test_tri_traverse_kernel_matches_plain(cuda, any_hit, rb):
         assert torch.equal(g, w)
     assert torch.equal(got[3].actual, want[3].actual)
     assert got[2].float().mean() > 0.2
+
+
+def _patch(x0, x1, y0, y1, z, n, tilt=0.05):
+    """An n x n grid of quads (two triangles each) over [x0, x1] x [y0, y1]
+    in the plane z + tilt * x (the tilt keeps entry distances apart)."""
+    xs, ys = np.linspace(x0, x1, n + 1), np.linspace(y0, y1, n + 1)
+    tris = []
+    for iy in range(n):
+        for ix in range(n):
+            a, b = (xs[ix], ys[iy]), (xs[ix + 1], ys[iy + 1])
+            tris += [((a[0], a[1]), (b[0], a[1]), (a[0], b[1])),
+                     ((b[0], b[1]), (a[0], b[1]), (b[0], a[1]))]
+    p = np.float32(tris)                                   # [T, 3, 2]
+    v = np.concatenate([p, z + tilt * p[..., :1]], -1)
+    return v[:, 0], v[:, 1], v[:, 2]
+
+
+def _warp_rays(R, spans, seed):
+    """Rays along +z from z = -5, warp w's origins at x in spans[w % 2]
+    (y in [-0.8, 0.8]): neighbouring warps of a block look at other
+    places."""
+    rng = np.random.default_rng(seed)
+    w = (np.arange(R) // 32) % 2
+    lo = np.float32([spans[0][0], spans[1][0]])[w]
+    hi = np.float32([spans[0][1], spans[1][1]])[w]
+    o = np.stack([rng.uniform(lo, hi), rng.uniform(-0.8, 0.8, R),
+                  np.full(R, -5.0)], 1).astype(np.float32)
+    d = (np.float32([0, 0, 1]) + rng.normal(0, 0.01, (R, 3))).astype(
+        np.float32)
+    return o, d
+
+
+def _traverse_both(cuda, verts, o, d, rb, any_hit):
+    """Kernel and plain on one bundle: (kernel out, plain out, stats)."""
+    from gsrt_torch.ops import tri_kernel as t_tk
+    tt = t_tk.build_tri_table(*(torch.as_tensor(np.ascontiguousarray(a),
+                                                device=cuda) for a in verts))
+    o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    kernel = _kernels.TRI_ANY_HIT if any_hit else _kernels.TRI_CLOSEST_HIT
+    before = kernel.launches
+    got = t_tk.closest_hit_packed(tt, o, d, 1e-3, 100.0, rb=rb,
+                                  any_hit=any_hit)
+    assert kernel.launches == before + 1
+    stats = {}
+    want = t_tk.closest_hit_packed_plain(tt, o, d, 1e-3, 100.0, rb=rb,
+                                         any_hit=any_hit, stats=stats)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[3].actual, want[3].actual)
+    return got, stats
+
+
+@pytest.mark.parametrize("rb", [128, 512, 1024])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tri_traverse_warps_skip_clusters_others_hit(cuda, any_hit, rb):
+    """Two patches far apart in one super-cluster; alternate warps of each
+    block look at one or the other, so every block reaches all clusters
+    and every warp only its own patch's."""
+    verts = tuple(np.concatenate(a) for a in zip(
+        _patch(-4, -2, -1, 1, 0, 16), _patch(2, 4, -1, 1, 0, 16)))
+    o, d = _warp_rays(2048, ((-3.8, -2.2), (2.2, 3.8)), 0)
+    got, stats = _traverse_both(cuda, verts, o, d, rb, any_hit)
+    assert stats["group_clusters_tested"] * 32 < \
+        stats["clusters_tested"] * rb
+    assert got[2].float().mean() > 0.9
+
+
+@pytest.mark.parametrize("rb", [128, 512, 1024])
+def test_tri_traverse_any_hit_occluded_warps(cuda, rb):
+    """Any hit: an occluder in front of x < 0 and layers behind all of it.
+    The warps looking at x < 0 all hit the occluder early and then skip
+    every cluster; the others walk the layers."""
+    verts = tuple(np.concatenate(a) for a in zip(
+        _patch(-4, 0, -1, 1, 0, 16),
+        *(_patch(-4, 4, -1, 1, z, 16) for z in (2, 3, 4, 5))))
+    o, d = _warp_rays(2048, ((-3.8, -0.2), (0.2, 3.8)), 1)
+    got, stats = _traverse_both(cuda, verts, o, d, rb, True)
+    assert stats["group_clusters_tested"] * 32 < \
+        stats["clusters_tested"] * rb
+    front = torch.as_tensor((np.arange(2048) // 32) % 2 == 0, device=cuda)
+    assert bool(got[2][front].all())
+    assert bool((got[0][front] < 6.0).all())     # the occluder's t

@@ -253,3 +253,56 @@ def test_visit_overflow_flag_matches_jax(tables):
     np.testing.assert_array_equal(t[3].block_start.numpy(),
                                   np.asarray(j[3].block_start))
     np.testing.assert_array_equal(t[2].numpy(), np.asarray(j[2]))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("scene,kind", CASES)
+def test_block_cull_plain_matches_jax(tables, traversals, scene, kind,
+                                      any_hit):
+    """With cull_rays = rb the plain version culls per block, as the TPU
+    kernel does: slots, hit masks and executed visits equal `gsrt`'s
+    exactly; t to rtol 1e-5 (XLA rounds Möller–Trumbore's sums in another
+    order)."""
+    _, _, tt = tables[scene]
+    j_t, j_slot, j_hit, j_plan = traversals[scene, kind, any_hit][0]
+    o, d, tmax = _rays(kind, 1)
+    t, slot, hit, plan = t_tk.closest_hit_packed_plain(
+        tt, _t(o), _t(d), 1e-3, _t(tmax), rb=128, any_hit=any_hit,
+        cull_rays=128)
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(j_slot))
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(j_hit))
+    np.testing.assert_array_equal(plan.actual.numpy(),
+                                  np.asarray(j_plan.actual))
+    h = hit.numpy()
+    np.testing.assert_allclose(t.numpy()[h], np.asarray(j_t)[h], rtol=1e-5)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_warp_cull_tests_fewer_pairs(tables, any_hit):
+    """The scatter rays in the layered scene: culling per 32 rays tests
+    fewer (ray, cluster) pairs than culling per block of 128 and finds the
+    same hits (closest hit: the same t, slots and visits; any hit, where
+    a ray takes any hit: the same mask and visits, each t a hit of its
+    slot's triangle)."""
+    _, _, tt = tables["layers"]
+    o, d, tmax = _rays("scatter", 1)
+    out, stats = {}, {}
+    for g in (32, 128):
+        stats[g] = {}
+        out[g] = t_tk.closest_hit_packed_plain(
+            tt, _t(o), _t(d), 1e-3, _t(tmax), rb=128, any_hit=any_hit,
+            stats=stats[g], cull_rays=g)
+    assert stats[32]["group_clusters_tested"] * 32 < \
+        stats[128]["group_clusters_tested"] * 128
+    (t32, s32, h32, p32), (t128, s128, h128, p128) = out[32], out[128]
+    assert torch.equal(h32, h128) and h32.float().mean() > 0.3
+    assert torch.equal(p32.actual, p128.actual)
+    if not any_hit:
+        assert torch.equal(t32, t128) and torch.equal(s32, s128)
+        return
+    rays = torch.stack([*_t(o).T, *_t(d).T, torch.full((o.shape[0],), 1e-3),
+                        _t(tmax)])[:, :, None, None]
+    s = s32.long()
+    tri = tt.table[s // t_tk.K, :, s % t_tk.K][:, None, :, None]
+    t_re = t_tk._mt(*rays, tri)[:, 0, 0]
+    assert torch.equal(t_re[h32], t32[h32])
