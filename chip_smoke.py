@@ -15,8 +15,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
 4. expand  — the pair-expansion kernel against its plain PyTorch version on
              those inputs, bit for bit, in both modes (level-1 units and
              level-2 payload emit);
-5. blend   — the group-stream blend kernel against its plain version on the
-             captured payload, every group, atol 2e-3 on color and trans;
+5. blend   — the group stream's partition kernel against its plain
+             version on the captured payload, bit for bit (order and
+             seg), timed beside a stable torch.sort of the tile ids; the
+             group blend kernel against its plain version, every tile,
+             atol 2e-3 on color and trans, hits at most 1 apart on at
+             most 0.1% of pixels; the share of (warp, pair) steps the
+             row cull removes; the kernel's build (registers, spills,
+             shared memory, resident blocks, the SASS instructions of its
+             per-(pixel, pair) loop where cuobjdump exists) and its
+             instruction floor;
 6. main    — GaussianRayTracer(cfg, "tiled"): calibrate, then one frame,
              with every launch count set to 0 just before and read just
              after; each kernel of the path must have launched; then
@@ -30,16 +38,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
              kernel against its plain version on the compact payload with
              track_consumed, then on the f32 payload, with track_hits, and
              with the exp LUT: atol 2e-3 on color and trans, consumed
-             equal, hits equal on f32; then one frame per mode (f32, hits,
-             LUT) through GaussianRayTracer with its launches counted;
+             equal, hits equal on f32; per mode the row cull's share, the
+             build and the instruction floor; then one frame per mode
+             (f32, hits, LUT) through GaussianRayTracer with its launches
+             counted;
 10. serving — the 48-frame orbit of tools/serving_bench.py: cold
              (GaussianRayTracer, defer_overflow=4) and served
              (ServingRenderer after a warm frame, finish() and reset(),
              counts read): ms/frame on the card's and the host's clocks,
              the speedup, violation frames, re-renders, pairs, one tile
-             kernel per served frame and no group kernel; the split of a
-             served frame; a 3-frame static camera that must cull pairs
-             without violations and stay within 3e-3 of the cold render;
+             kernel per served frame and no partition or group kernel;
+             the split of a served frame; a 3-frame static camera that
+             must cull pairs without violations and stay within 3e-3 of
+             the cold render;
 11. train-capture — the training workload; one forward and backward of
              render_tiled_diff with the kernel entry points recorded;
 12. gather / subtile / backward / lut-train — the f32 stream's kernels
@@ -211,6 +222,25 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def render_cell(device: str = DEVICE):
+    """The render workload: (cfg, cloud, camera)."""
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.scene import random_cloud
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, conic_mode="standard")
+    cloud, camera = random_cloud(SPLATS, seed=SEED, width=WIDTH,
+                                 height=HEIGHT, scale_range=(0.004, 0.03),
+                                 device=device)
+    return cfg, cloud, camera
+
+
+def serving_orbit(device: str = DEVICE) -> list:
+    """The serving workload's cameras (tools/serving_bench.py's orbit)."""
+    from gsrt_torch.scene import orbit_path
+    return orbit_path((0, 0, 6.0), 10.0, ORBIT_FRAMES, height=2.0,
+                      width=WIDTH, height_px=HEIGHT, degrees=ORBIT_DEGREES,
+                      start_deg=200.0, device=device)
+
+
 class Recorder:
     """Wraps a module function, keeping the arguments of every call."""
 
@@ -228,6 +258,35 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class Replaced:
+    """Replaces a module function for the duration of a with-block."""
+
+    def __init__(self, module, name: str, fn):
+        self.module, self.name, self.fn = module, name, fn
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def blend_floor(stats: dict, npx: int, info: dict, clock_hz) -> dict:
+    """The packed blend's instruction floor: the (pixel, pair) steps the
+    kernel runs after the row cull (the plain version's counts) times the
+    SASS instructions of one step, over 132 SMs x 128 lanes at the top SM
+    clock; and the cull's share."""
+    lane_steps = 32 * (stats["warp_steps"] - stats["culled_steps"])
+    sass = info["sass"]
+    floor = (lane_steps * sass["per_test"] / (SMS * LANES * clock_hz) * 1e3
+             if sass and clock_hz else None)
+    return dict(instruction_floor_ms=floor,
+                culled_share=stats["culled_steps"] / stats["warp_steps"],
+                pixel_pair_steps=lane_steps)
 
 
 def phase_device():
@@ -690,13 +749,10 @@ def serve_phases(torch, cloud, rows):
     from gsrt_torch import serving as srv_mod
     from gsrt_torch.models import gaussian_rt as grt
     from gsrt_torch.ops import splat_packed, tile_binning
-    from gsrt_torch.scene import orbit_path
 
     W, H = WIDTH, HEIGHT
     cfg = RenderConfig(width=W, height=H, conic_mode="standard")
-    path = orbit_path((0, 0, 6.0), 10.0, ORBIT_FRAMES, height=2.0,
-                      width=W, height_px=H, degrees=ORBIT_DEGREES,
-                      start_deg=200.0, device=DEVICE)
+    path = serving_orbit()
     cam0 = path[0]
     ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
     T, npx = ntx * nty, cfg.tile_w * cfg.tile_h
@@ -727,6 +783,7 @@ def serve_phases(torch, cloud, rows):
              ("blend_packed_tile[lut]", compact_b,
               dict(use_exp_lut=True, skip_range_check=False))]
     k1_rows = {}
+    clock_hz = max_sm_clock_hz()
     for name, b, extra in modes:
         kw = {**base_kw, **extra}
         hits = kw.pop("track_hits", False)
@@ -765,16 +822,24 @@ def serve_phases(torch, cloud, rows):
         t_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * blended / F32_FLOPS
         t_bytes = (4 * (b.payload.shape[0] * blended + T + 1 + consp.numel())
                    + (20 if hits else 16) * W * H) / HBM_BYTES_PER_S
+        info = blend_kernel_info("tile" if compact else "tile_f32", kw, npx)
         k1_rows[name] = dict(
             name=name, route="cuda", source=BLEND_SRC, replaces=BLEND_TPU,
             launches=0, max_abs_err=err, ms=time_cuda(run, 10),
             plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None)
+            library_ms=None, **blend_floor(stats, npx, info, clock_hz),
+            build=info)
+        floor = k1_rows[name]["instruction_floor_ms"]
+        log(f"phase serve-blend: {name}: row cull removes "
+            f"{stats['culled_steps']} of {stats['warp_steps']} (warp, pair) "
+            f"steps ({k1_rows[name]['culled_share']:.4f}); build: "
+            f"{describe_build(info)}")
         log(f"phase serve-blend: {name}: kernel {k1_rows[name]['ms']:.4f} "
             f"ms, plain {plain_s * 1e3:.1f} ms, bound "
             f"{k1_rows[name]['bound_ms']:.4f} ms "
-            f"({k1_rows[name]['bound_by']})")
+            f"({k1_rows[name]['bound_by']}), instruction floor "
+            + (f"{floor:.4f} ms" if floor else "not measured"))
         del cp, tp, consp, hp, out, ck, tk, consk
     del compact_b, f32_b
 
@@ -816,10 +881,11 @@ def serve_phases(torch, cloud, rows):
     log(f"phase serving: launches {counts} "
         f"({counts['blend_packed_tile'] / len(path):.3f} K1 per frame)")
     if counts["blend_packed_tile"] != len(path) + rerender or \
-            counts["blend_packed_group"] != 0:
+            counts["blend_packed_group"] != 0 or \
+            counts["partition_group_stream"] != 0:
         raise SystemExit("phase serving: expected one tile-stream blend "
                          "per served frame (and per re-render) and no "
-                         "group-stream blend")
+                         "group-stream partition or blend")
     for k in ("expand_pairs_fused",):
         if counts[k] <= 0:
             raise SystemExit(f"phase serving: kernel {k} never launched")
@@ -1040,44 +1106,95 @@ def cast_row(torch, name, binning, dirs, origin, kw):
     return row
 
 
-def traverse_kernel_info(rb: int) -> dict:
-    """Registers, shared memory, spills and resident blocks of the built
-    traversal kernel (gsrt_tri_traverse_info), and the SASS of its
-    per-triangle loop where cuobjdump is installed."""
+def build_info(lib: str, symbol: str, *args) -> dict:
+    """Registers, shared memory, spills and resident blocks of a built
+    kernel, from its library's info entry point (`symbol`(*args, info))."""
     import ctypes
     from gsrt_torch import _kernels
-    fn = _kernels._load("tri_kernel").gsrt_tri_traverse_info
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    fn = getattr(_kernels._load(lib), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     buf = (ctypes.c_int * 5)()
-    if fn(rb, buf) != 0:
-        raise SystemExit("phase tri-traverse: gsrt_tri_traverse_info failed")
-    info = dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+    if fn(*args, buf) != 0:
+        raise SystemExit(f"{symbol}{args} failed")
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
                      "spill_bytes", "blocks_per_sm"), buf))
+
+
+def traverse_kernel_info(rb: int) -> dict:
+    """The traversal kernel's build (gsrt_tri_traverse_info), and the SASS
+    of its per-triangle loop where cuobjdump is installed."""
+    from gsrt_torch import _kernels
+    info = build_info("tri_kernel", "gsrt_tri_traverse_info", rb)
     info.update(threads=rb, sass=sass_inner_loop(
         _kernels._lib_path("tri_kernel"), os.path.dirname(_kernels._nvcc())))
     return info
 
 
-def sass_inner_loop(lib, cuda_bin: str):
-    """The innermost loop of tri_traverse_kernel's SASS that holds
-    Moller-Trumbore's reciprocals (one MUFU.RCP a test): its instructions
-    and tests an iteration, or None without cuobjdump. The reciprocal's
-    slow path lies outside the loop and is not counted."""
+# the packed blends' kinds in gsrt_blend_info, and their kernels' mangled
+# names (the accept rule is the last template argument)
+BLEND_KINDS = {"group": (0, "blend_group_kernelILi{rule}EE"),
+               "tile": (1, "blend_tile_kernelILb1ELi{rule}EE"),
+               "tile_f32": (2, "blend_tile_kernelILb0ELi{rule}EE")}
+
+
+def blend_kernel_info(kind: str, blend_kw: dict, threads: int) -> dict:
+    """The build (gsrt_blend_info) of the packed blend instance that
+    `blend_packed(**blend_kw)` launches, and the SASS of its per-(pixel,
+    pair) loop (the innermost loop holding the exp's MUFU.EX2)."""
+    from gsrt_torch import _kernels
+    rule = (int(bool(blend_kw["skip_range_check"]))
+            + 2 * int(bool(blend_kw.get("use_exp_lut", False))))
+    code, function = BLEND_KINDS[kind]
+    info = build_info("splat_packed", "gsrt_blend_info", code, rule, threads)
+    info.update(threads=threads, rule=rule, sass=sass_inner_loop(
+        _kernels._lib_path("splat_packed"), os.path.dirname(_kernels._nvcc()),
+        function=function.format(rule=rule), marker="MUFU.EX2"))
+    return info
+
+
+def describe_build(info: dict) -> str:
+    sass = info["sass"]
+    return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
+            f"spilled a thread, {info['static_smem_bytes']} B static + "
+            f"{info['dynamic_smem_bytes']} B dynamic shared memory, "
+            f"{info['blocks_per_sm']} blocks of {info['threads']} threads "
+            f"an SM; SASS per-(pixel, pair) loop "
+            + (f"{sass['instructions']} instructions"
+               if sass else "not read (no cuobjdump)"))
+
+
+_SASS_DUMPS: dict = {}
+
+
+def sass_inner_loop(lib, cuda_bin: str, function: str = "tri_traverse_kernel",
+                    marker: str = "MUFU.RCP"):
+    """The innermost loop of `function`'s SASS that holds `marker`
+    (tri_traverse_kernel: Moller-Trumbore's reciprocal, one MUFU.RCP a
+    test): its instructions and markers an iteration, or None without
+    cuobjdump. A slow path outside the loop is not counted."""
     import re
     import shutil
-    tool = os.path.join(cuda_bin, "cuobjdump")
-    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
-    if not tool:
-        return None
-    try:
-        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                             text=True, timeout=120).stdout
-    except (OSError, subprocess.TimeoutExpired):
+    key = str(lib)
+    if key not in _SASS_DUMPS:
+        tool = os.path.join(cuda_bin, "cuobjdump")
+        tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+        out = None
+        if tool:
+            try:
+                out = subprocess.run([tool, "-sass", key],
+                                     capture_output=True, text=True,
+                                     timeout=120).stdout
+            except (OSError, subprocess.TimeoutExpired):
+                out = None
+        _SASS_DUMPS[key] = out
+    out = _SASS_DUMPS[key]
+    if not out:
         return None
     insts, labels, pending, inside = [], {}, [], False
     for line in out.splitlines():
         if "Function :" in line:
-            inside = "tri_traverse_kernel" in line
+            inside = function in line
             continue
         if not inside:
             continue
@@ -1104,13 +1221,13 @@ def sass_inner_loop(lib, cuda_bin: str):
         if tgt is None or tgt > addr:
             continue
         body = [t for a, t in insts if tgt <= a <= addr]
-        rcp = sum("MUFU.RCP" in t for t in body)
-        if rcp:
-            loops.append((len(body), rcp))
+        hits = sum(marker in t for t in body)
+        if hits:
+            loops.append((len(body), hits))
     if not loops:
         return None
-    n, rcp = min(loops)
-    return dict(instructions=n, tests=rcp, per_test=n / rcp)
+    n, hits = min(loops)
+    return dict(instructions=n, tests=hits, per_test=n / hits)
 
 
 def max_sm_clock_hz():
@@ -1532,11 +1649,8 @@ def main() -> int:
     phase_build()
 
     W, H = WIDTH, HEIGHT
-    cfg = RenderConfig(width=W, height=H, conic_mode="standard")
     t0 = time.perf_counter()
-    cloud, camera = random_cloud(SPLATS, seed=SEED, width=W,
-                                 height=H, scale_range=(0.004, 0.03),
-                                 device=DEVICE)
+    cfg, cloud, camera = render_cell()
     torch.cuda.synchronize()
     log(f"workload: {SPLATS} splats, {W}x{H}, SH degree "
         f"{cloud.sh_degree}, made in {time.perf_counter() - t0:.2f} s")
@@ -1587,42 +1701,95 @@ def main() -> int:
         4 * (pair_expand.EMIT_ROWS * mp
              + pair_expand.EMIT_TAB_ROWS * n2 + n2)))
 
-    # --- blend parity on the captured payload, every group ---
+    # --- partition parity: the group stream's tile lists, bit for bit ---
+    ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
+    T, bs = ntx * nty, blend_kw["bs"]
+    npx = cfg.tile_w * cfg.tile_h
+    t0 = time.perf_counter()
+    order_p, seg_p = splat_packed.partition_group_stream_plain(
+        binning.payload[4], binning.tile_start, T, bs)
+    torch.cuda.synchronize()
+    part_plain_s = time.perf_counter() - t0
+    part = lambda: splat_packed.partition_group_stream(binning, T, bs)
+    order_k, seg_k = part()
+    torch.cuda.synchronize()
+    n_cols = int(seg_p[T])
+    if not (torch.equal(seg_k, seg_p)
+            and torch.equal(order_k[:n_cols], order_p[:n_cols])):
+        raise SystemExit("phase blend: the partition kernel differs from "
+                         "its plain version")
+    rows.append(dict(
+        name="partition_group_stream", route="cuda", source=BLEND_SRC,
+        replaces=BLEND_TPU, launches=0, max_abs_err=0.0,
+        ms=time_cuda(part, 20), plain_ms=part_plain_s * 1e3,
+        bound_ms=4 * (2 * n_cols + 2 * (T + 1)) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        library_ms=time_cuda(lambda: torch.sort(
+            binning.payload[4, :n_cols], stable=True), 10)))
+    log(f"phase blend: partition of {n_cols} columns into {T} tile lists "
+        f"bitwise equal to its plain version (seg == tile_start "
+        f"{torch.equal(seg_k, binning.tile_start)}); kernel "
+        f"{rows[-1]['ms']:.4f} ms, plain {rows[-1]['plain_ms']:.1f} ms, "
+        f"bound {rows[-1]['bound_ms']:.4f} ms (bytes), stable torch.sort "
+        f"{rows[-1]['library_ms']:.4f} ms")
+
+    # --- blend parity on the captured payload, every tile, hits too ---
     stats = {}
     plain_kw = {k: blend_kw[k] for k in (
         "width", "height", "sub_w", "sub_h", "bs", "g_cutoff",
         "alpha_threshold", "alpha_clamp", "skip_range_check")}
+    hits_kw = {**blend_kw, "track_hits": True}
     t0 = time.perf_counter()
-    color_p, trans_p = splat_packed.blend_packed_plain(binning, stats=stats,
-                                                       **plain_kw)
+    color_p, trans_p, hits_p = splat_packed.blend_packed_plain(
+        binning, stats=stats, track_hits=True, **plain_kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    color_k, trans_k = splat_packed.blend_packed(binning, **blend_kw)
+    color_k, trans_k, hits_k = splat_packed.blend_packed(binning, **hits_kw)
     torch.cuda.synchronize()
     err = max_abs_err(color_k - color_p, trans_k - trans_p)
-    ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
-    log(f"phase blend: all {ntx * nty} tiles, max |kernel - plain| "
-        f"{err:.3e} (atol 2e-3), "
-        f"{stats['pairs_blended']} pairs blended of {total}")
-    if not err <= 2e-3:
-        raise SystemExit(f"phase blend: kernel differs from plain by {err}")
-    npx = cfg.tile_w * cfg.tile_h
+    hd = (hits_k - hits_p).abs()
+    hits_off = int((hd != 0).sum())
+    culled = stats["culled_steps"] / stats["warp_steps"]
+    log(f"phase blend: all {T} tiles, max |kernel - plain| {err:.3e} (atol "
+        f"2e-3), hits differ at {hits_off} px by at most "
+        f"{int(hd.max())} (<= 1 on <= 0.1%), {stats['pairs_blended']} "
+        f"pairs blended of {total}; the row cull removes "
+        f"{stats['culled_steps']} of {stats['warp_steps']} (warp, pair) "
+        f"steps ({culled:.4f})")
+    if not (err <= 2e-3 and hd.max().item() <= 1
+            and hits_off <= 1e-3 * hd.numel()):
+        raise SystemExit(f"phase blend: kernel differs from plain by {err}, "
+                         f"hits at {hits_off} px")
+    group_info = blend_kernel_info("group", blend_kw, npx)
+    clock_hz = max_sm_clock_hz()
+    log(f"phase blend: group kernel build: {describe_build(group_info)}; "
+        f"top SM clock " + (f"{clock_hz / 1e6:.0f} MHz" if clock_hz
+                            else "not read"))
     blend_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * stats["pairs_blended"]
     blend_bytes = 4 * (tile_binning.COMPACT_WIDTH * total
                        + binning.tile_start.numel()) + 16 * W * H
     t_ops, t_bytes = blend_ops / F32_FLOPS, blend_bytes / HBM_BYTES_PER_S
+    # the blend kernel alone: the partition's lists computed once
+    with Replaced(splat_packed, "partition_group_stream",
+                  lambda *a: (order_k, seg_k)):
+        group_ms = time_cuda(
+            lambda: splat_packed.blend_packed(binning, **blend_kw), 10)
+    stage_ms = time_cuda(
+        lambda: splat_packed.blend_packed(binning, **blend_kw), 10)
     rows.append(dict(
         name="blend_packed_group", route="cuda", source=BLEND_SRC,
-        replaces=BLEND_TPU, launches=0, max_abs_err=err,
-        ms=time_cuda(lambda: splat_packed.blend_packed(binning, **blend_kw),
-                     10),
+        replaces=BLEND_TPU, launches=0, max_abs_err=err, ms=group_ms,
         plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None))
+        library_ms=None, **blend_floor(stats, npx, group_info, clock_hz),
+        hits_differing=hits_off, build=group_info))
     log(f"phase blend: kernel {rows[-1]['ms']:.4f} ms, plain "
         f"{rows[-1]['plain_ms']:.1f} ms, bound {rows[-1]['bound_ms']:.4f} ms"
-        f" ({rows[-1]['bound_by']})")
-    del color_p, trans_p, color_k, trans_k
+        f" ({rows[-1]['bound_by']}), instruction floor "
+        + (f"{rows[-1]['instruction_floor_ms']:.4f} ms"
+           if rows[-1]["instruction_floor_ms"] else "not measured")
+        + f"; partition + blend {stage_ms:.4f} ms")
+    del color_p, trans_p, color_k, trans_k, hits_p, hits_k, order_p, seg_p
 
     # --- main path: counts to 0, calibrate + one frame, counts read ---
     main_tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)

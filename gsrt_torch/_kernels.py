@@ -137,12 +137,16 @@ EXPAND_EMIT = CudaKernel(
 EXPAND_GATHER = CudaKernel(
     "expand_pairs", "pair_expand", "gsrt_expand_gather",
     [P, I, I, P, I, P, P])
+PARTITION = CudaKernel(
+    "partition_group_stream", "splat_packed", "gsrt_partition_group",
+    [P, P, I, I, I, I, P, P, P, P])
 BLEND_GROUP = CudaKernel(
     "blend_packed_group", "splat_packed", "gsrt_blend_group",
-    [P, LL, P, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P])
+    [P, LL, P, P, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P])
 BLEND_TILE = CudaKernel(
     "blend_packed_tile", "splat_packed", "gsrt_blend_tile",
-    [P, LL, I, P, I, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P, P])
+    [P, LL, I, P, I, I, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P,
+     P])
 _SUBTILE_ARGS = [P, LL, P, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P]
 BLEND_SUBTILE = CudaKernel(
     "blend_subtiles", "splat_subtile", "gsrt_blend_subtile", _SUBTILE_ARGS)
@@ -165,7 +169,7 @@ TRI_ANY_HIT = CudaKernel(
     "closest_hit_packed_any", "tri_kernel", "gsrt_tri_traverse",
     _TRAVERSE_ARGS)
 
-KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_GATHER, BLEND_GROUP,
+KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_GATHER, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
            TRI_CLOSEST_HIT, TRI_ANY_HIT)
 

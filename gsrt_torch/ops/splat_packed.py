@@ -15,9 +15,10 @@ alpha_clamp) with e the exact exp(−g) or the reference's LUT, accepted when
 alpha > alpha_threshold and, unless skip_range_check, 0 ≤ g ≤ g_cutoff
 (then e(0) outside the range).
 
-* Group stream: the group's pair range is read in batches of
-  tile_w·tile_h columns starting at the group's first pair; before each
-  batch the tile stops if no pixel of it has trans > term_eps.
+* Group stream: `partition_group_stream` lists each tile's columns of its
+  group, in payload order (a stable sort by tile id, the id clamped into
+  the group); each tile walks its own list in batches of BATCH pairs and
+  stops before a batch when no pixel of it has trans > term_eps.
 * Tile stream: the JAX kernel's chunk gate. The group's pairs fall into
   chunks of `chunk` columns from the group's chunk-aligned start; a tile's
   pairs in chunk j are blended iff the tile is unsaturated at j's start
@@ -29,9 +30,18 @@ alpha > alpha_threshold and, unless skip_range_check, 0 ≤ g ≤ g_cutoff
   chunk count for padding columns); `hits` [H, W] counts each pixel's
   accepted pairs in the chunks its tile blends. The group stream also
   gives hits, counted over the batches it blends.
+
+Row cull (kernels only; it changes no output). A warp of the kernels is 32
+consecutive pixels of a tile; before it runs a pair it tests a lower
+bound of the pair's response over the warp's pixel rows (`row_cull`)
+against the response above which the accept rule takes the pair nowhere
+(`skip_bound`), and skips the pair when the bound exceeds it. The plain
+versions count the (warp, pair) steps the cull removes in `stats`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,6 +54,9 @@ from gsrt_torch.ops.tile_binning import (COMPACT_WIDTH, PAYLOAD_WIDTH,
                                          unpack_rgba8)
 
 _RH = 0.7071067811865476   # sqrt(1/2): folds the response's ½ into t1, t2
+BATCH = 32                 # pairs a staged batch: the group stream's stop
+PARTITION_SLICE = 4096     # columns a block of the partition kernels counts
+_LUT_END = 255.0 / 32.0    # the exp LUT's last segment edge
 
 
 def _check(binning: TileBinning, T: int, compact_only: bool) -> bool:
@@ -89,10 +102,11 @@ def decode_f32_pairs(cols: torch.Tensor) -> dict:
 
 
 def response(f: dict, px, py) -> torch.Tensor:
-    """g [P, n] of a tile's pixels × its decoded pairs; px, py in the
-    payload's frame (tile-relative for compact, the image for f32)."""
-    dx = px[:, None] - f["mx"][None, :]
-    dy = py[:, None] - f["my"][None, :]
+    """g [P, n] of a tile's pixels × its decoded pairs; px, py [P] in the
+    payload's frame (tile-relative for compact, the image for f32), or
+    [P, n] where each pair has pixels of its own."""
+    dx = (px[:, None] if px.dim() == 1 else px) - f["mx"][None, :]
+    dy = (py[:, None] if py.dim() == 1 else py) - f["my"][None, :]
     if "l11" in f:
         t1 = f["l11"][None, :] * dx + f["l21"][None, :] * dy
         t2 = f["l22"][None, :] * dy
@@ -116,6 +130,70 @@ def alphas(gq, op, *, g_cutoff, alpha_threshold, alpha_clamp,
             alpha_clamp)
         accept = in_range & (alpha > alpha_threshold)
     return torch.where(accept, alpha, torch.zeros_like(alpha)), accept
+
+
+def skip_bound(op, *, g_cutoff, alpha_threshold, skip_range_check,
+               use_exp_lut, **_) -> torch.Tensor:
+    """[n] float32: the response above which the accept rule takes the pair
+    at no pixel. alpha's rule: ln(op / alpha_threshold) + 2^-10, the margin
+    covering the kernels' expf and logf errors; under the exp LUT one
+    segment (1/32) more while that stays inside the table (the LUT is at
+    most expf at its segment's left edge), else none; with the range check
+    also g_cutoff."""
+    margin = torch.tensor(2.0 ** -10 - math.log(alpha_threshold)
+                          if alpha_threshold > 0 else float("nan"),
+                          dtype=torch.float32)
+    gs = torch.log(op) + margin.to(op.device)
+    if use_exp_lut:
+        gs = torch.where(gs < _LUT_END, gs + 1.0 / 32.0,
+                         torch.full_like(gs, float("inf")))
+    if not skip_range_check:
+        gs = torch.fmin(gs, torch.full_like(gs, g_cutoff))
+    return gs
+
+
+def conic_row_factor(qa, qb, qc) -> torch.Tensor:
+    """[n] float32 q with the f32 response ≥ fl(q · fl(dy²)) at every dx,
+    NaN where no bound is proven (`csrc/splat_packed.cu` derives it): the
+    computed response is within 4.01u(1 + ρ)/(1 − ρ) of its exact value,
+    ρ = |b|/√(ac) < 0.999, and at least ½(c − b²/a)dy²; in float64,
+    rounded down."""
+    a, b, c = (v.double() for v in (qa, qb, qc))
+    rho = b.abs() / torch.sqrt(a * c)
+    u = 2.0 ** -24
+    eta = 8 * u * (1 + rho) / (1 - rho) + 4 * u
+    q = 0.5 * (c - b * b / a) * (1 - eta)
+    q32 = q.float()
+    q32 = torch.where(q32.double() > q, torch.nextafter(
+        q32, torch.full_like(q32, -float("inf"))), q32)
+    ok = (a > 0) & (c > 0) & (rho < 0.999)
+    return torch.where(ok, q32, torch.full_like(q32, float("nan")))
+
+
+def warp_rows(sub_w: int, sub_h: int, device) -> tuple:
+    """First and last pixel row (float32, tile-relative) of each of a
+    tile's warps of 32 consecutive pixels."""
+    w = torch.arange(sub_w * sub_h // 32, device=device)
+    return ((32 * w) // sub_w).float(), ((32 * w + 31) // sub_w).float()
+
+
+def row_cull(f: dict, rows: tuple, gs: torch.Tensor, oy=0.0
+             ) -> torch.Tensor:
+    """[warps, n] bool: the (warp, pair) steps the kernels skip. lb is the
+    response's dy-term at the warp's row nearest the mean, rounded as the
+    response rounds it: fl(fl(l22·dy)²) (compact: g = fl(t1²) + fl(t2²)
+    ≥ fl(t2²), which grows with |dy|) or fl(q·fl(dy²)) (f32,
+    `conic_row_factor`); a step is skipped when lb > gs. oy shifts the rows
+    into the payload's frame: a number, or [n], one a pair."""
+    ra, rb = rows[0][:, None] + oy, rows[1][:, None] + oy
+    my = f["my"][None, :]
+    dy = torch.clamp(my, ra, rb) - my
+    if "l22" in f:
+        t2 = f["l22"][None, :] * dy
+        lb = t2 * t2
+    else:
+        lb = conic_row_factor(f["qa"], f["qb"], f["qc"])[None, :] * (dy * dy)
+    return lb > gs[None, :]
 
 
 def _blend_tile(f: dict, batch: torch.Tensor, px, py, *, term_eps, **kw):
@@ -168,6 +246,55 @@ def _tile_pixels(sub_w, sub_h, device):
             (pidx // sub_w).to(torch.float32))
 
 
+def partition_group_stream_plain(tile_row: torch.Tensor,
+                                 tile_start: torch.Tensor, T: int, bs: int):
+    """Plain version of `partition_group_stream`: one stable sort of the
+    clamped tile ids (groups follow each other, so it sorts each group)."""
+    ts = tile_start.long()
+    n = int(ts[T])
+    dev = tile_row.device
+    p = torch.arange(n, device=dev)
+    g = torch.searchsorted(ts[0:T:bs].contiguous(), p, right=True) - 1
+    g0 = g * bs
+    key = torch.minimum(torch.maximum(tile_row[:n].long(), g0),
+                        torch.clamp_max(g0 + bs, T) - 1)
+    skey, idx = torch.sort(key, stable=True)
+    order = torch.full((tile_row.shape[0],), -1, dtype=torch.int32,
+                       device=dev)
+    order[:n] = idx.to(torch.int32)
+    seg = torch.searchsorted(skey, torch.arange(T + 1, device=dev))
+    return order, seg.to(torch.int32)
+
+
+def partition_group_stream(binning: TileBinning, T: int, bs: int):
+    """Each tile's columns of the group stream: (order [L] int32, seg
+    [T + 1] int32), tile t's columns at order[seg[t]:seg[t + 1]] in
+    payload order. Group g (tiles [g0, g1), g0 = g·bs) owns the columns
+    [tile_start[g0], tile_start[g1]); a column's key is its tile id clamped
+    into [g0, g1), so a stream clamped at max_pairs still gives every
+    column a segment. seg[g0] = tile_start[g0] and seg[T] = tile_start[T]
+    (equal to tile_start throughout on an unclamped stream); order past
+    seg[T] is unspecified. On CUDA tensors it launches the partition
+    kernels of `csrc/splat_packed.cu` (one launch count), else runs the
+    plain version."""
+    pay, ts = binning.payload, binning.tile_start
+    if not 0 < bs <= 512:
+        raise ValueError("bs must be in [1, 512]")
+    if not pay.is_cuda:
+        return partition_group_stream_plain(pay[4], ts, T, bs)
+    L = pay.shape[1]
+    slices = -(-L // PARTITION_SLICE) + -(-T // bs)
+    counts = torch.empty((slices, bs), dtype=torch.int32, device=pay.device)
+    seg = torch.empty(T + 1, dtype=torch.int32, device=pay.device)
+    order = torch.empty(L, dtype=torch.int32, device=pay.device)
+    with torch.cuda.device(pay.device):
+        _kernels.PARTITION(pay[4].data_ptr(), ts.data_ptr(), T, bs,
+                           PARTITION_SLICE, slices, counts.data_ptr(),
+                           seg.data_ptr(), order.data_ptr(),
+                           _kernels.stream_ptr(pay))
+    return order, seg
+
+
 def blend_packed_plain(binning: TileBinning, *, width: int, height: int,
                        sub_w: int, sub_h: int, bs: int,
                        g_cutoff: float = 5.6,
@@ -179,42 +306,39 @@ def blend_packed_plain(binning: TileBinning, *, width: int, height: int,
     """Plain version of the group-stream blend: (color [H, W, 3],
     trans [H, W]) float32, then hits [H, W] int32 with track_hits. A
     `stats` dict receives "pairs_blended", the pairs all tiles blend before
-    their early stop (the data-dependent work a roofline bound counts)."""
+    their early stop (the data-dependent work a roofline bound counts),
+    "warp_steps", those pairs times the tile's warps, and "culled_steps",
+    the (warp, pair) steps of them the row cull skips."""
     ntx, nty = tile_extent(width, height, sub_w, sub_h)
     T = ntx * nty
-    dev = binning.payload.device
-    npx = sub_w * sub_h
+    pay = binning.payload
+    dev = pay.device
     px, py = _tile_pixels(sub_w, sub_h, dev)
     frame = _Frame(ntx, nty, sub_w, sub_h, dev)
-    ts = binning.tile_start.tolist()
-    pay = binning.payload
     kw = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
               alpha_clamp=alpha_clamp, term_eps=term_eps,
               skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
-    blended = 0
-    for g0 in range(0, T, bs):
-        start, end = ts[g0], ts[min(g0 + bs, T)]
-        if end <= start:
+    order, seg = partition_group_stream_plain(pay[4], binning.tile_start,
+                                              T, bs)
+    segl = seg.tolist()
+    f_all = decode_pairs(pay[:, order[:segl[T]].long()])
+    live = torch.zeros(segl[T], dtype=torch.bool, device=dev)
+    for tile in range(T):
+        lo, hi = segl[tile], segl[tile + 1]
+        if hi <= lo:
             continue
-        tiles = pay[4, start:end]
-        # stable sort by tile id: per-tile lists in payload order
-        tsort, order = torch.sort(tiles, stable=True)
-        f_all = decode_pairs(pay[:, start:end][:, order])
-        batch_all = order // npx
-        bounds = torch.searchsorted(
-            tsort, torch.arange(g0, min(g0 + bs, T) + 1, device=dev,
-                                dtype=tsort.dtype)).tolist()
-        for j, tile in enumerate(range(g0, min(g0 + bs, T))):
-            lo, hi = bounds[j], bounds[j + 1]
-            if hi <= lo:
-                continue
-            f = {k: v[lo:hi] for k, v in f_all.items()}
-            c, t, h, n_live = _blend_tile(f, batch_all[lo:hi].contiguous(),
-                                          px, py, **kw)
-            blended += n_live
-            frame.put(tile, c, t, h)
+        f = {k: v[lo:hi] for k, v in f_all.items()}
+        batch = torch.arange(hi - lo, device=dev) // BATCH
+        c, t, h, n_live = _blend_tile(f, batch, px, py, **kw)
+        live[lo:lo + n_live] = True
+        frame.put(tile, c, t, h)
     if stats is not None:
-        stats["pairs_blended"] = blended
+        rows = warp_rows(sub_w, sub_h, dev)
+        cull = row_cull(f_all, rows, skip_bound(f_all["op"], **kw))
+        blended = int(live.sum())
+        stats.update(pairs_blended=blended,
+                     warp_steps=blended * rows[0].numel(),
+                     culled_steps=int((cull & live[None, :]).sum()))
     color, trans, hits = frame.crop(width, height)
     return (color, trans, hits) if track_hits else (color, trans)
 
@@ -231,7 +355,8 @@ def blend_packed_tile_plain(binning: TileBinning, *, width: int,
     """Plain version of the tile-stream blend, either payload: (color
     [H, W, 3], trans [H, W], consumed [G, bs] int32, hits [H, W] int32).
     A `stats` dict receives "pairs_blended", the pairs in the chunks the
-    tiles blend."""
+    tiles blend, "warp_steps", those pairs times the tile's warps, and
+    "culled_steps", the (warp, pair) steps of them the row cull skips."""
     ntx, nty = tile_extent(width, height, sub_w, sub_h)
     T = ntx * nty
     G = -(-T // bs)
@@ -246,7 +371,8 @@ def blend_packed_tile_plain(binning: TileBinning, *, width: int,
     kw = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
               alpha_clamp=alpha_clamp, skip_range_check=skip_range_check,
               use_exp_lut=use_exp_lut)
-    blended = 0
+    rows = warp_rows(sub_w, sub_h, dev)
+    blended = culled = 0
     for g0 in range(0, G * bs, bs):
         # the group's chunks start at its first pair, rounded down
         end_g = ts[min(g0 + bs, T)]
@@ -262,6 +388,9 @@ def blend_packed_tile_plain(binning: TileBinning, *, width: int,
             px, py = (lx, ly) if compact else \
                 (lx + tx * sub_w, ly + ty * sub_h)
             alpha, accept = alphas(response(f, px, py), f["op"], **kw)
+            cull = row_cull(f, rows, skip_bound(f["op"], **kw),
+                            0.0 if compact else float(ty * sub_h)) \
+                if stats is not None else None
             trans = torch.ones_like(lx)
             color = torch.zeros((lx.shape[0], 3), device=dev)
             hits = torch.zeros(lx.shape[0], dtype=torch.int32, device=dev)
@@ -280,12 +409,16 @@ def blend_packed_tile_plain(binning: TileBinning, *, width: int,
                     trans = trans * incl[:, -1]
                     hits += accept[:, a:b].sum(1, dtype=torch.int32)
                     blended += b - a
+                    if cull is not None:
+                        culled += int(cull[:, a:b].sum())
                 if consumed[tile] == total_chunks and \
                         not bool((trans >= term_eps).any()):
                     consumed[tile] = j + 1
             frame.put(tile, color, trans, hits)
     if stats is not None:
-        stats["pairs_blended"] = blended
+        stats.update(pairs_blended=blended,
+                     warp_steps=blended * rows[0].numel(),
+                     culled_steps=culled)
     color, trans, hits = frame.crop(width, height)
     return color, trans, consumed.reshape(G, bs).to(dev), hits
 
@@ -303,7 +436,8 @@ def blend_packed(binning: TileBinning, *, width: int, height: int,
     which each tile was saturated, the group's chunk count if never), then
     hits [H, W] int32 with track_hits. bs is the group size in tiles; on
     the group stream it is k full tile rows and `chunk` is not read (the
-    port's group kernel stops per batch of tile_w·tile_h columns). The
+    port's group blend stops per batch of BATCH of a tile's own pairs,
+    after `partition_group_stream`). The
     payload is the compact [5, L] or, on the tile stream, the f32 [8, L]
     one. The JAX kernel's scan_impl and math_dtype pick TPU arithmetic and
     have no counterpart: both streams blend in f32, pair by pair."""
@@ -345,17 +479,19 @@ def blend_packed(binning: TileBinning, *, width: int, height: int,
                 alpha_clamp, term_eps, int(use_exp_lut))
         with torch.cuda.device(dev):
             if group_stream:
+                order, seg = partition_group_stream(binning, T, bs)
                 _kernels.BLEND_GROUP(
-                    pay.data_ptr(), pay.shape[1], ts.data_ptr(), T, ntx, bs,
-                    width, height, sub_w, sub_h, *args, color.data_ptr(),
-                    trans.data_ptr(), hits_ptr, _kernels.stream_ptr(pay))
+                    pay.data_ptr(), pay.shape[1], order.data_ptr(),
+                    seg.data_ptr(), T, ntx, BATCH, width, height, sub_w,
+                    sub_h, *args, color.data_ptr(), trans.data_ptr(),
+                    hits_ptr, _kernels.stream_ptr(pay))
                 return (color, trans, hits) if track_hits else (color, trans)
             G = -(-T // bs)
             consumed = torch.empty((G, bs), dtype=torch.int32, device=dev) \
                 if track_consumed else None
             _kernels.BLEND_TILE(
                 pay.data_ptr(), pay.shape[1], int(compact), ts.data_ptr(), T,
-                ntx, bs, chunk, width, height, sub_w, sub_h, *args,
+                ntx, bs, chunk, BATCH, width, height, sub_w, sub_h, *args,
                 color.data_ptr(), trans.data_ptr(), hits_ptr,
                 consumed.data_ptr() if track_consumed else None,
                 _kernels.stream_ptr(pay))

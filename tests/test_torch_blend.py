@@ -5,8 +5,15 @@ handed to the port.
 
 Tolerance: atol 2e-3 on color and trans, the JAX suite's own bound
 between blend formulations (tests/test_group_stream.py:52-55); the JAX
-kernel runs math_dtype="f32". The CUDA kernel is held against the plain
-version in tests/test_torch_gpu.py, which needs a card.
+kernel runs math_dtype="f32". The port stops a tile per batch of BATCH of
+its own pairs where the JAX kernel stops per chunk of the group's columns:
+either drops only pairs behind trans < term_eps. The CUDA kernels are held
+against the plain versions in tests/test_torch_gpu.py, which needs a card.
+
+Also here, port only: the plain partition of the group stream against a
+per-group stable sort of the tile ids (exact, also on a stream clamped at
+max_pairs), and the kernels' row cull against the plain accept rule: no
+(warp, pair) step it skips has a pixel that takes the pair.
 """
 
 from __future__ import annotations
@@ -22,8 +29,12 @@ from gsrt.ops.splat_packed import blend_packed as j_blend
 from gsrt.ops.tile_binning import build_tile_binning, group_rows_k
 from gsrt.scene.catalog import random_cloud
 
+from gsrt_torch import RenderConfig
+from gsrt_torch.models import gaussian_rt as t_rt
 from gsrt_torch.ops import splat_packed as t_sp
+from gsrt_torch.ops import tile_binning as t_tb
 from gsrt_torch.ops.tile_binning import TileBinning
+from gsrt_torch.scene import random_cloud as t_random_cloud
 
 W = H = 256
 TW, TH = 32, 16
@@ -153,3 +164,140 @@ def test_blend_rejects_unported_modes(sparse):
                           **kw)
     with pytest.raises(ValueError):
         t_sp.blend_packed(tb, **{**kw, "bs": NTX + 1})
+
+
+def _clamped(tb, keep=0.7):
+    """The stream binning hands over when max_pairs cuts it: the columns
+    past the cap are missing and tile_start is clamped there."""
+    cap = int(int(tb.total_pairs) * keep)
+    return tb._replace(payload=tb.payload[:, :cap].contiguous(),
+                       tile_start=torch.clamp_max(tb.tile_start, cap))
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("scene", ["sparse", "dense"])
+def test_partition_plain_is_group_stable_sort(scene, clamp, request):
+    tb = request.getfixturevalue(scene)[1]
+    if clamp:
+        tb = _clamped(tb)
+    T = NTX * (H // TH)
+    order, seg = t_sp.partition_group_stream(tb, T, BS)
+    ts = tb.tile_start.tolist()
+    want_seg = []
+    for g0 in range(0, T, BS):
+        g1 = min(g0 + BS, T)
+        a, e = ts[g0], ts[g1]
+        tiles = tb.payload[4, a:e]
+        ref = torch.sort(tiles, stable=True)
+        assert torch.equal(order[a:e], (ref.indices + a).to(torch.int32))
+        want_seg += (a + torch.searchsorted(
+            ref.values, torch.arange(g0, g1, dtype=torch.int32))).tolist()
+    assert seg.tolist() == want_seg + [ts[T]]
+    if not clamp:
+        assert torch.equal(seg, tb.tile_start)
+    else:
+        assert not torch.equal(seg, tb.tile_start)
+
+
+def test_group_stop_per_batch_of_own_pairs(dense):
+    # each tile stops before the first batch of BATCH of its own pairs at
+    # whose start no pixel has trans > term_eps
+    _, tb = dense
+    eps = 1e-4
+    kw = dict(width=W, height=H, sub_w=TW, sub_h=TH, bs=BS, **KW)
+    stats = {}
+    t_sp.blend_packed_plain(tb, term_eps=eps, stats=stats, **kw)
+    T = NTX * (H // TH)
+    order, seg = t_sp.partition_group_stream_plain(tb.payload[4],
+                                                   tb.tile_start, T, BS)
+    px, py = t_sp._tile_pixels(TW, TH, "cpu")
+    # compact means are tile-relative: every tile shares the pixel grid
+    f = t_sp.decode_pairs(tb.payload[:, order[:int(seg[T])].long()])
+    alpha_all, _ = t_sp.alphas(t_sp.response(f, px, py), f["op"],
+                               use_exp_lut=False, **KW)
+    want = 0
+    for t in range(T):
+        lo, hi = int(seg[t]), int(seg[t + 1])
+        alpha = alpha_all[:, lo:hi]
+        # trans at each batch's start, from its first pair
+        starts = torch.arange(0, hi - lo, t_sp.BATCH)
+        trans = torch.cat([torch.ones_like(alpha[:, :1]),
+                           torch.cumprod(1.0 - alpha, dim=1)], 1)[:, starts]
+        dead = ~(trans > eps).any(dim=0)
+        want += int(starts[dead][0]) if bool(dead.any()) else hi - lo
+    assert stats["pairs_blended"] == want < int(tb.total_pairs)
+    assert 0 < stats["culled_steps"] < stats["warp_steps"]
+
+
+_CULL_BINNINGS: dict = {}
+
+
+def _port_binning(scene, tile, compact):
+    """The port's tile-sorted stream of the sparse or dense scene, built on
+    the CPU."""
+    key = (scene, tile, compact)
+    if key not in _CULL_BINNINGS:
+        n, seed, scales = {"sparse": (3000, 0, (0.02, 0.25)),
+                           "dense": (1500, 4, (0.15, 0.45))}[scene]
+        cfg = RenderConfig(width=W, height=H, tile_w=tile[0],
+                           tile_h=tile[1])
+        cloud, cam = t_random_cloud(n, seed=seed, width=W, height=H,
+                                    scale_range=scales, device="cpu")
+        d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+        rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2],
+                                         "standard", 5.6,
+                                         opacity=cloud.opacity)
+        alive = t_rt.alive_mask(d, cloud.opacity, inf, cfg)
+        b = t_tb.build_tile_binning(
+            d, m2[:, 0], m2[:, 1], q[:, 0], q[:, 1], q[:, 2], cloud.opacity,
+            col[:, 0], col[:, 1], col[:, 2], rx, ry, alive, width=W,
+            height=H, tile_w=tile[0], tile_h=tile[1], max_pairs=1 << 17,
+            compact=compact, stream="tile", expand_impl="xla")
+        assert not bool(b.overflow)
+        _CULL_BINNINGS[key] = b
+    return _CULL_BINNINGS[key]
+
+
+RULES = {"skip_range": dict(skip_range_check=True, use_exp_lut=False),
+         "range": dict(skip_range_check=False, use_exp_lut=False),
+         "range_lut": dict(skip_range_check=False, use_exp_lut=True),
+         "skip_range_lut": dict(skip_range_check=True, use_exp_lut=True)}
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "f32"])
+@pytest.mark.parametrize("tile", [(32, 16), (16, 16)], ids=["32x16",
+                                                            "16x16"])
+@pytest.mark.parametrize("scene", ["sparse", "dense"])
+def test_row_cull_is_exact(scene, tile, compact):
+    """Under every accept rule: no (warp rows, pair) the cull skips has a
+    pixel that takes the pair."""
+    b = _port_binning(scene, tile, compact)
+    tw, th = tile
+    ntx = t_tb.tile_extent(W, H, tw, th)[0]
+    kws = {rule: dict(g_cutoff=5.6, alpha_threshold=1.0 / 255.0,
+                      alpha_clamp=0.99, **r) for rule, r in RULES.items()}
+    decode = t_sp.decode_pairs if compact else t_sp.decode_f32_pairs
+    lx, ly = t_sp._tile_pixels(tw, th, "cpu")
+    rows = t_sp.warp_rows(tw, th, "cpu")
+    n = int(b.tile_start[-1])
+    tiles = torch.repeat_interleave(torch.arange(ntx * (H // th)),
+                                    torch.diff(b.tile_start.long()))
+    culled = dict.fromkeys(RULES, 0)
+    for lo in range(0, n, 4096):        # every pair, with its tile's pixels
+        hi = min(lo + 4096, n)
+        f = decode(b.payload[:, lo:hi])
+        ty, tx = tiles[lo:hi] // ntx, tiles[lo:hi] % ntx
+        px, py, oy = (lx, ly, 0.0) if compact else (
+            lx[:, None] + (tx * tw).float(), ly[:, None] + (ty * th).float(),
+            (ty * th).float())
+        g = t_sp.response(f, px, py)
+        for rule, kw in kws.items():
+            _, accept = t_sp.alphas(g, f["op"], **kw)
+            cull = t_sp.row_cull(f, rows, t_sp.skip_bound(f["op"], **kw), oy)
+            reached = accept.reshape(-1, 32, accept.shape[1]).any(dim=1)
+            bad = (cull & reached).nonzero()
+            assert bad.numel() == 0, (f"{rule}: the cull skips pairs a "
+                                      f"pixel takes: (warp, column) {bad[:4]}")
+            culled[rule] += int(cull.sum())
+    for rule, c in culled.items():      # it engages, not everywhere
+        assert 0 < c < n * rows[0].numel(), rule

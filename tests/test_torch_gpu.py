@@ -4,13 +4,14 @@ imports neither jax nor gsrt, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: the expand kernels are compared bit for bit in every mode; the
-packed blend kernels at atol 2e-3 on color and trans, and on the tile stream
-with `consumed` equal and `hits` equal on the f32 payload (on the compact
-payload at most 0.1% of pixels off by one: the exp differs in its last bits
-between the kernel and PyTorch, and a few products land on the other side of
-alpha_threshold); the subtile blend kernel at 1e-4 (f32 summation order and the
-exp implementation differ from the plain version's); the backward kernel per
+Tolerances: the expand kernels and the group stream's partition are
+compared bit for bit in every mode; the packed blend kernels at atol 2e-3 on
+color and trans, on the tile stream with `consumed` equal, and `hits` equal
+on the f32 payload (on the compact payload, both streams, at most 0.1% of
+pixels off by one: the exp differs in its last bits between the kernel and
+PyTorch, and a few products land on the other side of alpha_threshold); the
+subtile blend kernel at 1e-4 (f32 summation order and the exp implementation
+differ from the plain version's); the backward kernel per
 gradient row, divided by the row's largest magnitude, at 1e-3 (the same, plus
 the block reduction's order); gradients of the autograd function on the card
 against the plain versions on the CPU, normalised, at 1e-3; the triangle
@@ -109,29 +110,91 @@ def test_expand_emit_kernel_bitwise(cuda):
     assert _kernels.EXPAND_EMIT.launches == before + 1
 
 
-def test_blend_kernel_matches_plain(cuda):
-    cfg = RenderConfig(width=320, height=256)
-    cloud, cam = random_cloud(20_000, seed=1, width=320, height=256,
+def _group_binning(cuda, tile=(32, 16), W=320, H=256):
+    """The group-contiguous compact stream of a 20K-splat view."""
+    cfg = RenderConfig(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
+    cloud, cam = random_cloud(20_000, seed=1, width=W, height=H,
                               device=cuda)
     tr = t_rt.GaussianRayTracer(cfg, "tiled", device=cuda)
     tr.calibrate(cloud, cam)
-    from gsrt_torch.ops import tile_binning as t_tb
     d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
     rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
                                      5.6, opacity=cloud.opacity)
     alive = inf & (cloud.opacity > 1 / 255) & (d > 1e-3) & (d < 1e4)
     b = t_tb.build_tile_binning(
         d, m2[:, 0], m2[:, 1], q[:, 0], q[:, 1], q[:, 2], cloud.opacity,
-        col[:, 0], col[:, 1], col[:, 2], rx, ry, alive, width=320,
-        height=256, max_pairs=tr.max_pairs, max_rows=tr.max_rows)
-    kw = dict(width=320, height=256, sub_w=32, sub_h=16,
-              bs=t_tb.group_rows_k(10) * 10, skip_range_check=True)
-    before = _kernels.BLEND_GROUP.launches
-    ck, tk = t_sp.blend_packed(b, **kw)
-    cp, tp = t_sp.blend_packed_plain(b, **kw)
-    assert _kernels.BLEND_GROUP.launches == before + 1
+        col[:, 0], col[:, 1], col[:, 2], rx, ry, alive, width=W, height=H,
+        tile_w=tile[0], tile_h=tile[1], max_pairs=tr.max_pairs,
+        max_rows=tr.max_rows)
+    assert not bool(b.overflow)
+    ntx = t_tb.tile_extent(W, H, *tile)[0]
+    kw = dict(width=W, height=H, sub_w=tile[0], sub_h=tile[1],
+              bs=t_tb.group_rows_k(ntx) * ntx)
+    return b, kw
+
+
+def _clamped(b, keep=0.7):
+    """The stream the binning hands over when max_pairs cuts it."""
+    cap = int(int(b.total_pairs) * keep)
+    return b._replace(payload=b.payload[:, :cap].contiguous(),
+                      tile_start=torch.clamp_max(b.tile_start, cap))
+
+
+def _hits_close(hk, hp):
+    """The compact payload's hit rule: at most 1 apart, on at most 0.1% of
+    pixels."""
+    diff = (hk - hp).abs()
+    return diff.max().item() <= 1 and (diff != 0).float().mean().item() \
+        <= 1e-3
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_partition_kernel_bitwise(cuda, clamp):
+    b, kw = _group_binning(cuda)
+    if clamp:
+        b = _clamped(b)
+    T = t_tb.tile_extent(kw["width"], kw["height"], kw["sub_w"],
+                         kw["sub_h"])
+    T = T[0] * T[1]
+    before = _kernels.PARTITION.launches
+    ok, sk = t_sp.partition_group_stream(b, T, kw["bs"])
+    op, sp = t_sp.partition_group_stream_plain(b.payload[4], b.tile_start,
+                                               T, kw["bs"])
+    assert _kernels.PARTITION.launches == before + 1
+    n = int(sp[T])
+    assert torch.equal(sk, sp)
+    assert torch.equal(ok[:n], op[:n])
+    assert torch.equal(sk, b.tile_start) != clamp
+
+
+def test_blend_kernel_matches_plain(cuda):
+    b, kw = _group_binning(cuda)
+    kw["skip_range_check"] = True
+    before = _kernels.BLEND_GROUP.launches, _kernels.PARTITION.launches
+    ck, tk, hk = t_sp.blend_packed(b, track_hits=True, **kw)
+    cp, tp, hp = t_sp.blend_packed_plain(b, track_hits=True, **kw)
+    assert (_kernels.BLEND_GROUP.launches, _kernels.PARTITION.launches) \
+        == (before[0] + 1, before[1] + 1)
     assert (ck - cp).abs().max().item() <= 2e-3
     assert (tk - tp).abs().max().item() <= 2e-3
+    assert _hits_close(hk, hp)
+
+
+@pytest.mark.parametrize("mode", ["lut", "range", "tiles16", "overflow"])
+def test_group_blend_kernel_modes(cuda, mode):
+    b, kw = _group_binning(cuda, (16, 16) if mode == "tiles16" else
+                           (32, 16))
+    kw["skip_range_check"] = mode not in ("lut", "range")
+    kw["use_exp_lut"] = mode == "lut"
+    if mode == "overflow":
+        b = _clamped(b)
+    ck, tk, hk = t_sp.blend_packed(b, track_hits=True, **kw)
+    cp, tp, hp = t_sp.blend_packed_plain(b, track_hits=True, **kw)
+    assert (ck - cp).abs().max().item() <= 2e-3
+    assert (tk - tp).abs().max().item() <= 2e-3
+    assert _hits_close(hk, hp)
+    c2, t2 = t_sp.blend_packed(b, **kw)        # hits change no pixel
+    assert torch.equal(c2, ck) and torch.equal(t2, tk)
 
 
 def test_render_tiled_cuda_matches_cpu(cuda):
