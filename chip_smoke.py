@@ -33,7 +33,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (plain PyTorch, the port's oracle), atol 2e-2;
 8. tiles128x8 — a 1080p frame of the render cell at 128x8 tiles, counts
              read; blend_tiles against its plain version on its binning,
-             atol 1e-4;
+             atol 1e-4; the share of (warp, pair) steps its warp cull
+             removes, the build of the instance it runs (registers,
+             spills, shared memory, resident blocks), the SASS
+             instructions of its per-(pixel, pair) loop where cuobjdump
+             exists, and its instruction floor;
 9. serve-blend — the serving orbit's first frame: the packed tile-stream
              kernel against its plain version on the compact payload with
              track_consumed, then on the f32 payload, with track_hits, and
@@ -58,8 +62,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
              expand_pairs and the copy-mode expand at the f32 table's rows
              bit for bit, blend_subtiles atol 1e-4 over every tile,
              blend_backward per gradient row, divided by the row's largest
-             magnitude, atol 1e-3 over every tile; both again with the exp
-             LUT;
+             magnitude, atol 1e-3 over every tile, and bit for bit against
+             a second run of itself; both again with the exp LUT; for each
+             of the four, as for blend_tiles: the warp cull's share, the
+             build, the SASS instructions of one (pixel, pair) step and the
+             instruction floor;
 13. train  — launch counts to 0, then 1 warm-up and 10 timed
              train_step_tiled steps and one more with
              expand_impl="pallas"; every kernel of the path must have
@@ -275,18 +282,21 @@ class Replaced:
         setattr(self.module, self.name, self.orig)
 
 
-def blend_floor(stats: dict, npx: int, info: dict, clock_hz) -> dict:
-    """The packed blend's instruction floor: the (pixel, pair) steps the
-    kernel runs after the row cull (the plain version's counts) times the
-    SASS instructions of one step, over 132 SMs x 128 lanes at the top SM
-    clock; and the cull's share."""
-    lane_steps = 32 * (stats["warp_steps"] - stats["culled_steps"])
+def blend_floor(stats: dict, info: dict, clock_hz,
+                pixels_per_lane: int = 1) -> dict:
+    """A blend's instruction floor: the (pixel, pair) steps the kernel runs
+    after its warp cull (the plain version's counts: warps of 32 lanes,
+    `pixels_per_lane` pixels a lane) times the SASS instructions of one
+    step, over 132 SMs x 128 lanes at the top SM clock; and the cull's
+    share."""
+    steps = 32 * pixels_per_lane * (stats["warp_steps"]
+                                    - stats["culled_steps"])
     sass = info["sass"]
-    floor = (lane_steps * sass["per_test"] / (SMS * LANES * clock_hz) * 1e3
+    floor = (steps * sass["per_test"] / (SMS * LANES * clock_hz) * 1e3
              if sass and clock_hz else None)
     return dict(instruction_floor_ms=floor,
                 culled_share=stats["culled_steps"] / stats["warp_steps"],
-                pixel_pair_steps=lane_steps)
+                pixel_pair_steps=steps)
 
 
 def phase_device():
@@ -407,6 +417,33 @@ def normalised_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def train_cell(device: str = DEVICE):
+    """The training workload: (cfg, cloud, camera, params, target, pairs
+    needed, max_pairs, the generator of the start's noise)."""
+    import torch
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.models import tiled_diff, trainer
+    from gsrt_torch.scene import random_cloud
+    cfg = RenderConfig(width=T_WIDTH, height=T_HEIGHT,
+                       conic_mode="standard")
+    cloud, camera = random_cloud(T_SPLATS, seed=SEED, width=T_WIDTH,
+                                 height=T_HEIGHT, device=device)
+    params = trainer.init_params(cloud)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        params.means += 0.02 * torch.randn(params.means.shape, generator=gen,
+                                           device=device)
+    # the buffer holds the target's view and the start's, with 10% slack
+    need = max(grt.count_pairs_numpy(c, camera, cfg)
+               for c in (cloud, params.to_cloud()))
+    max_pairs = grt.pair_bucket(int(need * 1.1))
+    with torch.no_grad():
+        target, _ = tiled_diff.render_tiled_diff(cloud, camera, cfg,
+                                                 max_pairs)
+    return cfg, cloud, camera, params, target, need, max_pairs, gen
+
+
 def train_phases(torch):
     """Phases 8-11. Returns (kernel rows, training figures)."""
     from gsrt_torch import RenderConfig, _kernels
@@ -418,21 +455,7 @@ def train_phases(torch):
     from gsrt_torch.scene import random_cloud
 
     W, H = T_WIDTH, T_HEIGHT
-    cfg = RenderConfig(width=W, height=H, conic_mode="standard")
-    cloud, camera = random_cloud(T_SPLATS, seed=SEED, width=W, height=H,
-                                 device=DEVICE)
-    params = trainer.init_params(cloud)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    with torch.no_grad():
-        params.means += 0.02 * torch.randn(params.means.shape, generator=gen,
-                                           device=DEVICE)
-    # the buffer holds the target's view and the start's, with 10% slack
-    need = max(grt.count_pairs_numpy(c, camera, cfg)
-               for c in (cloud, params.to_cloud()))
-    max_pairs = grt.pair_bucket(int(need * 1.1))
-    with torch.no_grad():
-        target, _ = tiled_diff.render_tiled_diff(cloud, camera, cfg,
-                                                 max_pairs)
+    cfg, cloud, camera, params, target, need, max_pairs, gen = train_cell()
     log(f"phase train-capture: {T_SPLATS} splats, {W}x{H}, SH degree "
         f"{cloud.sh_degree}, tiles {cfg.tile_w}x{cfg.tile_h}, {need} pairs "
         f"needed, max_pairs {max_pairs}")
@@ -500,33 +523,46 @@ def train_phases(torch):
                          f"{err}")
     pair_bytes = 4 * (7 * total + tile_start.numel())
 
-    def blend_row(name, source, tpu, fn, plain_ms, err, accept_flops,
-                  other_bytes, work=None):
-        n_blend, n_acc = work or (blended, accepted)
-        t_ops = (TEST_FLOPS * n_blend * npx
-                 + accept_flops * n_acc) / F32_FLOPS
+    clock_hz = max_sm_clock_hz()
+
+    def blend_row(name, kind, kw, fn, plain_ms, err, accept_flops,
+                  other_bytes, work):
+        source, tpu = {"subtile": (SUBTILE_SRC, SUBTILE_TPU),
+                       "grad": (GRAD_SRC, GRAD_TPU)}[kind]
+        t_ops = (TEST_FLOPS * work["pairs_blended"] * npx
+                 + accept_flops * work["accepted"]) / F32_FLOPS
         t_bytes = (pair_bytes + other_bytes) / HBM_BYTES_PER_S
+        info = f32_kernel_info(kind, kw, cfg.tile_w, cfg.tile_h)
         row = dict(name=name, route="cuda", source=source, replaces=tpu,
                    launches=0, max_abs_err=err, ms=time_cuda(fn, 10),
                    plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=None)
+                   library_ms=None,
+                   **blend_floor(work, info, clock_hz,
+                                 info["pixels_per_thread"]),
+                   build=info)
+        floor = row["instruction_floor_ms"]
+        log(f"phase {name}: warp cull removes {work['culled_steps']} of "
+            f"{work['warp_steps']} (warp, pair) steps "
+            f"({row['culled_share']:.4f}); build: {describe_build(info)}")
         log(f"phase {name}: kernel {row['ms']:.4f} ms, plain "
             f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+            f"({row['bound_by']}), instruction floor "
+            + (f"{floor:.4f} ms" if floor else "not measured"))
         return row
 
     rows.append(blend_row(
-        "blend_subtiles", SUBTILE_SRC, SUBTILE_TPU,
+        "blend_subtiles", "subtile", fwd_kw,
         lambda: splat_subtile.blend_subtiles(binning, **fwd_kw),
-        plain_s * 1e3, err, FWD_ACCEPT_FLOPS, 16 * W * H))
+        plain_s * 1e3, err, FWD_ACCEPT_FLOPS, 16 * W * H, stats))
     del color_p, trans_p, color_k, trans_k
 
     # --- backward: on the captured payload and pixel state, every tile ---
     plain_kw = {k: v for k, v in bwd_kw.items() if k != "use_exp_lut"}
+    bwd_stats = {}
     t0 = time.perf_counter()
     grad_p = splat_grad.blend_backward_plain(payload, tile_start, pixstate,
-                                             **plain_kw)
+                                             stats=bwd_stats, **plain_kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     grad_k = splat_grad.blend_backward(payload, tile_start, pixstate,
@@ -543,11 +579,11 @@ def train_phases(torch):
             payload, tile_start, pixstate, **bwd_kw)):
         raise SystemExit("phase backward: two runs of the kernel differ")
     rows.append(blend_row(
-        "blend_backward", GRAD_SRC, GRAD_TPU,
+        "blend_backward", "grad", bwd_kw,
         lambda: splat_grad.blend_backward(payload, tile_start, pixstate,
                                           **bwd_kw),
         plain_s * 1e3, max(errs), BWD_ACCEPT_FLOPS,
-        4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total)))
+        4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total), bwd_stats))
     del grad_p, grad_k
 
     # --- lut-train: both kernels with the exp LUT, same inputs ---
@@ -562,19 +598,21 @@ def train_phases(torch):
     color_k, trans_k = splat_subtile.blend_subtiles(binning, **lut_fwd_kw)
     torch.cuda.synchronize()
     err = max_abs_err(color_k - color_p, trans_k - trans_p)
-    lut_work = (lut_stats["pairs_blended"], lut_stats["accepted"])
     log(f"phase lut-train: blend_subtiles with the LUT, all {T} tiles, max "
-        f"|kernel - plain| {err:.3e} (atol 1e-4), {lut_work[0]} pairs "
-        f"blended, {lut_work[1]} accepted")
+        f"|kernel - plain| {err:.3e} (atol 1e-4), "
+        f"{lut_stats['pairs_blended']} pairs blended, "
+        f"{lut_stats['accepted']} accepted")
     if not err <= 1e-4:
         raise SystemExit(f"phase lut-train: the LUT forward differs from "
                          f"plain by {err}")
     rows.append(blend_row(
-        "blend_subtiles[lut]", SUBTILE_SRC, SUBTILE_TPU,
+        "blend_subtiles[lut]", "subtile", lut_fwd_kw,
         lambda: splat_subtile.blend_subtiles(binning, **lut_fwd_kw),
-        plain_s * 1e3, err, FWD_ACCEPT_FLOPS, 16 * W * H, lut_work))
+        plain_s * 1e3, err, FWD_ACCEPT_FLOPS, 16 * W * H, lut_stats))
+    lut_bwd_stats = {}
     t0 = time.perf_counter()
     grad_p = splat_grad.blend_backward_plain(payload, tile_start, pixstate,
+                                             stats=lut_bwd_stats,
                                              **lut_bwd_kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
@@ -590,11 +628,12 @@ def train_phases(torch):
         raise SystemExit(f"phase lut-train: the LUT backward differs from "
                          f"plain: {errs}")
     rows.append(blend_row(
-        "blend_backward[lut]", GRAD_SRC, GRAD_TPU,
+        "blend_backward[lut]", "grad", lut_bwd_kw,
         lambda: splat_grad.blend_backward(payload, tile_start, pixstate,
                                           **lut_bwd_kw),
         plain_s * 1e3, max(errs), BWD_ACCEPT_FLOPS,
-        4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total), lut_work))
+        4 * (pixstate.numel() + splat_grad.GRAD_ROWS * total),
+        lut_bwd_stats))
     del grad_p, grad_k, rec_fused, rec_fwd, rec_bwd, binning, payload
     del pixstate, tab, color_p, trans_p, color_k, trans_k
 
@@ -828,7 +867,7 @@ def serve_phases(torch, cloud, rows):
             launches=0, max_abs_err=err, ms=time_cuda(run, 10),
             plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, **blend_floor(stats, npx, info, clock_hz),
+            library_ms=None, **blend_floor(stats, info, clock_hz),
             build=info)
         floor = k1_rows[name]["instruction_floor_ms"]
         log(f"phase serve-blend: {name}: row cull removes "
@@ -1026,16 +1065,26 @@ def tiles128_render(torch, cloud, camera, rows):
              + FWD_ACCEPT_FLOPS * accepted) / F32_FLOPS
     t_bytes = (4 * (7 * blended + binning.tile_start.numel())
                + 16 * W * H) / HBM_BYTES_PER_S
+    info = f32_kernel_info("subtile", kw, 128, 8)
     rows.append(dict(
         name="blend_tiles", route="cuda", source=TILES_SRC,
         replaces=TILES_TPU, launches=counts["blend_tiles"], max_abs_err=err,
         ms=time_cuda(run, 10), plain_ms=plain_s * 1e3,
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None))
-    log(f"phase tiles128x8: kernel {rows[-1]['ms']:.4f} ms, plain "
-        f"{plain_s * 1e3:.1f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
-        f"({rows[-1]['bound_by']})")
+        library_ms=None,
+        **blend_floor(stats, info, max_sm_clock_hz(),
+                      info["pixels_per_thread"]),
+        build=info))
+    row = rows[-1]
+    log(f"phase tiles128x8: warp cull removes {stats['culled_steps']} of "
+        f"{stats['warp_steps']} (warp, pair) steps "
+        f"({row['culled_share']:.4f}); build: {describe_build(info)}")
+    log(f"phase tiles128x8: kernel {row['ms']:.4f} ms, plain "
+        f"{plain_s * 1e3:.1f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), instruction floor "
+        + (f"{row['instruction_floor_ms']:.4f} ms"
+           if row["instruction_floor_ms"] else "not measured"))
 
 
 def tri_soup(n: int, sd: float, seed: int = 0):
@@ -1153,6 +1202,36 @@ def blend_kernel_info(kind: str, blend_kw: dict, threads: int) -> dict:
     return info
 
 
+# the f32 tile stream's kernels: library, info entry point, mangled name
+# (accept rule, then the launch-bound tier)
+F32_KINDS = {"subtile": ("splat_subtile", "gsrt_subtile_info",
+                         "subtile_fwd_kernelILi{rule}EE"),
+             "grad": ("splat_grad", "gsrt_grad_info",
+                      "subtile_bwd_kernelILi{rule}EE")}
+
+
+def f32_kernel_info(kind: str, blend_kw: dict, tile_w: int,
+                    tile_h: int) -> dict:
+    """The build of the forward ("subtile") or backward ("grad") instance a
+    launch with `blend_kw` at tile_w x tile_h runs, and the SASS of its
+    innermost loop holding the exp (the forward: one pair for a thread's
+    pixels; the backward: a group of 8 pairs), per (pixel, pair)."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.ops import splat_grad, splat_subtile
+    rule = (int(bool(blend_kw["skip_range_check"]))
+            + 2 * int(bool(blend_kw.get("use_exp_lut", False))))
+    lib, symbol, function = F32_KINDS[kind]
+    pix = (splat_subtile if kind == "subtile" else
+           splat_grad).PIXELS_PER_THREAD
+    info = build_info(lib, symbol, rule, tile_w, tile_h)
+    info.update(threads=splat_subtile.block_threads(tile_w, tile_h, pix),
+                pixels_per_thread=pix, rule=rule, sass=sass_inner_loop(
+                    _kernels._lib_path(lib),
+                    os.path.dirname(_kernels._nvcc()),
+                    function=function.format(rule=rule), marker="MUFU.EX2"))
+    return info
+
+
 def describe_build(info: dict) -> str:
     sass = info["sass"]
     return (f"{info['registers']} registers, {info['spill_bytes']} bytes "
@@ -1160,7 +1239,8 @@ def describe_build(info: dict) -> str:
             f"{info['dynamic_smem_bytes']} B dynamic shared memory, "
             f"{info['blocks_per_sm']} blocks of {info['threads']} threads "
             f"an SM; SASS per-(pixel, pair) loop "
-            + (f"{sass['instructions']} instructions"
+            + (f"{sass['instructions']} instructions for {sass['tests']} "
+               f"exps ({sass['per_test']:.2f} a step)"
                if sass else "not read (no cuobjdump)"))
 
 
@@ -1781,7 +1861,7 @@ def main() -> int:
         replaces=BLEND_TPU, launches=0, max_abs_err=err, ms=group_ms,
         plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, **blend_floor(stats, npx, group_info, clock_hz),
+        library_ms=None, **blend_floor(stats, group_info, clock_hz),
         hits_differing=hits_off, build=group_info))
     log(f"phase blend: kernel {rows[-1]['ms']:.4f} ms, plain "
         f"{rows[-1]['plain_ms']:.1f} ms, bound {rows[-1]['bound_ms']:.4f} ms"

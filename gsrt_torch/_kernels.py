@@ -147,7 +147,8 @@ BLEND_TILE = CudaKernel(
     "blend_packed_tile", "splat_packed", "gsrt_blend_tile",
     [P, LL, I, P, I, I, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P, P,
      P])
-_SUBTILE_ARGS = [P, LL, P, I, I, I, I, I, I, F, I, F, F, F, I, P, P, P]
+_SUBTILE_ARGS = [P, LL, P, I, I, I, I, I, I, I, I, F, I, F, F, F, I, P, P,
+                 P]
 BLEND_SUBTILE = CudaKernel(
     "blend_subtiles", "splat_subtile", "gsrt_blend_subtile", _SUBTILE_ARGS)
 # the (128, 8)-tile blend is the subtile kernel at 1024-pixel tiles; it
@@ -156,7 +157,7 @@ BLEND_TILES = CudaKernel(
     "blend_tiles", "splat_subtile", "gsrt_blend_subtile", _SUBTILE_ARGS)
 BLEND_BACKWARD = CudaKernel(
     "blend_backward", "splat_grad", "gsrt_blend_backward",
-    [P, LL, P, P, I, I, I, I, F, I, F, F, F, I, P, P])
+    [P, LL, P, P, I, I, I, I, I, I, F, I, F, F, F, I, P, P])
 
 TRI_CAST = CudaKernel(
     "cast_primary", "tri_cast", "gsrt_tri_cast",

@@ -105,20 +105,15 @@ constexpr int kKeyBits = 9;
 constexpr int kMaxGroup = 1 << kKeyBits;   // partition: tiles a group
 constexpr float kRh = 0.7071067811865476f;  // folds the response's 1/2
 constexpr float kInvQ = 4.0f / 32767.0f;    // pack15 step
-constexpr float kLutEnd = 255.0f / 32.0f;   // the LUT's last segment edge
 constexpr unsigned kFull = 0xffffffffu;
 
-// accept rules: bit 0 skip_range_check, bit 1 the exp LUT
-constexpr int kRuleSkipRange = 1;
-constexpr int kRuleLut = 2;
-
-struct Params {
-  float g_cutoff;
-  float alpha_threshold;
-  float alpha_clamp;
-  float term_eps;
-  float log_margin;   // 2^-10 - ln(alpha_threshold)
-};
+using gsrt::conic_row_factor;
+using gsrt::kRuleLut;
+using gsrt::kRuleSkipRange;
+using gsrt::make_params;
+using gsrt::Params;
+using gsrt::rule_of;
+using gsrt::skip_bound;
 
 // ---------------------------------------------------------------- partition
 
@@ -374,31 +369,6 @@ struct Stage {
   Rec rec[2][kBatch];
   float4 cull[2][kBatch];
 };
-
-// The g above which the pair is accepted by no pixel (header).
-template <int kRule>
-__device__ __forceinline__ float skip_bound(float op, const Params& prm) {
-  float gs = logf(op) + prm.log_margin;
-  if (kRule & kRuleLut) gs = gs < kLutEnd ? gs + 1.0f / 32.0f : INFINITY;
-  if (!(kRule & kRuleSkipRange)) gs = fminf(gs, prm.g_cutoff);
-  return gs;
-}
-
-// q with conic_response(a, b, c, dx, dy) >= fl(q fl(dy dy)) for every dx,
-// or NaN where no such bound is proven. The response's computed value is
-// within 4.01 u (1 + rho) / (1 - rho) of its exact 0.5 Q, rho = |b| /
-// sqrt(ac) (u = 2^-24), and Q >= (c - b²/a) dy²; the two roundings of
-// the bound's own product add 2 u more. Taken in double, rounded down.
-__device__ __forceinline__ float conic_row_factor(float a, float b,
-                                                  float c) {
-  if (!(a > 0.0f && c > 0.0f)) return NAN;
-  const double da = a, db = b, dc = c;
-  const double rho = fabs(db) / sqrt(da * dc);
-  if (!(rho < 0.999)) return NAN;
-  const double u = 0x1p-24;
-  const double eta = 8.0 * u * (1.0 + rho) / (1.0 - rho) + 4.0 * u;
-  return __double2float_rd(0.5 * (dc - db * db / da) * (1.0 - eta));
-}
 
 template <bool kCompact>
 struct Words {
@@ -679,16 +649,6 @@ blend_tile_kernel(const int* __restrict__ payload, long long L,
   if (consumed && tid == 0) consumed[tile] = cons;
 }
 
-Params make_params(float g_cutoff, float alpha_threshold, float alpha_clamp,
-                   float term_eps) {
-  return Params{g_cutoff, alpha_threshold, alpha_clamp, term_eps,
-                (float)(0x1p-10 - log((double)alpha_threshold))};
-}
-
-int rule_of(int skip_range_check, int use_lut) {
-  return (skip_range_check ? kRuleSkipRange : 0) | (use_lut ? kRuleLut : 0);
-}
-
 // the kernels of one stream, by rule: [rule]
 using GroupFn = void (*)(const int*, long long, const int*, const int*, int,
                          int, int, int, Params, float*, float*, int*);
@@ -775,19 +735,7 @@ int gsrt_blend_info(int kind, int rule, int threads, int* info) {
     return (int)cudaErrorInvalidValue;
   const void* fn = kind == 0 ? (const void*)kGroup[rule]
                              : (const void*)kTile[kind == 1][rule];
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, fn);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
-                                                        0);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = a.numRegs;
-  info[1] = (int)a.sharedSizeBytes;
-  info[2] = 0;
-  info[3] = (int)a.localSizeBytes;
-  info[4] = blocks;
-  return 0;
+  return gsrt::kernel_info(fn, threads, info);
 }
 
 const char* gsrt_error_string(int err) {

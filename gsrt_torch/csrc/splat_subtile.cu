@@ -15,102 +15,132 @@
 // [tile_start[t], tile_start[t + 1]), in depth order. Out: color [H, W, 3]
 // and trans [H, W] float32, written straight to the framebuffer.
 //
-// Design. One block per tile, one thread per pixel (tile_w * tile_h <=
-// 1024 threads). The block walks its segment in chunks of kChunk = 128
-// pairs: the threads decode one pair each into shared memory,
-// then every thread blends the chunk in order with its transmittance and
-// colour in registers. Before each chunk the block stops if no pixel has
-// trans > term_eps (__syncthreads_or): the backward kernel takes the same
-// test at the same boundaries, so both agree on the last pair that
-// counts. The TPU kernel grouped 8 subtiles per grid step, located each
-// chunk's subtile with one-hot carries and fetched 128-aligned windows
-// because of its block and DMA rules; a block here addresses its segment
-// directly, so none of that remains.
+// Design (f32_stream.cuh). One block per tile, kPix = 4 pixels of one
+// column a thread (at most 256 threads a block). The block walks its
+// segment in staged batches of 32 pairs, stops only where a 128-pair chunk
+// begins, and each warp blends only the pairs its warp cull leaves (a
+// ballot, then the set bits in order). A step reads the pair's record with
+// three 16-byte shared loads for the thread's four pixels, which share the
+// response's dx terms and blend as four independent chains. The kernel is
+// instantiated per accept rule. The TPU kernel grouped 8 subtiles per grid
+// step, located each chunk's subtile with one-hot carries and fetched
+// 128-aligned windows because of its block and DMA rules; a block here
+// addresses its segment directly, so none of that remains.
 //
 // Bound. Operations: per (pixel, pair of its tile) 18 f32 operations, the
 // exp among them, to decide whether the pixel takes the pair, and 9 more
 // where it does; against 28 bytes per pair read once and 16 bytes per
-// pixel written. The wrapper (gsrt_torch/ops/splat_subtile.py) checks shapes,
-// types and devices; the entry point returns cudaGetLastError().
+// pixel written. The response is rounded as written (no FMA), as the plain
+// version rounds it. The wrapper (gsrt_torch/ops/splat_subtile.py) checks
+// shapes, types and devices; the entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "blend_common.cuh"
+#include "f32_stream.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kChunk = 128;
-constexpr float kInvQ = 4.0f / 32767.0f;  // pack15 step
+using namespace gsrt;
 
-__global__ void __launch_bounds__(kMaxThreads)
-blend_subtile_kernel(const int* __restrict__ payload, long long L,
-                     const int* __restrict__ tile_start, int ntx, int width,
-                     int height, int tile_w, float g_cutoff,
-                     int skip_range_check, float alpha_threshold,
-                     float alpha_clamp, float term_eps, int use_lut,
-                     float* __restrict__ color, float* __restrict__ trans) {
-  __shared__ float s_mx[kChunk], s_my[kChunk], s_qa[kChunk], s_qb[kChunk],
-      s_qc[kChunk], s_op[kChunk], s_r[kChunk], s_g[kChunk], s_b[kChunk];
+// pixels a thread (ops/splat_subtile.PIXELS_PER_THREAD)
+constexpr int kPix = 4;
+constexpr int kMaxBlock = kMaxPixels / kPix;
 
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tile_h = blockDim.x / tile_w;
-  const int x = (tile % ntx) * tile_w + tid % tile_w;
-  const int y = (tile / ntx) * tile_h + tid / tile_w;
-  const float px = (float)x, py = (float)y;
+struct Pix {
+  float T_[kPix], cr[kPix], cg[kPix], cb[kPix];
+};
 
-  const int start = tile_start[tile];
-  const int end = tile_start[tile + 1];
-
-  float T_ = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-
-  for (int c0 = start; c0 < end; c0 += kChunk) {
-    // also the barrier that guards the shared arrays against the last
-    // chunk's readers
-    if (!__syncthreads_or(T_ > term_eps)) break;
-    const int n = min(kChunk, end - c0);
-    for (int j = tid; j < n; j += blockDim.x) {
-      const int p = c0 + j;
-      s_mx[j] = __int_as_float(__ldg(payload + p));
-      s_my[j] = __int_as_float(__ldg(payload + L + p));
-      s_qa[j] = __int_as_float(__ldg(payload + 2 * L + p));
-      s_qb[j] = __int_as_float(__ldg(payload + 3 * L + p));
-      s_qc[j] = __int_as_float(__ldg(payload + 4 * L + p));
-      const int rg = __ldg(payload + 5 * L + p);
-      const int bo = __ldg(payload + 6 * L + p);
-      s_r[j] = (float)((rg >> 15) & 0x7FFF) * kInvQ;
-      s_g[j] = (float)(rg & 0x7FFF) * kInvQ;
-      s_b[j] = (float)((bo >> 15) & 0x7FFF) * kInvQ;
-      s_op[j] = (float)(bo & 0x7FFF) * kInvQ;
+template <int kRule>
+__device__ __forceinline__ void blend_pair(const Rec& r, const Params& prm,
+                                           const Place& pl, Pix& s) {
+  const float4 A = r.a, B = r.b;
+  const Row row = response_row(A.z, A.w, pl.px - A.x);
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const float g = response_at(row, B.x, pl.py0 + (float)k - A.y);
+    float alpha;
+    if (accept_alpha(g, B.y, prm.g_cutoff, kRule & kRuleSkipRange,
+                     prm.alpha_threshold, prm.alpha_clamp,
+                     (kRule & kRuleLut) != 0, alpha)) {
+      const float w = alpha * s.T_[k];
+      s.cr[k] += w * B.z;
+      s.cg[k] += w * B.w;
+      s.cb[k] += w * r.c.x;
+      s.T_[k] *= 1.0f - alpha;
     }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float dx = px - s_mx[i], dy = py - s_my[i];
-      const float gq =
-          gsrt::conic_response(s_qa[i], s_qb[i], s_qc[i], dx, dy);
-      float alpha;
-      if (gsrt::accept_alpha(gq, s_op[i], g_cutoff, skip_range_check,
-                             alpha_threshold, alpha_clamp, use_lut != 0,
-                             alpha)) {
-        const float w = alpha * T_;
-        cr += w * s_r[i];
-        cg += w * s_g[i];
-        cb += w * s_b[i];
-        T_ *= 1.0f - alpha;
-      }
-    }
-  }
-
-  if (x < width && y < height) {
-    const size_t pix = (size_t)y * width + x;
-    trans[pix] = T_;
-    color[3 * pix] = cr;
-    color[3 * pix + 1] = cg;
-    color[3 * pix + 2] = cb;
   }
 }
+
+template <int kRule>
+__global__ void __launch_bounds__(kMaxBlock)
+subtile_fwd_kernel(const int* __restrict__ payload, long long L,
+                   const int* __restrict__ tile_start, int ntx, int width,
+                   int height, int tile_w, int tile_h, Params prm,
+                   float* __restrict__ color, float* __restrict__ trans) {
+  __shared__ Rec st[2][kBatch];
+  const int tile = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Place pl = place<kPix>(tile, ntx, tile_w, tile_h);
+  Pix s;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    s.T_[k] = k < pl.nvalid ? 1.0f : 0.0f;
+    s.cr[k] = s.cg[k] = s.cb[k] = 0.0f;
+  }
+
+  const int lo = tile_start[tile], n = tile_start[tile + 1] - lo;
+  const int nb = (n + kBatch - 1) / kBatch;
+  Words nxt;   // warp 0: the words of the batch after the staged one
+  if (warp == 0 && nb > 0) {
+    if (lane < n) {
+      Words w;
+      fetch(payload, L, lo + lane, w);
+      decode<kRule>(w, prm, st[0][lane]);
+    }
+    if (kBatch + lane < n) fetch(payload, L, lo + kBatch + lane, nxt);
+  }
+  for (int k = 0; k < nb; ++k) {
+    if (k % (kChunk / kBatch) == 0) {
+      bool live = false;
+#pragma unroll
+      for (int j = 0; j < kPix; ++j) live |= s.T_[j] > prm.term_eps;
+      if (!__syncthreads_or(live)) break;
+    } else {
+      __syncthreads();
+    }
+    const int slot = k & 1;
+    if (warp == 0 && k + 1 < nb) {
+      const int q = (k + 1) * kBatch + lane;
+      if (q < n) decode<kRule>(nxt, prm, st[slot ^ 1][lane]);
+      if (q + kBatch < n) fetch(payload, L, lo + q + kBatch, nxt);
+    }
+    unsigned m = cull_ballot(st[slot], min(kBatch, n - k * kBatch), pl);
+    while (m) {
+      const int i = __ffs(m) - 1;
+      m &= m - 1;
+      blend_pair<kRule>(st[slot][i], prm, pl, s);
+    }
+  }
+
+  const int x = (int)pl.px;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int y = (int)pl.py0 + k;
+    if (k < pl.nvalid && x < width && y < height) {
+      const size_t pix = (size_t)y * width + x;
+      trans[pix] = s.T_[k];
+      color[3 * pix] = s.cr[k];
+      color[3 * pix + 1] = s.cg[k];
+      color[3 * pix + 2] = s.cb[k];
+    }
+  }
+}
+
+using Fn = void (*)(const int*, long long, const int*, int, int, int, int,
+                    int, Params, float*, float*);
+const Fn kFwd[4] = {subtile_fwd_kernel<0>, subtile_fwd_kernel<1>,
+                    subtile_fwd_kernel<2>, subtile_fwd_kernel<3>};
 
 }  // namespace
 
@@ -118,22 +148,32 @@ extern "C" {
 
 int gsrt_blend_subtile(const int* payload, long long L,
                        const int* tile_start, int T, int ntx, int width,
-                       int height, int tile_w, int tile_h, float g_cutoff,
-                       int skip_range_check, float alpha_threshold,
-                       float alpha_clamp, float term_eps, int use_lut,
-                       float* color, float* trans, void* stream) {
-  const int threads = tile_w * tile_h;
-  if (threads % 32 != 0 || threads > kMaxThreads)
+                       int height, int tile_w, int tile_h, int chunk,
+                       int pix, float g_cutoff, int skip_range_check,
+                       float alpha_threshold, float alpha_clamp,
+                       float term_eps, int use_lut, float* color,
+                       float* trans, void* stream) {
+  const int threads = gsrt::block_threads<kPix>(tile_w, tile_h);
+  if (threads == 0 || chunk != gsrt::kChunk || pix != kPix)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t fits =
-      gsrt::check_block_fits(blend_subtile_kernel, threads);
-  if (fits != cudaSuccess) return (int)fits;
+  const gsrt::Params prm =
+      gsrt::make_params(g_cutoff, alpha_threshold, alpha_clamp, term_eps);
   if (T > 0)
-    blend_subtile_kernel<<<T, threads, 0, (cudaStream_t)stream>>>(
-        payload, L, tile_start, ntx, width, height, tile_w, g_cutoff,
-        skip_range_check, alpha_threshold, alpha_clamp, term_eps, use_lut,
-        color, trans);
+    kFwd[gsrt::rule_of(skip_range_check, use_lut)]
+        <<<T, threads, 0, (cudaStream_t)stream>>>(
+            payload, L, tile_start, ntx, width, height, tile_w, tile_h, prm,
+            color, trans);
   return (int)cudaGetLastError();
+}
+
+// Build facts of the instance a tile_w x tile_h launch under `rule` (bit 0
+// skip_range_check, bit 1 the exp LUT) runs: registers, static shared
+// memory, 0, spill bytes, resident blocks.
+int gsrt_subtile_info(int rule, int tile_w, int tile_h, int* info) {
+  const int threads = gsrt::block_threads<kPix>(tile_w, tile_h);
+  if (rule < 0 || rule > 3 || threads == 0)
+    return (int)cudaErrorInvalidValue;
+  return gsrt::kernel_info((const void*)kFwd[rule], threads, info);
 }
 
 const char* gsrt_error_string(int err) {

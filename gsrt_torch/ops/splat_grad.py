@@ -26,12 +26,14 @@ from __future__ import annotations
 import torch
 
 from gsrt_torch import _kernels
-from gsrt_torch.ops.splat_subtile import (check_stream, decode_pairs,
-                                          live_pairs, pair_alphas,
-                                          tile_pixels)
+from gsrt_torch.ops.splat_subtile import (check_stream, culled_steps,
+                                          decode_pairs, live_pairs,
+                                          pair_alphas, tile_pixels,
+                                          warp_footprint)
 from gsrt_torch.ops.tile_binning import tile_extent
 
 GRAD_ROWS = 9   # d mean x, y, d conic a, b, c, d opacity, d r, g, b
+PIXELS_PER_THREAD = 2   # pixels of one column a thread of the kernel holds
 
 
 def _check_pixstate(pixstate: torch.Tensor, payload: torch.Tensor, T: int,
@@ -49,14 +51,22 @@ def blend_backward_plain(payload, tile_start, pixstate, *, width: int,
                          g_cutoff: float, alpha_threshold: float,
                          alpha_clamp: float, term_eps: float = 1e-4,
                          skip_range_check: bool = False,
-                         use_exp_lut: bool = False) -> torch.Tensor:
-    """Plain version of the backward blend: [9, max_pairs] float32."""
+                         use_exp_lut: bool = False,
+                         stats: dict | None = None) -> torch.Tensor:
+    """Plain version of the backward blend: [9, max_pairs] float32. A
+    `stats` dict receives "pairs_blended", the pairs the tiles walk before
+    their stop, "accepted", the (pixel, pair) products among them that
+    were accepted, and "warp_steps" and "culled_steps", the (warp, pair)
+    steps of the kernel's warps (PIXELS_PER_THREAD pixels a thread) and
+    those its warp cull skips."""
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     npx = tile_w * tile_h
     dev = payload.device
     grad = torch.zeros((GRAD_ROWS, payload.shape[1]), dtype=torch.float32,
                        device=dev)
     ts = tile_start.tolist()
+    foot = warp_footprint(tile_w, tile_h, PIXELS_PER_THREAD, dev)
+    blended = accepted = culled = 0
     for tile in range(ntx * nty):
         lo, hi = ts[tile], ts[tile + 1]
         if hi <= lo:
@@ -73,6 +83,13 @@ def blend_backward_plain(payload, tile_start, pixstate, *, width: int,
         incl = torch.cumprod(one_minus, dim=1)
         t_i = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
         n_live = live_pairs(t_i, chunk, term_eps)
+        if stats is not None:
+            blended += n_live
+            accepted += int(accept[:, :n_live].sum())
+            culled += culled_steps(
+                f, foot, tile, ntx, tile_w, tile_h, n_live,
+                g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
+                skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
         sl = slice(0, n_live)
         st = pixstate[:, tile * npx:(tile + 1) * npx, None]    # [8, P, 1]
         c_fin, t_n, dc, d_tn = st[0:3], st[3], st[4:7], st[7]
@@ -95,6 +112,10 @@ def blend_backward_plain(payload, tile_start, pixstate, *, width: int,
             (d_gq * (0.5 * dy * dy)).sum(0),
             (d_alpha * expg[:, sl]).sum(0),
             *(dc * w[None]).sum(1)])
+    if stats is not None:
+        stats.update(pairs_blended=blended, accepted=accepted,
+                     warp_steps=blended * foot[0].numel(),
+                     culled_steps=culled)
     return grad
 
 
@@ -129,7 +150,8 @@ def blend_backward(payload, tile_start, pixstate, *, width: int, height: int,
     with torch.cuda.device(payload.device):
         _kernels.BLEND_BACKWARD(
             payload.data_ptr(), payload.shape[1], tile_start.data_ptr(),
-            pixstate.data_ptr(), T, ntx, tile_w, tile_h, g_cutoff,
+            pixstate.data_ptr(), T, ntx, tile_w, tile_h, chunk,
+            PIXELS_PER_THREAD, g_cutoff,
             int(skip_range_check), alpha_threshold, alpha_clamp, term_eps,
             int(use_exp_lut), grad.data_ptr(), _kernels.stream_ptr(payload))
     return grad

@@ -16,6 +16,16 @@ opacity decode from the pack15 words. The segment is read in chunks of `chunk`
 pairs; before each chunk the tile stops if no pixel of it (padding pixels past
 the image edge included) has trans > term_eps. `blend_backward` takes the same
 stop, so both agree on the last pair that counts.
+
+Warp cull (kernels only; it changes no output). A CUDA thread holds a few
+pixels of one tile column on consecutive rows (PIXELS_PER_THREAD here for
+the forward, `splat_grad.PIXELS_PER_THREAD` for the backward), and a warp of
+32 threads covers the rows and columns `warp_footprint` gives. Before a
+warp runs a pair it tests a lower bound of the pair's response over those
+rows and over those columns (`warp_cull`) against the response above which
+the accept rule takes the pair nowhere (`splat_packed.skip_bound`), and
+skips the pair when the bound exceeds it. The plain version counts the
+(warp, pair) steps the cull removes in `stats`.
 """
 
 from __future__ import annotations
@@ -24,10 +34,12 @@ import torch
 
 from gsrt_torch import _kernels
 from gsrt_torch.ops import explut
+from gsrt_torch.ops.splat_packed import conic_row_factor, skip_bound
 from gsrt_torch.ops.splat_packed import decode_f32_pairs as decode_pairs
 from gsrt_torch.ops.tile_binning import PAYLOAD_WIDTH, TileBinning, tile_extent
 
-KERNEL_CHUNK = 128   # pairs the CUDA kernels stage per batch
+KERNEL_CHUNK = 128      # pairs between two stop tests of the CUDA kernels
+PIXELS_PER_THREAD = 4   # pixels of one column a thread of the forward holds
 
 
 def check_stream(payload: torch.Tensor, tile_start: torch.Tensor, T: int,
@@ -52,7 +64,68 @@ def check_stream(payload: torch.Tensor, tile_start: torch.Tensor, T: int,
         raise ValueError("chunk must be positive")
     if payload.is_cuda and chunk != KERNEL_CHUNK:
         raise ValueError(f"the CUDA kernels take chunk={KERNEL_CHUNK}, the "
-                         f"batch they stage and stop at; got {chunk}")
+                         f"pairs between two of their stop tests; got "
+                         f"{chunk}")
+
+
+def block_threads(tile_w: int, tile_h: int, pix: int) -> int:
+    """Threads of a CUDA block of one tile: `pix` rows a thread, whole
+    warps (rows past the tile are dead)."""
+    return -(-tile_w * -(-tile_h // pix) // 32) * 32
+
+
+def warp_footprint(tile_w: int, tile_h: int, pix: int, device) -> tuple:
+    """(first row, last row, first column, last column) [warps] float32,
+    tile-relative, of the pixels each warp of a CUDA kernel holds: thread t
+    has column t % tile_w and rows (t // tile_w)·pix + [0, pix); a warp
+    that wraps a row spans every column."""
+    t0 = 32 * torch.arange(block_threads(tile_w, tile_h, pix) // 32,
+                           device=device)
+    ra = torch.clamp_max((t0 // tile_w) * pix, tile_h - 1)
+    rb = torch.clamp_max(((t0 + 31) // tile_w) * pix + pix - 1, tile_h - 1)
+    c0 = t0 % tile_w
+    wraps = c0 + 31 >= tile_w
+    ca = torch.where(wraps, torch.zeros_like(c0), c0)
+    cb = torch.where(wraps, torch.full_like(c0, tile_w - 1), c0 + 31)
+    return tuple(v.float() for v in (ra, rb, ca, cb))
+
+
+def warp_of_pixel(tile_w: int, tile_h: int, pix: int,
+                  device) -> torch.Tensor:
+    """[tile_w·tile_h] int64: the warp of a CUDA kernel with `pix` pixels a
+    thread that holds each pixel of a tile (row-major)."""
+    pidx = torch.arange(tile_w * tile_h, device=device)
+    row, col = pidx // tile_w, pidx % tile_w
+    return ((row // pix) * tile_w + col) // 32
+
+
+def warp_cull(f: dict, foot: tuple, gs: torch.Tensor, ox=0.0, oy=0.0
+              ) -> torch.Tensor:
+    """[warps, n] bool: the (warp, pair) steps the CUDA kernels skip. lb =
+    max(fl(qr·fl(dy²)), fl(qc·fl(dx²))) at the warp's row and column
+    nearest the mean, qr = conic_row_factor(a, b, c) and qc =
+    conic_row_factor(c, b, a) (each bounds the f32 response from below over
+    every column, or every row); a step is skipped when lb > gs. ox, oy
+    shift the footprint into the image frame: numbers, or [n], one a
+    pair."""
+    ra, rb, ca, cb = (v[:, None] for v in foot)
+    my, mx = f["my"][None, :], f["mx"][None, :]
+    dy = torch.clamp(my, ra + oy, rb + oy) - my
+    dx = torch.clamp(mx, ca + ox, cb + ox) - mx
+    qr = conic_row_factor(f["qa"], f["qb"], f["qc"])[None, :]
+    qc = conic_row_factor(f["qc"], f["qb"], f["qa"])[None, :]
+    lb = torch.fmax(qr * (dy * dy), qc * (dx * dx))
+    return lb > gs[None, :]
+
+
+def culled_steps(f: dict, foot: tuple, tile: int, ntx: int, tile_w: int,
+                 tile_h: int, n_live: int, **rule) -> int:
+    """The (warp, pair) steps `warp_cull` skips among a tile's first
+    n_live pairs (f: their decoded fields); rule: skip_bound's keywords."""
+    ty, tx = divmod(tile, ntx)
+    cull = warp_cull(f, foot, skip_bound(f["op"], **rule),
+                     float(tx * tile_w), float(ty * tile_h))
+    return int(cull[:, :n_live].sum())
 
 
 def tile_pixels(tile: int, ntx: int, tile_w: int, tile_h: int, device):
@@ -114,9 +187,11 @@ def blend_subtiles_plain(binning: TileBinning, *, width: int, height: int,
                          stats: dict | None = None):
     """Plain version of the subtile blend: (color [H, W, 3], trans [H, W])
     float32. A `stats` dict receives "pairs_blended", the pairs all tiles
-    blend before their stop, and "accepted", the (pixel, pair) products
-    among them whose alpha was blended (the data-dependent work a roofline
-    bound counts)."""
+    blend before their stop, "accepted", the (pixel, pair) products among
+    them whose alpha was blended (the data-dependent work a roofline bound
+    counts), "warp_steps", the pairs blended times the CUDA kernel's warps
+    a tile, and "culled_steps", the (warp, pair) steps of them its warp
+    cull skips."""
     ntx, nty = tile_extent(width, height, sub_w, sub_h)
     T = ntx * nty
     pay = binning.payload
@@ -124,7 +199,10 @@ def blend_subtiles_plain(binning: TileBinning, *, width: int, height: int,
     color = torch.zeros((nty * sub_h, ntx * sub_w, 3), device=dev)
     trans = torch.ones((nty * sub_h, ntx * sub_w), device=dev)
     ts = binning.tile_start.tolist()
-    blended = accepted = 0
+    rule = dict(g_cutoff=g_cutoff, alpha_threshold=alpha_threshold,
+                skip_range_check=skip_range_check, use_exp_lut=use_exp_lut)
+    foot = warp_footprint(sub_w, sub_h, PIXELS_PER_THREAD, dev)
+    blended = accepted = culled = 0
     for tile in range(T):
         lo, hi = ts[tile], ts[tile + 1]
         if hi <= lo:
@@ -142,6 +220,8 @@ def blend_subtiles_plain(binning: TileBinning, *, width: int, height: int,
         blended += n_live
         if stats is not None:
             accepted += int(accept[:, :n_live].sum())
+            culled += culled_steps(f, foot, tile, ntx, sub_w, sub_h, n_live,
+                                   **rule)
         w = (alpha * excl)[:, :n_live]
         ty, tx = divmod(tile, ntx)
         ys, xs = ty * sub_h, tx * sub_w
@@ -150,8 +230,9 @@ def blend_subtiles_plain(binning: TileBinning, *, width: int, height: int,
         trans[ys:ys + sub_h, xs:xs + sub_w] = \
             incl[:, n_live - 1].reshape(sub_h, sub_w)
     if stats is not None:
-        stats["pairs_blended"] = blended
-        stats["accepted"] = accepted
+        stats.update(pairs_blended=blended, accepted=accepted,
+                     warp_steps=blended * foot[0].numel(),
+                     culled_steps=culled)
     return color[:height, :width].contiguous(), \
         trans[:height, :width].contiguous()
 
@@ -185,7 +266,8 @@ def blend_subtiles(binning: TileBinning, *, width: int, height: int,
     with torch.cuda.device(pay.device):
         (kernel or _kernels.BLEND_SUBTILE)(
             pay.data_ptr(), pay.shape[1], ts.data_ptr(), T, ntx, width,
-            height, sub_w, sub_h, g_cutoff, int(skip_range_check),
-            alpha_threshold, alpha_clamp, term_eps, int(use_exp_lut),
+            height, sub_w, sub_h, chunk, PIXELS_PER_THREAD, g_cutoff,
+            int(skip_range_check), alpha_threshold, alpha_clamp, term_eps,
+            int(use_exp_lut),
             color.data_ptr(), trans.data_ptr(), _kernels.stream_ptr(pay))
     return color, trans

@@ -13,7 +13,8 @@ PyTorch, and a few products land on the other side of alpha_threshold); the
 subtile blend kernel at 1e-4 (f32 summation order and the exp implementation
 differ from the plain version's); the backward kernel per
 gradient row, divided by the row's largest magnitude, at 1e-3 (the same, plus
-the block reduction's order); gradients of the autograd function on the card
+the order of the warp and block reductions), and bit for bit against itself
+on a second run; gradients of the autograd function on the card
 against the plain versions on the CPU, normalised, at 1e-3; the triangle
 kernels bit for bit (the binned cast's t and ids; the traversal's t, slots,
 hits and executed visits in both modes: both round Möller–Trumbore as
@@ -294,14 +295,13 @@ def _f32_binning(cuda, tile, wall: bool):
 
 @pytest.mark.parametrize("skip_range_check", [True, False])
 @pytest.mark.parametrize("wall", [False, True])
-@pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8)])
 def test_subtile_kernels_match_plain(cuda, tile, wall, skip_range_check):
     _subtile_kernels_match_plain(cuda, tile, wall, skip_range_check, False)
 
 
-@pytest.mark.parametrize("tile", [(16, 16), (128, 8)])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8)])
 def test_subtile_kernels_lut_match_plain(cuda, tile):
-    # at (128, 8) the backward runs 1024-thread blocks
     _subtile_kernels_match_plain(cuda, tile, True, False, True)
 
 
@@ -333,6 +333,97 @@ def _subtile_kernels_match_plain(cuda, tile, wall, skip_range_check,
         scale = gp[r].abs().max().item()
         assert scale > 0
         assert ((gk[r] - gp[r]).abs().max().item() / scale) <= 1e-3, r
+
+
+# pairs of the four tiles of edge_stream: more than 256 with a wall that
+# saturates mid-chunk, none, a partial batch, one pair into a second chunk
+EDGE_COUNTS, EDGE_WALL, EDGE_EPS = (300, 0, 100, 129), 40, 0.5
+
+
+def edge_stream(tile, device):
+    """A hand-made f32 tile stream over 2x2 tiles: splats 1.5-6 px across
+    inside their tile; in tile 0 pair EDGE_WALL covers the tile at alpha
+    0.7, so with term_eps = EDGE_EPS every pixel is saturated from there
+    on, the walk stops at pair 128 and not at the end of its 32-pair batch
+    (pairs 64-127 still count); tile 3's faint splats keep it unsaturated
+    into its second chunk. (payload [8, L], tile_start, W, H)."""
+    tw, th = tile
+    rng = np.random.default_rng(sum(tile))
+    cols, starts = [], [0]
+    for t, n in enumerate(EDGE_COUNTS):
+        ox, oy = (t % 2) * tw, (t // 2) * th
+        s = rng.uniform(1.5, 6.0, (2, n))
+        rho = rng.uniform(-0.6, 0.6, n)
+        det = (s[0] * s[1]) ** 2 * (1 - rho ** 2)
+        c = np.stack([rng.uniform(ox - 2, ox + tw + 2, n),
+                      rng.uniform(oy - 2, oy + th + 2, n),
+                      s[1] ** 2 / det, -rho * s[0] * s[1] / det,
+                      s[0] ** 2 / det, rng.uniform(0.0, 1.3, n),
+                      rng.uniform(0.0, 1.3, n), rng.uniform(0.0, 1.3, n),
+                      rng.uniform(0.02, 0.05, n) if t == 3
+                      else rng.uniform(0.2, 0.9, n)])
+        if t == 0:
+            c[:, EDGE_WALL] = [ox + tw / 2, oy + th / 2, 1e-6, 0.0, 1e-6,
+                               0.5, 0.5, 0.5, 0.7]
+        cols.append(c)
+        starts.append(starts[-1] + n)
+    c = torch.as_tensor(np.concatenate(cols, 1), dtype=torch.float32)
+    pay = torch.zeros((8, starts[-1] + 40), dtype=torch.int32)
+    pay[:5, :starts[-1]] = c[:5].view(torch.int32)
+    pay[5, :starts[-1]] = t_tb.pack15(c[5], c[6])
+    pay[6, :starts[-1]] = t_tb.pack15(c[7], c[8])
+    ts = torch.tensor(starts, dtype=torch.int32)
+    return pay.to(device), ts.to(device), 2 * tw, 2 * th
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8), (32, 3)])
+def test_subtile_kernels_stop_and_edges(cuda, tile):
+    """Forward, blend_tiles and backward on edge_stream under both rules
+    and the LUT: against the plain versions, the stop at pair 128 of the
+    saturated tile, and the backward bit-equal on two runs. At 32x3 a
+    thread's last rows fall past the tile in both kernels."""
+    tw, th = tile
+    pay, ts, W, H = edge_stream(tile, cuda)
+    b = t_tb.TileBinning(payload=pay, tile_start=ts,
+                         tile_count=torch.diff(ts),
+                         total_pairs=ts[-1].clone(),
+                         overflow=torch.zeros((), dtype=torch.bool,
+                                              device=cuda))
+    base = dict(width=W, height=H, chunk=128, g_cutoff=5.6,
+                alpha_threshold=1 / 255, alpha_clamp=0.99,
+                term_eps=EDGE_EPS)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for skip, lut in ((True, False), (False, False), (False, True)):
+        kw = dict(base, skip_range_check=skip, use_exp_lut=lut)
+        ck, tk = t_sub.blend_subtiles(b, sub_w=tw, sub_h=th, **kw)
+        stats = {}
+        cp, tp = t_sub.blend_subtiles_plain(b, sub_w=tw, sub_h=th,
+                                            stats=stats, **kw)
+        assert stats["pairs_blended"] == 128 + 100 + 129
+        assert (ck - cp).abs().max().item() <= 1e-4
+        assert (tk - tp).abs().max().item() <= 1e-4
+        assert (tp[:th, :tw] <= EDGE_EPS).all()
+        assert (tp[:th, tw:] == 1).all()                  # the empty tile
+        if tile == (128, 8):
+            c2, t2 = t_pallas.blend_tiles(b, **kw)
+            assert torch.equal(c2, ck) and torch.equal(t2, tk)
+        planes = [cp[..., 0], cp[..., 1], cp[..., 2], tp] + [
+            torch.randn(tp.shape, generator=g, device=cuda)
+            for _ in range(4)]
+        pix = torch.stack([t_td.tilefy(p, tw, th) for p in planes])
+        args = (pay, ts, pix)
+        gk = t_grad.blend_backward(*args, tile_w=tw, tile_h=th, **kw)
+        gp = t_grad.blend_backward_plain(*args, tile_w=tw, tile_h=th, **kw)
+        assert torch.equal(gk, t_grad.blend_backward(
+            *args, tile_w=tw, tile_h=th, **kw))
+        for r in range(t_grad.GRAD_ROWS):
+            scale = gp[r].abs().max().item()
+            assert scale > 0
+            assert ((gk[r] - gp[r]).abs().max().item() / scale) <= 1e-3, r
+        # the saturated tile: pairs 64-127 count, 128 on get nothing
+        assert (gk[6:, 64:128].abs().sum(0) > 0).any()
+        assert not (gk[:, 128:300] != 0).any()
+        assert not (gk[:, int(ts[-1]):] != 0).any()
 
 
 def test_tiled_diff_gradients_cuda_match_cpu(cuda):

@@ -263,3 +263,82 @@ def test_blend_tiles_matches_jax():
         assert 0.02 < float(tt.mean()) < 0.98
         np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
         np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-5)
+
+
+CULL_RULES = {"skip_range": dict(skip_range_check=True, use_exp_lut=False),
+              "range": dict(skip_range_check=False, use_exp_lut=False),
+              "range_lut": dict(skip_range_check=False, use_exp_lut=True),
+              "skip_range_lut": dict(skip_range_check=True,
+                                     use_exp_lut=True)}
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8)],
+                         ids=["16x16", "32x16", "128x8"])
+def test_warp_cull_is_exact(tile):
+    """The f32 kernels' warp cull, at each tile shape's warp footprints
+    (the forward's and the backward's pixels a thread): under every accept
+    rule, no (warp, pair) it skips has a pixel that takes the pair, in the
+    forward or with the backward's g floored at 0."""
+    from gsrt_torch.models import gaussian_rt as t_grt
+    from gsrt_torch.ops import splat_grad as t_grad
+    from gsrt_torch.ops import splat_packed as t_sp
+    from gsrt_torch.scene import random_cloud as t_random_cloud
+    tw, th = tile
+    w, h = 256, 128
+    cfg = RenderConfig(width=w, height=h, tile_w=tw, tile_h=th)
+    cloud, cam = t_random_cloud(1500, seed=4, width=w, height=h,
+                                scale_range=(0.01, 0.3), device="cpu")
+    d, m2, q, inf, col = t_grt._precompute(cloud, cam, cfg)
+    rx, ry = t_grt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
+                                      5.6, opacity=cloud.opacity)
+    b = t_tb.build_tile_binning(
+        d, m2[:, 0], m2[:, 1], q[:, 0], q[:, 1], q[:, 2], cloud.opacity,
+        col[:, 0], col[:, 1], col[:, 2], rx, ry,
+        t_grt.alive_mask(d, cloud.opacity, inf, cfg), width=w, height=h,
+        tile_w=tw, tile_h=th, max_pairs=1 << 16, compact=False)
+    assert not bool(b.overflow)
+    ntx, nty = t_tb.tile_extent(w, h, tw, th)
+    n = int(b.tile_start[-1])
+    f = t_sub.decode_pairs(b.payload[:, :n])
+    tiles = torch.repeat_interleave(torch.arange(ntx * nty),
+                                    torch.diff(b.tile_start.long()))
+    ox, oy = (tiles % ntx * tw).float(), (tiles // ntx * th).float()
+    lx, ly = t_sub.tile_pixels(0, 1, tw, th, "cpu")
+    feet = []
+    for pix in (t_sub.PIXELS_PER_THREAD, t_grad.PIXELS_PER_THREAD):
+        owner = t_sub.warp_of_pixel(tw, th, pix, "cpu")
+        foot = t_sub.warp_footprint(tw, th, pix, "cpu")
+        # the footprint is the bounding box of the pixels each warp holds
+        for wi in range(foot[0].numel()):
+            mine = owner == wi
+            assert [float(v[wi]) for v in foot] == [
+                float(ly[mine].min()), float(ly[mine].max()),
+                float(lx[mine].min()), float(lx[mine].max())]
+        onehot = owner[None, :] == torch.arange(foot[0].numel())[:, None]
+        feet.append((pix, foot, onehot.float()))
+    dx = lx[:, None] + ox[None, :] - f["mx"][None, :]          # [P, n]
+    dy = ly[:, None] + oy[None, :] - f["my"][None, :]
+    g = 0.5 * (f["qa"] * dx * dx + 2.0 * f["qb"] * dx * dy
+               + f["qc"] * dy * dy)
+    in_range = (g >= 0.0) & (g <= BLEND["g_cutoff"])
+    for rule, r in CULL_RULES.items():
+        kw = dict(BLEND, **r)
+        _, fwd = t_sp.alphas(g, f["op"], **kw)
+        e = (t_sub.explut.exp_neg_lut if r["use_exp_lut"]
+             else lambda x: torch.exp(-x))
+        bwd = f["op"][None, :] * e(torch.clamp_min(g, 0.0)) > \
+            BLEND["alpha_threshold"]
+        if not r["skip_range_check"]:
+            bwd = bwd & in_range
+        gs = t_sp.skip_bound(f["op"], **kw)
+        for pix, foot, onehot in feet:
+            cull = t_sub.warp_cull(f, foot, gs, ox, oy)
+            for what, accept in (("forward", fwd), ("backward", bwd)):
+                reached = (onehot @ accept.float()) > 0        # [warps, n]
+                bad = (cull & reached).nonzero()
+                assert bad.numel() == 0, (
+                    f"{rule}, {pix} px a thread, {what}: the cull skips "
+                    f"pairs a pixel takes: (warp, column) "
+                    f"{bad[:4].tolist()}")
+            # it engages, not everywhere
+            assert 0 < int(cull.sum()) < cull.numel(), (rule, pix)
