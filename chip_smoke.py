@@ -81,8 +81,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
              bit for bit (t and triangle ids) on the inputs captured from
              an SH render of soup359k (rect spans, 32x16 tiles), on
              soup359k's exact spans and on bigtris (rect and exact, 16x8
-             tiles); bigtris' binned primary (binning + cast) timed as
-             tools/tri_bench.py times it, its launches counted;
+             tiles), each with the share of (warp, pair) steps its warp
+             cull removes, its build (registers, spills, shared memory,
+             resident blocks), the SASS instructions of a (warp, pair)
+             step where cuobjdump exists and the instruction floor; the
+             copy-mode expand at the triangle binning's 15-row tables
+             (soup359k: rect, and the two of exact spans) against its
+             plain version bit for bit; bigtris' binned primary (binning
+             + cast) timed as tools/tri_bench.py times it, its launches
+             counted;
 16. tri-traverse — the packed-cluster traversal kernel's build
              (registers, spills, shared memory, resident blocks, the SASS
              instructions of its per-triangle loop where cuobjdump exists),
@@ -102,7 +109,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              exact spans and SH with primary_impl "block": counts set to 0
              just before each and read just after (one cast a render but
              none in "block", the any-hit traversal in SH and AO, the
-             closest-hit one in PT and in "block"), no overflow flag, ms
+             closest-hit one in PT and in "block", one expand a rect
+             binning and two an exact one), no overflow flag, ms
              per render on the card's and the host's clocks, the mean
              colour; then for SH, AO and PT the split by stage, every
              traversal launch's card ms and visits a block, and the
@@ -1116,14 +1124,17 @@ def tri_scene(verts):
     return scene_from_numpy(fields, device=DEVICE)
 
 
-def cast_row(torch, name, binning, dirs, origin, kw):
+def cast_row(torch, name, binning, dirs, origin, kw, clock_hz):
     """Q2.7 against its plain version on one binning, bit for bit; the
-    row with its times and bound."""
+    row with its times, bound, build, the warp cull's share of the
+    (warp, pair) steps and the instruction floor."""
     from gsrt_torch.ops import tri_binning
     stats = {}
-    t0 = time.perf_counter()
     t_p, id_p = tri_binning.cast_primary_plain(binning, dirs, origin,
                                                stats=stats, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tri_binning.cast_primary_plain(binning, dirs, origin, **kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     run = lambda: tri_binning.cast_primary(binning, dirs, origin, **kw)
@@ -1141,18 +1152,63 @@ def cast_row(torch, name, binning, dirs, origin, kw):
     t_bytes = (4 * (total + 10 * cast + binning.tile_start.numel())
                + 20 * W * H) / HBM_BYTES_PER_S
     hit = (t_k < 3e38).float().mean().item()
+    info = cast_kernel_info(npx)
     row = dict(name=name, route="cuda", source=CAST_SRC, replaces=CAST_TPU,
                launches=0, max_abs_err=0.0, ms=time_cuda(run, 20),
                plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                library_ms=None, pairs=total, pairs_cast=cast,
-               chunks_cast=int(stats["chunks"]), hit_fraction=hit)
+               chunks_cast=int(stats["chunks"]), hit_fraction=hit,
+               warp_steps=stats["warp_steps"],
+               culled_steps=stats["culled_steps"], build=info,
+               **blend_floor(stats, info, clock_hz))
+    sass = info["sass"]
     log(f"phase tri-cast: {name}: bit-equal to plain, {W}x{H} at "
         f"{kw['tile_w']}x{kw['tile_h']} tiles, {total} pairs, {cast} cast "
-        f"in {stats['chunks']} chunks, {hit:.4f} of pixels hit; kernel "
-        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"in {stats['chunks']} chunks, {hit:.4f} of pixels hit; warp cull "
+        f"{stats['culled_steps']} of {stats['warp_steps']} (warp, pair) "
+        f"steps ({row['culled_share']:.4f}); kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); {info['registers']} registers, "
+        f"{info['spill_bytes']} bytes spilled a thread, "
+        f"{info['static_smem_bytes']} B shared, {info['blocks_per_sm']} "
+        f"blocks of {npx} an SM; SASS a (warp, pair) step "
+        + (f"{sass['per_test']:.2f}, instruction floor "
+           f"{row['instruction_floor_ms']:.4f} ms" if sass and
+           row["instruction_floor_ms"] else "not read (no cuobjdump)"))
     return row
+
+
+def cast_kernel_info(threads: int) -> dict:
+    """The cast kernel's build (gsrt_tri_cast_info) at `threads` a block,
+    and the SASS of its (warp, pair) step loop (one MUFU.RCP a step)."""
+    from gsrt_torch import _kernels
+    info = build_info("tri_cast", "gsrt_tri_cast_info", threads)
+    info.update(threads=threads, sass=sass_inner_loop(
+        _kernels._lib_path("tri_cast"), os.path.dirname(_kernels._nvcc()),
+        function="tri_cast_kernel"))
+    return info
+
+
+def tri_expand_rows(torch, calls, names, at):
+    """Q2.1 rows (the copy kernel) at the triangle binning's recorded
+    calls of expand_pairs_fused, bit for bit against the plain version."""
+    from gsrt_torch.ops import pair_expand
+    out = []
+    for ((tab, base, mp), _), name in zip(calls, names):
+        n = tab.shape[1]
+        row = expand_row(
+            name, EXPAND_TPU,
+            lambda tab=tab, base=base, mp=mp:
+                pair_expand.expand_pairs_fused(tab, base, mp),
+            lambda tab=tab, base=base, mp=mp:
+                pair_expand.expand_pairs_plain(tab, base, mp),
+            lambda tab=tab, base=base, mp=mp:
+                tab.index_select(1, pair_expand.source_index(base, mp)),
+            0, 4 * (tab.shape[0] * (mp + n) + n), phase="tri-cast")
+        row["at"] = f"{at}, table {tuple(tab.shape)} to {mp} columns"
+        out.append(row)
+    return out
 
 
 def build_info(lib: str, symbol: str, *args) -> dict:
@@ -1472,30 +1528,47 @@ def tri_phases(torch, rows):
         soup, camera, cfg, LIGHT_POS, LIGHT_RADIUS, seed=SEED,
         return_flags=True, **kw)
 
-    # --- tri-cast: capture the SH render's cast and occlusion calls ---
+    # --- tri-cast: capture the SH render's cast, expand and occlusion
+    # calls ---
     with Recorder(tri_binning, "cast_primary") as rec_cast, \
+            Recorder(tri_binning, "expand_pairs_fused") as rec_x, \
             Recorder(tri_kernel, "closest_hit_packed") as rec_trav:
         sh()
         torch.cuda.synchronize()
-    if len(rec_cast.calls) != 1 or len(rec_trav.calls) != cfg.shadow_rays:
-        raise SystemExit("phase tri-cast: expected one cast and one "
-                         "traversal per shadow ray in the SH render")
+    if len(rec_cast.calls) != 1 or len(rec_x.calls) != 1 or \
+            len(rec_trav.calls) != cfg.shadow_rays:
+        raise SystemExit("phase tri-cast: expected one cast, one expand "
+                         "and one traversal per shadow ray in the SH "
+                         "render")
     (binning, dirs, origin), cast_kw = rec_cast.calls[0]
+    clock_hz = max_sm_clock_hz()
     tri_rows = {"cast_primary": cast_row(torch, "cast_primary", binning,
-                                         dirs, origin, cast_kw)}
+                                         dirs, origin, cast_kw, clock_hz)}
     tri_rows["cast_primary"]["at"] = "soup359k, rect spans, 32x16 tiles"
     v = (soup.tri_v0, soup.tri_v1, soup.tri_v2)
     need = tri_binning.count_tri_pairs_numpy(*v, camera, tile_w=cfg.tile_w,
                                              tile_h=cfg.tile_h,
                                              span_exact=True)
-    exact = tri_binning.build_tri_binning(
-        *v, camera, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
-        max_pairs=int(need * 1.2) + 1024, span_exact=True)
+    with Recorder(tri_binning, "expand_pairs_fused") as rec_xe:
+        exact = tri_binning.build_tri_binning(
+            *v, camera, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+            max_pairs=int(need * 1.2) + 1024, span_exact=True)
     tri_rows["cast_primary[exact]"] = cast_row(
-        torch, "cast_primary[exact]", exact, dirs, origin, cast_kw)
+        torch, "cast_primary[exact]", exact, dirs, origin, cast_kw,
+        clock_hz)
     tri_rows["cast_primary[exact]"]["at"] = \
         "soup359k, exact spans, 32x16 tiles"
     del exact
+    # the triangle binning's 15-row copies: one a rect binning, two with
+    # exact spans (triangles to tile rows, rows to pairs)
+    x_names = ("expand_pairs_fused[tri]", "expand_pairs_fused[tri,rows]",
+               "expand_pairs_fused[tri,pairs]")
+    for row in (tri_expand_rows(torch, rec_x.calls, x_names[:1],
+                                "soup359k, rect spans")
+                + tri_expand_rows(torch, rec_xe.calls, x_names[1:],
+                                  "soup359k, exact spans")):
+        tri_rows[row["name"]] = row
+    del rec_x, rec_xe
 
     # bigtris at 16x8 tiles, rect and exact; the binned primary cast
     # (binning + cast) timed as tools/tri_bench.py times it
@@ -1528,7 +1601,7 @@ def tri_phases(torch, rows):
             raise SystemExit(f"phase tri-cast: {name}: launches {counts}, "
                              f"overflow {bool(b.overflow)}")
         tri_rows[name] = cast_row(torch, name, b, big_dirs, camera.position,
-                                  big_kw)
+                                  big_kw, clock_hz)
         tri_rows[name]["launches"] = counts["cast_primary"]
         tri_rows[name]["at"] = (f"bigtris, {'exact' if span_exact else 'rect'}"
                                 f" spans, 16x8 tiles")
@@ -1552,7 +1625,6 @@ def tri_phases(torch, rows):
     (_, *wave), wave_kw = rec_pt.calls[0]
     del rec_pt
     info = traverse_kernel_info(RB)
-    clock_hz = max_sm_clock_hz()
     sass = info["sass"]
     log(f"phase tri-traverse: kernel build: {info['registers']} registers, "
         f"{info['spill_bytes']} bytes spilled a thread, "
@@ -1620,9 +1692,10 @@ def tri_phases(torch, rows):
             + (f" (the block-cull kernel's: {BLOCK_CULL_MEANS[name]:.7f})"
                if name in BLOCK_CULL_MEANS else ""))
         casts = int(name != "SH[block]")
+        expands = casts * (2 if name == "SH[exact]" else 1)
         if counts["cast_primary"] != casts or \
                 any(counts[k] <= 0 for k in want[name]) or \
-                (casts and counts["expand_pairs_fused"] <= 0):
+                counts["expand_pairs_fused"] != expands:
             raise SystemExit(f"phase tri-render: {name} did not run its "
                              f"kernels: {counts}")
         if any(flags.values()):
@@ -1702,6 +1775,13 @@ def tri_phases(torch, rows):
     tri_rows["cast_primary"]["launches"] = launches["cast_primary"]
     tri_rows["cast_primary[exact]"]["launches"] = \
         figures["SH[exact]"]["launches"]["cast_primary"]
+    # one rect binning's expand in each of SH, AO and PT; the exact
+    # binning's two (one each shape) in SH with exact spans
+    tri_rows["expand_pairs_fused[tri]"]["launches"] = \
+        launches["expand_pairs_fused"]
+    for k in x_names[1:]:
+        tri_rows[k]["launches"] = \
+            figures["SH[exact]"]["launches"]["expand_pairs_fused"] // 2
     for k in ("closest_hit_packed", "closest_hit_packed_any"):
         tri_rows[k]["launches"] = launches[k]
     tri_rows["closest_hit_packed[primary]"]["launches"] = \

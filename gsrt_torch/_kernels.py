@@ -161,7 +161,7 @@ BLEND_BACKWARD = CudaKernel(
 
 TRI_CAST = CudaKernel(
     "cast_primary", "tri_cast", "gsrt_tri_cast",
-    [P, P, LL, P, I, I, I, I, I, I, P, F, F, P, P, P])
+    [P, LL, P, P, I, I, I, I, I, I, P, F, F, P, P, P])
 # one entry point, two modes: each keeps a count of its own
 _TRAVERSE_ARGS = [P, P, P, I, P, P, P, I, P, I, I, I, I, P, P, P, P]
 TRI_CLOSEST_HIT = CudaKernel(

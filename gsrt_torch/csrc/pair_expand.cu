@@ -17,19 +17,27 @@
 // Cholesky words, rgba8 (zeroed for dead or mean-saturated pairs) and the
 // tile id (T past `total`).
 //
-// Design. One thread per output column: it finds s(p) by binary search
-// over base, then copies or emits. The TPU kernel streamed table windows
-// through a barrel shifter because its vector unit has no gather; Hopper
-// gathers directly, and the ~20 search steps of neighbouring threads read
-// the same few cache lines, so the search costs L1/L2 hits, not DRAM
-// traffic. A per-source write loop (one thread per source, writing its
-// run) was the alternative; it needs no search but leaves warps idle on
-// short runs and unbalanced on long ones, and its writes are not
-// coalesced. Integer division takes the place of the TPU's f32-division
-// fixups. The gather kernel (expand_pairs) is the same copy with s(p) read
-// from a row the wrapper computed: the TPU kernel streamed 128-aligned
-// table windows and shifted them into place, here it is one indexed load
-// per row.
+// Design. The copy and emit kernels give a block 1024 consecutive output
+// columns. s(p) does not fall as p grows, and every source in the block's
+// window after its first starts a column of the block, so the window is
+// at most 1024 sources long: warp 0 finds its first source by one 32-ary
+// search over base (a ballot of 32 probes a round, about five rounds for
+// two million sources, in place of a 21-step binary search a column), the
+// block stages base over the window in shared memory, and each thread
+// finds the source of the first of four consecutive columns by a binary
+// search there and walks on to the other three (a column starts a new
+// source or keeps the last one). This is the TPU kernel's merge of a base
+// window per block (_merge_rank) without its barrel shifter: Hopper
+// gathers directly. Where max_pairs is a multiple of 4 (every row then
+// starts 16-byte aligned) a thread stores its four columns as one int4 a
+// row; otherwise it takes the columns tid + 256 k (k < 4) through shared
+// memory, so that a warp's stores of a row still cover 32 consecutive
+// words. A thread issues the loads of 4 rows before their stores. Integer
+// division takes the place of the TPU's f32-division fixups. The gather
+// kernel (expand_pairs) is the same copy with s(p) read from a row
+// the wrapper computed, one thread a column: the TPU kernel streamed
+// 128-aligned table windows and shifted them into place, here it is one
+// indexed load per row.
 //
 // Bound. Bytes: each output word is written once (rows x 4 B x mp) and each
 // table column is read about once; there is no arithmetic to speak of.
@@ -37,35 +45,145 @@
 // devices; each entry point returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCols = 4;                         // output columns a thread
+constexpr int kBlockCols = kThreads * kCols;     // output columns a block
+constexpr int kMaxRows = 4;                      // rows loaded before stores
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // two-tier mean constants (gsrt_torch/ops/tile_binning.py)
 constexpr float kFineScale = 256.0f, kFineBias = 64.0f;
 constexpr float kCoarseScale = 8.0f, kCoarseBias = 2048.0f;
 
-__device__ __forceinline__ int source_of(const int* __restrict__ base, int n,
-                                         int p) {
-  int lo = 0, hi = n;  // first j with base[j] > p
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (__ldg(base + mid) <= p) lo = mid + 1; else hi = mid;
+// #{j : base[j] <= p} for a sorted base, by one warp: 32 probes a round.
+__device__ __forceinline__ int count_le(const int* __restrict__ base, int n,
+                                        int p) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the count lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int q = lo + lane * step;
+    const int k =
+        __popc(__ballot_sync(kFull, q < hi && __ldg(base + q) <= p));
+    if (k == 0) return lo;
+    lo += (k - 1) * step + 1;  // past the last probe <= p ...
+    hi = min(lo - 1 + step, hi);  // ... up to the first one above
   }
-  int s = lo - 1;
-  return s < 0 ? 0 : (s > n - 1 ? n - 1 : s);
+  return lo + __popc(__ballot_sync(
+                  kFull, lo + lane < hi && __ldg(base + lo + lane) <= p));
 }
 
-__global__ void expand_plain_kernel(const int* __restrict__ tab, int rows,
-                                    int n, const int* __restrict__ base,
-                                    int mp, int* __restrict__ out) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= mp) return;
-  int s = source_of(base, n, p);
-  for (int r = 0; r < rows; ++r)
-    out[(size_t)r * mp + p] = __ldg(tab + (size_t)r * n + s);
+// s(p) of the kCols consecutive columns from p, where s_win holds base
+// over the block's window from s_lo (INT_MAX past n).
+__device__ __forceinline__ int4 sources(const int* s_win, int s_lo, int p) {
+  int lo = 0, hi = kBlockCols + 1;  // first window entry above p
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_win[mid] <= p) lo = mid + 1; else hi = mid;
+  }
+  int i = lo > 0 ? lo - 1 : 0, s[kCols];
+  s[0] = s_lo + i;
+#pragma unroll
+  for (int k = 1; k < kCols; ++k) {
+    while (i < kBlockCols && s_win[i + 1] <= p + k) ++i;
+    s[k] = s_lo + i;
+  }
+  return make_int4(s[0], s[1], s[2], s[3]);
+}
+
+// This thread's columns of the block: with vec (max_pairs a multiple of
+// 4) the kCols consecutive ones from p0 + kCols * tid, stored as int4;
+// else p0 + tid + kThreads * k, stored one by one but coalesced.
+struct Cols {
+  int first, stride, cnt;  // column k is first + stride * k, k < cnt
+  int s[kCols];            // its source
+};
+
+// The block's window and this thread's columns with their sources. Every
+// thread of the block calls it (it holds the block's barriers).
+__device__ __forceinline__ Cols block_sources(const int* __restrict__ base,
+                                              int n, int mp, bool vec,
+                                              int* s_win, int4* s_src,
+                                              int& s_lo_sh) {
+  const int tid = threadIdx.x, p0 = blockIdx.x * kBlockCols;
+  if (tid < 32) {
+    const int c = count_le(base, n, p0);
+    if (tid == 0) s_lo_sh = min(max(c - 1, 0), n - 1);
+  }
+  __syncthreads();
+  const int s_lo = s_lo_sh;
+  for (int i = tid; i <= kBlockCols; i += kThreads)
+    s_win[i] = s_lo + i < n ? __ldg(base + s_lo + i) : INT_MAX;
+  __syncthreads();
+  const int q = p0 + kCols * tid;
+  const int4 mine = q < mp ? sources(s_win, s_lo, q) : make_int4(0, 0, 0, 0);
+  Cols c;
+  if (vec) {
+    c.first = q;
+    c.stride = 1;
+    c.cnt = min(max(mp - q, 0), kCols);
+    c.s[0] = mine.x; c.s[1] = mine.y; c.s[2] = mine.z; c.s[3] = mine.w;
+    return c;
+  }
+  s_src[tid] = mine;
+  __syncthreads();
+  const int* src = reinterpret_cast<const int*>(s_src);
+  c.first = p0 + tid;
+  c.stride = kThreads;
+  c.cnt = 0;
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const bool live = c.first + kThreads * k < mp;
+    c.s[k] = live ? src[tid + kThreads * k] : 0;
+    c.cnt += live;
+  }
+  return c;
+}
+
+// One row's words of this thread's columns (dst: the row's start).
+__device__ __forceinline__ void store_cols(int* dst, const Cols& c,
+                                           const int v[kCols], bool vec) {
+  if (vec) {
+    if (c.cnt == kCols)  // mp and the first column are multiples of 4
+      *reinterpret_cast<int4*>(dst + c.first) =
+          make_int4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kCols; ++k)
+    if (k < c.cnt) dst[c.first + kThreads * k] = v[k];
+}
+
+__global__ void __launch_bounds__(kThreads)
+expand_plain_kernel(const int* __restrict__ tab, int rows, int n,
+                    const int* __restrict__ base, int mp,
+                    int* __restrict__ out) {
+  __shared__ int s_win[kBlockCols + 1];
+  __shared__ int4 s_src[kThreads];
+  __shared__ int s_lo;
+  const bool vec = (mp & 3) == 0;
+  const Cols c = block_sources(base, n, mp, vec, s_win, s_src, s_lo);
+  for (int r0 = 0; r0 < rows; r0 += kMaxRows) {
+    int v[kMaxRows][kCols];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) {
+      if (r0 + r < rows) {
+        const int* row = tab + (size_t)(r0 + r) * n;
+#pragma unroll
+        for (int k = 0; k < kCols; ++k)
+          v[r][k] = k < c.cnt ? __ldg(row + c.s[k]) : 0;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r)
+      if (r0 + r < rows)
+        store_cols(out + (size_t)(r0 + r) * mp, c, v[r], vec);
+  }
 }
 
 __global__ void expand_gather_kernel(const int* __restrict__ tab, int rows,
@@ -93,40 +211,54 @@ __device__ __forceinline__ uint32_t pack_mean_axis(float v) {
 
 // tab rows: 0 geometry (x0 | ys << 12 | w << 24), 1 base, 2 mean x bits,
 // 3 mean y bits, 4 qab, 5 qcd, 6 rgba. out: [5, mp].
-__global__ void expand_emit_kernel(const int* __restrict__ tab, int n,
-                                   const int* __restrict__ base, int mp,
-                                   const int* __restrict__ total_ptr,
-                                   int ntx, int T, int tile_w, int tile_h,
-                                   int* __restrict__ out) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= mp) return;
-  int s = source_of(base, n, p);
-  int total = __ldg(total_ptr);
-  int e0 = __ldg(tab + s);
-  int gx0 = e0 & 0xFFF;
-  int gy0 = (e0 >> 12) & 0xFFF;
-  int gw = max((e0 >> 24) & 0x7F, 1);
-  int rank = max(p - __ldg(tab + (size_t)n + s), 0);
-  int q = rank / gw;
-  int tx = gx0 + (rank - q * gw);
-  int ty = gy0 + q;
-  float mx = __int_as_float(__ldg(tab + 2 * (size_t)n + s));
-  float my = __int_as_float(__ldg(tab + 3 * (size_t)n + s));
-  float mx_rel = __fsub_rn(mx, __fmul_rn((float)tx, (float)tile_w));
-  float my_rel = __fsub_rn(my, __fmul_rn((float)ty, (float)tile_h));
-  uint32_t meanp = (pack_mean_axis(mx_rel) << 16) | pack_mean_axis(my_rel);
-  bool mean_sat = fabsf(mx_rel) >= kCoarseBias - 0.5f ||
-                  fabsf(my_rel) >= kCoarseBias - 0.5f;
-  bool dead = p >= total;
-  out[p] = (int)meanp;
-  out[(size_t)mp + p] = __ldg(tab + 4 * (size_t)n + s);
-  out[2 * (size_t)mp + p] = __ldg(tab + 5 * (size_t)n + s);
-  out[3 * (size_t)mp + p] =
-      (mean_sat || dead) ? 0 : __ldg(tab + 6 * (size_t)n + s);
-  out[4 * (size_t)mp + p] = dead ? T : ty * ntx + tx;
+__global__ void __launch_bounds__(kThreads)
+expand_emit_kernel(const int* __restrict__ tab, int n,
+                   const int* __restrict__ base, int mp,
+                   const int* __restrict__ total_ptr, int ntx, int T,
+                   int tile_w, int tile_h, int* __restrict__ out) {
+  __shared__ int s_win[kBlockCols + 1];
+  __shared__ int4 s_src[kThreads];
+  __shared__ int s_lo;
+  const bool vec = (mp & 3) == 0;
+  const Cols c = block_sources(base, n, mp, vec, s_win, s_src, s_lo);
+  int w[7][kCols];
+#pragma unroll
+  for (int r = 0; r < 7; ++r)
+#pragma unroll
+    for (int k = 0; k < kCols; ++k)
+      w[r][k] = k < c.cnt ? __ldg(tab + (size_t)r * n + c.s[k]) : 0;
+  const int total = __ldg(total_ptr);
+  int o[5][kCols];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const int p = c.first + c.stride * k;
+    const int e0 = w[0][k];
+    const int gx0 = e0 & 0xFFF;
+    const int gy0 = (e0 >> 12) & 0xFFF;
+    const int gw = max((e0 >> 24) & 0x7F, 1);
+    const int rank = max(p - w[1][k], 0);
+    const int q = rank / gw;
+    const int tx = gx0 + (rank - q * gw);
+    const int ty = gy0 + q;
+    const float mx_rel = __fsub_rn(__int_as_float(w[2][k]),
+                                   __fmul_rn((float)tx, (float)tile_w));
+    const float my_rel = __fsub_rn(__int_as_float(w[3][k]),
+                                   __fmul_rn((float)ty, (float)tile_h));
+    const bool mean_sat = fabsf(mx_rel) >= kCoarseBias - 0.5f ||
+                          fabsf(my_rel) >= kCoarseBias - 0.5f;
+    const bool dead = p >= total;
+    o[0][k] = (int)((pack_mean_axis(mx_rel) << 16) |
+                    pack_mean_axis(my_rel));
+    o[1][k] = w[4][k];
+    o[2][k] = w[5][k];
+    o[3][k] = (mean_sat || dead) ? 0 : w[6][k];
+    o[4][k] = dead ? T : ty * ntx + tx;
+  }
+#pragma unroll
+  for (int r = 0; r < 5; ++r) store_cols(out + (size_t)r * mp, c, o[r], vec);
 }
 
-inline int blocks_for(int mp) { return (mp + kThreads - 1) / kThreads; }
+inline int blocks_for(int mp, int cols) { return (mp + cols - 1) / cols; }
 
 }  // namespace
 
@@ -135,7 +267,7 @@ extern "C" {
 int gsrt_expand_plain(const int* tab, int rows, int n, const int* base,
                       int mp, int* out, void* stream) {
   if (mp > 0)
-    expand_plain_kernel<<<blocks_for(mp), kThreads, 0,
+    expand_plain_kernel<<<blocks_for(mp, kBlockCols), kThreads, 0,
                           (cudaStream_t)stream>>>(tab, rows, n, base, mp,
                                                   out);
   return (int)cudaGetLastError();
@@ -144,7 +276,7 @@ int gsrt_expand_plain(const int* tab, int rows, int n, const int* base,
 int gsrt_expand_gather(const int* tab, int rows, int n, const int* src,
                        int mp, int* out, void* stream) {
   if (mp > 0)
-    expand_gather_kernel<<<blocks_for(mp), kThreads, 0,
+    expand_gather_kernel<<<blocks_for(mp, kThreads), kThreads, 0,
                            (cudaStream_t)stream>>>(tab, rows, n, src, mp,
                                                    out);
   return (int)cudaGetLastError();
@@ -154,7 +286,7 @@ int gsrt_expand_emit(const int* tab, int n, const int* base, int mp,
                      const int* total, int ntx, int T, int tile_w,
                      int tile_h, int* out, void* stream) {
   if (mp > 0)
-    expand_emit_kernel<<<blocks_for(mp), kThreads, 0,
+    expand_emit_kernel<<<blocks_for(mp, kBlockCols), kThreads, 0,
                          (cudaStream_t)stream>>>(tab, n, base, mp, total,
                                                  ntx, T, tile_w, tile_h,
                                                  out);

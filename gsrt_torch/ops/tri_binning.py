@@ -9,7 +9,9 @@ sorts each tile's pairs by the triangle's nearest-vertex camera z, and
 chunk once every pixel of the tile has a hit nearer than the chunk's
 smallest z. On a CUDA tensor the cast launches `csrc/tri_cast.cu` (which
 replaces the TPU kernel `_tri_cast_kernel`); on a CPU tensor it runs
-`cast_primary_plain`.
+`cast_primary_plain`. The kernel also skips, per warp of 32 pixels, the
+pairs no direction of the warp can take (`warp_cull`, interval arithmetic
+in the kernel's rounding), which changes no bit of the result.
 
 Payload: f32 [11, max_pairs] rows 0-2 v0, 3-5 e1, 6-8 e2, 9 triangle id
 (its int32 bits), 10 zmin. Dead columns carry zero geometry, the id
@@ -35,6 +37,7 @@ from gsrt_torch.ops.tile_binning import TileBinning, tile_extent, tile_histogram
 
 TRI_ROWS = 11            # payload rows
 CHUNK = 128              # pairs a cast stages and skips at once
+WARP = 32                # pixels a warp of the cast kernel: its cull's box
 _INF = 3.4e38            # the cast's "no hit" t and dead zmin
 _ID_SENTINEL = 0x7FFFFFFF
 _INF_BITS = int(np.array(_INF, np.float32).view(np.int32))
@@ -316,25 +319,140 @@ def cast_primary(binning: TileBinning, dirs, origin, *, width: int,
     framebuffer order, |d| ≈ 1 (zmin bounds t from below only for such
     rays); origin [3] the shared ray origin. Returns (t [H, W] f32, 3.4e38
     on a miss; tri_id [H, W] int32, _ID_SENTINEL on a miss). The origin is
-    subtracted from v0 before the cast, in f32, as the JAX package does."""
+    subtracted from v0 in f32, as the JAX package does (the kernel does it
+    for the pairs it casts)."""
     _check_cast(binning, dirs, width, height, tile_w, tile_h)
     if not dirs.is_cuda:
         return cast_primary_plain(binning, dirs, origin, width=width,
                                   height=height, tile_w=tile_w,
                                   tile_h=tile_h, t_min=t_min, t_max=t_max)
     pay = binning.payload.contiguous()
-    v0r = (pay[0:3] - origin.to(torch.float32)[:, None]).contiguous()
     d = dirs.contiguous()
+    o = origin.to(device=d.device, dtype=torch.float32).contiguous()
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     t = torch.empty((height, width), dtype=torch.float32, device=d.device)
     tid = torch.empty((height, width), dtype=torch.int32, device=d.device)
     with torch.cuda.device(d.device):
-        _kernels.TRI_CAST(v0r.data_ptr(), pay.data_ptr(), pay.shape[1],
+        _kernels.TRI_CAST(pay.data_ptr(), pay.shape[1], o.data_ptr(),
                           binning.tile_start.data_ptr(), ntx * nty, ntx,
                           width, height, tile_w, tile_h, d.data_ptr(),
                           t_min, t_max, t.data_ptr(), tid.data_ptr(),
                           _kernels.stream_ptr(d))
     return t, tid
+
+
+def _interval_scale(c, lo, hi):
+    """c * [lo, hi], each end rounded to nearest; ends ordered by c's sign
+    (a select, so NaN propagates)."""
+    p, q = c * lo, c * hi
+    pos = c >= 0
+    return torch.where(pos, p, q), torch.where(pos, q, p)
+
+
+def _interval_add(a, b):
+    return a[0] + b[0], a[1] + b[1]
+
+
+def _interval_sub(a, b):
+    return a[0] - b[1], a[1] - b[0]
+
+
+def _interval_mul_signed(a, b, pos):
+    """a * b where b > 0 throughout (pos) or b < 0 throughout."""
+    (alo, ahi), (blo, bhi) = a, b
+    lo = torch.where(pos, torch.where(alo >= 0, alo * blo, alo * bhi),
+                     torch.where(ahi >= 0, ahi * blo, ahi * bhi))
+    hi = torch.where(pos, torch.where(ahi >= 0, ahi * bhi, ahi * blo),
+                     torch.where(alo >= 0, alo * bhi, alo * blo))
+    return lo, hi
+
+
+def cast_intervals(box, rec):
+    """The cast kernel's warp-cull intervals: for a box of directions
+    (three (lo, hi) pairs) and a pair's record (tvec, e1, e2, qvec, three
+    each, and e2 . qvec), intervals holding every det, u, v and t that
+    Möller–Trumbore, rounded as the kernel rounds it, gives a direction in
+    the box. Rounding to nearest is monotone, so each end is the same
+    f32 operation on the ends of its operands. Returns a dict of (lo, hi)
+    tensors (u, v and t are meaningful where "signed": every det in the
+    box is past ±1e-12 with one sign) and the "flat" mask (every |det| <=
+    1e-12). Tensors broadcast; NaN propagates to the ends it touches."""
+    dx, dy, dz = box
+    tx, ty, tz, e1x, e1y, e1z, e2x, e2y, e2z, qx, qy, qz, e2q = rec
+    sc, add, sub = _interval_scale, _interval_add, _interval_sub
+    pvx = sub(sc(e2z, *dy), sc(e2y, *dz))
+    pvy = sub(sc(e2x, *dz), sc(e2z, *dx))
+    pvz = sub(sc(e2y, *dx), sc(e2x, *dy))
+    det = add(add(sc(e1x, *pvx), sc(e1y, *pvy)), sc(e1z, *pvz))
+    pos = det[0] > 1e-12
+    inv = (1.0 / det[1], 1.0 / det[0])                 # 1/x falls
+    u = _interval_mul_signed(add(add(sc(tx, *pvx), sc(ty, *pvy)),
+                                 sc(tz, *pvz)), inv, pos)
+    v = _interval_mul_signed(add(add(sc(qx, *dx), sc(qy, *dy)),
+                                 sc(qz, *dz)), inv, pos)
+    return dict(det=det, u=u, v=v, t=sc(e2q, *inv),
+                flat=(det[0] >= -1e-12) & (det[1] <= 1e-12),
+                signed=pos | (det[1] < -1e-12))
+
+
+def warp_cull(box, rec, t_min: float, t_max: float, bound):
+    """The cast kernel's cull of a pair for a warp, in its arithmetic: True
+    where no direction in the box can accept the pair (every |det| <=
+    1e-12; or, det of one sign, u < 0, v < 0, u + v > 1, t <= t_min or t
+    >= t_max over the whole interval) or take it below `bound`, the warp's
+    largest min(best t, running minimum) over its in-image lanes. A lane
+    whose t exceeds its own min(best t, running minimum) cannot change its
+    result, so the kernel's output does not change."""
+    iv = cast_intervals(box, rec)
+    u, v, t = iv["u"], iv["v"], iv["t"]
+    return iv["flat"] | (iv["signed"] & (
+        (u[1] < 0) | (v[1] < 0) | (u[0] + v[0] > 1) | (t[1] <= t_min)
+        | (t[0] >= t_max) | (t[0] > bound)))
+
+
+def moller_trumbore(d, rec, t_min: float, t_max: float):
+    """Per ray, the cast's Möller–Trumbore as the kernel rounds it (each
+    product and sum on its own): a dict of "ok" (accepted), "t", "det",
+    "u" and "v". d is (dx, dy, dz), rec as in `cast_intervals`; tensors
+    broadcast."""
+    dx, dy, dz = d
+    tx, ty, tz, e1x, e1y, e1z, e2x, e2y, e2z, qx, qy, qz, e2q = rec
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    det_ok = det.abs() > 1e-12
+    inv_det = torch.where(det_ok, 1.0 / det, torch.zeros_like(det))
+    u = (tx * pvx + ty * pvy + tz * pvz) * inv_det
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = e2q * inv_det
+    ok = (det_ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > t_min)
+          & (t < t_max))
+    return dict(ok=ok, t=t, det=det, u=u, v=v)
+
+
+def pair_records(v0r, e1, e2):
+    """A pair's record as the kernel stages it: tvec = -v0r, e1, e2, qvec
+    = tvec x e1 and e2 . qvec (13 tensors; v0r, e1, e2 each (x, y, z))."""
+    tx, ty, tz = (-c for c in v0r)
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    e2q = e2x * qx + e2y * qy + e2z * qz
+    return (tx, ty, tz, e1x, e1y, e1z, e2x, e2y, e2z, qx, qy, qz, e2q)
+
+
+def warp_boxes(d, in_image):
+    """Each warp's box of directions: d [..., 32, 3] and in_image [...,
+    32] -> three (lo, hi) pairs [...]; lanes outside the image and NaN
+    components stay out (an empty box is (inf, -inf))."""
+    keep = in_image[..., None] & ~torch.isnan(d)
+    inf = torch.full_like(d, np.inf)
+    lo = torch.where(keep, d, inf).amin(-2)
+    hi = torch.where(keep, d, -inf).amax(-2)
+    return tuple((lo[..., i], hi[..., i]) for i in range(3))
 
 
 def cast_primary_plain(binning: TileBinning, dirs, origin, *, width: int,
@@ -347,15 +465,26 @@ def cast_primary_plain(binning: TileBinning, dirs, origin, *, width: int,
     pixels past the image edge, whose direction is 0, included); within a
     chunk a pixel takes the smallest t, ties to the smallest id, and keeps
     it only when strictly below its best. `stats` receives the chunks and
-    pairs cast ("chunks", "pairs")."""
+    pairs cast ("chunks", "pairs"), the (warp, pair) steps of them for
+    warps of 32 pixels ("warp_steps") and those the kernel's warp cull
+    removes ("culled_steps", `warp_cull` per 32-pair batch)."""
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     T, npx = ntx * nty, tile_w * tile_h
+    nw = npx // WARP
     dev = dirs.device
     d = dirs.reshape(height, width, 3)
     d = torch.nn.functional.pad(d, (0, 0, 0, ntx * tile_w - width, 0,
                                      nty * tile_h - height))
     d = d.reshape(nty, tile_h, ntx, tile_w, 3).permute(0, 2, 1, 3, 4)
     d = d.reshape(T, npx, 3)
+    if stats is not None:
+        gy = torch.arange(nty * tile_h, device=dev) < height
+        gx = torch.arange(ntx * tile_w, device=dev) < width
+        in_img = (gy[:, None] & gx[None, :]).reshape(
+            nty, tile_h, ntx, tile_w).permute(0, 2, 1, 3).reshape(T, npx)
+        boxes = warp_boxes(d.reshape(T, nw, WARP, 3),
+                           in_img.reshape(T, nw, WARP))
+        has_px = in_img.reshape(T, nw, WARP).any(2)
     pay = binning.payload
     v0r = pay[0:3] - origin.to(torch.float32)[:, None]
     rows = torch.cat([v0r, pay[3:9]])                   # [9, L]
@@ -370,7 +499,7 @@ def cast_primary_plain(binning: TileBinning, dirs, origin, *, width: int,
                          device=dev)
     lane = torch.arange(CHUNK, device=dev)
     batch = max(1, (1 << 24) // (npx * CHUNK))
-    n_cast = n_pairs = 0
+    n_cast = n_pairs = warp_steps = culled = 0
     for c in range(int(n_chunks.max()) if T else 0):
         tiles = (n_chunks > c).nonzero()[:, 0]
         for s in range(0, tiles.numel(), batch):
@@ -387,34 +516,40 @@ def cast_primary_plain(binning: TileBinning, dirs, origin, *, width: int,
             g = rows[:, cols][:, :, None, :]             # [9, b, 1, CHUNK]
             ids = ids_all[cols][:, None, :]
             db = d[tl]
-            dx, dy, dz = (db[:, :, i:i + 1] for i in range(3))
-            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = g
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            det_ok = det.abs() > 1e-12
-            inv_det = torch.where(det_ok, 1.0 / det, torch.zeros_like(det))
-            tvx, tvy, tvz = -v0x, -v0y, -v0z
-            u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-            qvx = tvy * e1z - tvz * e1y
-            qvy = tvz * e1x - tvx * e1z
-            qvz = tvx * e1y - tvy * e1x
-            vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-            tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-            ok = (det_ok & (u >= 0) & (vv >= 0) & (u + vv <= 1)
-                  & (tt > t_min) & (tt < t_max) & live[:, None, :]
-                  & (ids != _ID_SENTINEL))
+            rec = pair_records(g[0:3], g[3:6], g[6:9])
+            mt = moller_trumbore(
+                tuple(db[:, :, i:i + 1] for i in range(3)), rec, t_min,
+                t_max)
+            tt = mt["t"]
+            ok = mt["ok"] & live[:, None, :] & (ids != _ID_SENTINEL)
             tc = torch.where(ok, tt, torch.full_like(tt, _INF))
             m = tc.amin(2)
             im = torch.where(tc <= m[:, :, None], ids,
                              torch.full_like(ids, _ID_SENTINEL)).amin(2)
             bt = best_t[tl]
+            if stats is not None:
+                # the warp's bound at each batch's start: its in-image
+                # lanes' largest min(best t, running minimum)
+                run = tc.cummin(2).values[:, :, WARP - 1:CHUNK - 1:WARP]
+                mu = torch.minimum(bt[:, :, None], torch.cat(
+                    [torch.full_like(run[:, :, :1], _INF), run], 2))
+                bound = torch.where(in_img[tl][:, :, None], mu,
+                                    torch.full_like(mu, -np.inf))
+                bound = bound.reshape(tl.numel(), nw, WARP,
+                                      bound.shape[2]).amax(2)
+                cut = warp_cull(
+                    tuple((lo[tl][:, :, None], hi[tl][:, :, None])
+                          for lo, hi in boxes), rec, t_min, t_max,
+                    bound.repeat_interleave(WARP, 2))
+                cut = cut | ~has_px[tl][:, :, None] | (ids == _ID_SENTINEL)
+                warp_steps += nw * live.sum()
+                culled += (cut & live[:, None, :]).sum()
             upd = (m < bt) & (m < _INF)
             best_t[tl] = torch.where(upd, m, bt)
             best_id[tl] = torch.where(upd, im, best_id[tl])
     if stats is not None:
-        stats.update(chunks=n_cast, pairs=int(n_pairs))
+        stats.update(chunks=n_cast, pairs=int(n_pairs),
+                     warp_steps=int(warp_steps), culled_steps=int(culled))
 
     def unshuffle(a):
         a = a.reshape(nty, ntx, tile_h, tile_w).permute(0, 2, 1, 3)

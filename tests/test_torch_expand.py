@@ -22,6 +22,7 @@ import torch
 from gsrt.ops import pair_expand as j_pe
 
 from gsrt_torch.ops import pair_expand as t_pe
+from test_torch_gpu import expand_edge_cases
 
 DEAD = t_pe._DEAD_BASE
 assert DEAD == j_pe._DEAD_BASE
@@ -170,3 +171,20 @@ def test_wrappers_validate_inputs():
                                  base, 8, total=torch.tensor(0), ntx=1, T=1,
                                  tile_w=32, tile_h=16)
 
+
+
+@pytest.mark.parametrize("case", list(expand_edge_cases()))
+def test_copy_mode_edge_cases_match_jax_bitwise(case):
+    """The cases a block-windowed expand kernel can get wrong (a run
+    longer than a block, a window of 1025 sources, dead sources after the
+    live ones, dead columns, one source, a max_pairs that is no multiple
+    of 4, no live source): the plain version equals the JAX kernel bit
+    for bit; tests/test_torch_gpu.py holds the CUDA kernels to it."""
+    runs, mp = expand_edge_cases()[case]
+    rng = np.random.default_rng(runs.shape[0])
+    base = np.where(runs > 0, np.cumsum(runs) - runs, DEAD).astype(np.int32)
+    tab = _table(rng, 8, runs.shape[0], base)
+    got = t_pe.expand_pairs_fused(torch.as_tensor(tab),
+                                  torch.as_tensor(base), mp)
+    assert got.shape == (8, mp)
+    np.testing.assert_array_equal(got.numpy(), _jax_fused(tab, base, mp))

@@ -54,6 +54,57 @@ def _runs_to_base(runs):
     return np.where(runs > 0, np.cumsum(runs) - runs, DEAD).astype(np.int32)
 
 
+def expand_edge_cases() -> dict:
+    """name -> (run lengths [n], max_pairs): the shapes a block-windowed
+    expand can get wrong (its blocks hold 1024 columns)."""
+    rng = np.random.default_rng(9)
+    runs = lambda n: rng.integers(1, 9, n)                     # noqa: E731
+    cases = {
+        "long_run": (np.array([5, 3000, 7, 1]), None),   # a run > a block
+        "window_full": (np.ones(2100, np.int64), None),  # 1025 sources
+        "dead_tail": (np.r_[runs(300), np.zeros(200, np.int64)], 1),
+        "dead_columns": (runs(500), 333),                # total < mp
+        "one_source": (np.array([2500]), 501),           # n = 1
+        "ragged": (runs(700), -3),                       # mp % 4 != 0
+        "all_dead": (np.zeros(64, np.int64), None),
+    }
+    return {k: (r, int(r.sum()) + (d or 0) if r.sum() else 1500)
+            for k, (r, d) in cases.items()}
+
+
+def _edge_tables(case, rows, device):
+    runs, mp = expand_edge_cases()[case]
+    rng = np.random.default_rng(rows)
+    n = runs.shape[0]
+    tab = rng.integers(-2**31, 2**31 - 1, (rows, n)).astype(np.int32)
+    tab[0] = (rng.integers(0, 60, n) | (rng.integers(0, 60, n) << 12)
+              | (rng.integers(0, 8, n) << 24))
+    tab[1] = _runs_to_base(runs)
+    tab[2:4] = rng.normal(300, 900, (2, n)).astype(np.float32).view(
+        np.int32)
+    tab = torch.as_tensor(tab, device=device)
+    return tab, tab[1].contiguous(), mp, int(runs.sum())
+
+
+@pytest.mark.parametrize("case", list(expand_edge_cases()))
+def test_expand_kernels_edge_cases_bitwise(cuda, case):
+    """The copy kernel at the triangle binning's 15 rows and the emit
+    kernel on each edge case, bit for bit against the plain versions, and
+    a second launch equal to the first."""
+    tab, base, mp, total = _edge_tables(case, 15, cuda)
+    got = t_pe.expand_pairs_fused(tab, base, mp)
+    assert torch.equal(got, t_pe.expand_pairs_plain(tab, base, mp))
+    assert torch.equal(t_pe.expand_pairs_fused(tab, base, mp), got)
+    kw = dict(total=torch.tensor(max(min(total, mp) - 5, 0),
+                                 dtype=torch.int32, device=cuda),
+              ntx=60, T=60 * 70, tile_w=32, tile_h=16)
+    emit = tab[:t_pe.EMIT_TAB_ROWS].contiguous()
+    got = t_pe.expand_pairs_binned(emit, base, mp, **kw)
+    assert torch.equal(got, t_pe.expand_pairs_binned_plain(emit, base, mp,
+                                                           **kw))
+    assert torch.equal(t_pe.expand_pairs_binned(emit, base, mp, **kw), got)
+
+
 def test_expand_copy_kernel_bitwise(cuda):
     rng = np.random.default_rng(2)
     n = 50_000
@@ -479,10 +530,45 @@ def test_tri_cast_kernel_bitwise(cuda, tile, span_exact):
     before = _kernels.TRI_CAST.launches
     kw = dict(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
     t_k, id_k = t_tbin.cast_primary(b, dirs, cam.position, **kw)
-    t_p, id_p = t_tbin.cast_primary_plain(b, dirs, cam.position, **kw)
+    stats = {}
+    t_p, id_p = t_tbin.cast_primary_plain(b, dirs, cam.position,
+                                          stats=stats, **kw)
     assert _kernels.TRI_CAST.launches == before + 1
     assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
     assert (t_k < 3e38).float().mean() > 0.2
+    # the image has a row or column of edge tiles; the warp cull removes
+    # steps; a second launch gives the same bits
+    assert W % tile[0] or H % tile[1]
+    assert 0 < stats["culled_steps"] < stats["warp_steps"]
+    t_2, id_2 = t_tbin.cast_primary(b, dirs, cam.position, **kw)
+    assert torch.equal(t_2, t_k) and torch.equal(id_2, id_k)
+
+
+@pytest.mark.parametrize("span_exact", [False, True])
+def test_tri_cast_kernel_overflowed_binning(cuda, span_exact):
+    """A binning cut short by max_pairs has tile segments whose zmin does
+    not ascend; the kernel, which does not rely on the order, still
+    equals the plain version bit for bit."""
+    from gsrt_torch.core.types import look_at, make_camera
+    from gsrt_torch.models import path_tracer as t_pt
+    from gsrt_torch.ops import tri_binning as t_tbin
+    W, H = 200, 120
+    cam = make_camera(look_at((0, 0, -7.0), (0, 0, 0)), 55.0, W, H,
+                      device=cuda)
+    v = [torch.as_tensor(a, device=cuda) for a in _tri_soup(2000, 6)]
+    full = t_tbin.build_tri_binning(*v, cam, tile_w=16, tile_h=8,
+                                    max_pairs=1 << 19, span_exact=span_exact)
+    b = t_tbin.build_tri_binning(*v, cam, tile_w=16, tile_h=8,
+                                 max_pairs=int(full.total_pairs) // 2,
+                                 span_exact=span_exact)
+    assert bool(b.overflow)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    _, dirs = t_pt.generate_camera_rays(gen, cam, RenderConfig(width=W,
+                                                               height=H))
+    kw = dict(width=W, height=H, tile_w=16, tile_h=8)
+    t_k, id_k = t_tbin.cast_primary(b, dirs, cam.position, **kw)
+    t_p, id_p = t_tbin.cast_primary_plain(b, dirs, cam.position, **kw)
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
 
 
 @pytest.mark.parametrize("rb", [128, 512, 1024])

@@ -11,7 +11,10 @@ Möller–Trumbore's products into FMAs, the port rounds each on its own),
 the hit mask equal and triangle ids equal on at least 99.9% of pixels (a
 last-ulp difference in t can pick the other triangle of a near tie). The
 port's cast against its own brute-force Möller–Trumbore sweep: hits equal,
-t at rtol 1e-5, ids equal wherever the brute-force t is not tied.
+t at rtol 1e-5, ids equal wherever the brute-force t is not tied. The CUDA
+kernel's warp cull (`warp_cull`, its arithmetic) is held exactly: no
+(warp, pair) it removes has a lane that would take the pair, on random and
+adversarial warps and triangles.
 """
 
 from __future__ import annotations
@@ -229,3 +232,172 @@ def test_overflow_and_exact_span_limit():
     with pytest.raises(ValueError, match="nty"):
         t_tbin.build_tri_binning(*map(_t, v), tall, max_pairs=64,
                                  span_exact=True, **TILE)
+
+
+# --- the cast kernel's warp cull and the order it reads (no JAX) ---
+
+CULL_CASES = ("random", "grazing", "near_plane", "zero_area", "t_limits",
+              "non_finite")
+CULL_T = (0.5, 5.0)          # t_min, t_max of the cull cases
+
+
+def _cull_case(kind, seed, warps=48, pairs=256):
+    """Warps of 32 directions around an axis each (a few lanes outside
+    the image, direction 0; warps 2-5 one direction) and triangles seen
+    along those axes, per kind: random; grazing (planes nearly holding
+    the axis, |det| near 1e-12); crossing the origin's plane; zero-area;
+    at t_min and t_max; with non-finite vertices and directions. Returns (d [warps, 32, 3],
+    in_image [warps, 32], v0, e1, e2 [pairs, 3]) as f32 tensors."""
+    rng = np.random.default_rng(seed)
+    unit = lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True)  # noqa
+    axis = unit(rng.normal(size=(warps, 1, 3)))
+    spread = 10.0 ** rng.uniform(-3.5, -1.3, (warps, 1, 1))
+    spread[2:6] = 0.0                           # one direction a warp
+    d = unit(axis + spread * rng.normal(size=(warps, 32, 3)))
+    in_image = rng.random((warps, 32)) > 0.1
+    in_image[:2] = False                        # warps of padding alone
+    in_image[2:6] = True
+    d[~in_image] = 0.0
+    w = rng.integers(0, warps, pairs)           # the warp a pair aims at
+    a = axis[w, 0]
+    dist = rng.uniform(1.0, 8.0, (pairs, 1))
+    size = dist * np.maximum(spread[w, 0], 1e-2) * rng.uniform(
+        0.5, 4.0, (pairs, 1))
+    off = spread[w, 0] * dist * rng.normal(0, 1.5, (pairs, 3))
+    centre = a * dist + off
+    e1 = rng.normal(size=(pairs, 3)) * size
+    e2 = rng.normal(size=(pairs, 3)) * size
+    if kind == "grazing":
+        n = unit(np.cross(a, rng.normal(size=(pairs, 3))))
+        s = 10.0 ** rng.uniform(-6.5, -1, (pairs, 1))
+        e1 = unit(np.cross(n, rng.normal(size=(pairs, 3)))) * s
+        e2 = unit(np.cross(n, e1)) * s + n * s * 10.0 ** rng.uniform(
+            -6, -1, (pairs, 1))
+        centre = a * dist + off * 1e-2
+    elif kind == "near_plane":
+        centre = a * rng.uniform(-0.05, 0.05, (pairs, 1)) + off
+        e1 = e1 + a * rng.uniform(-2, 2, (pairs, 1))
+    elif kind == "zero_area":
+        e2 = np.where(rng.random((pairs, 1)) < 0.5, 0.0,
+                      e1 * rng.uniform(-2, 2, (pairs, 1)))
+    elif kind == "t_limits":
+        t = np.where(rng.random((pairs, 1)) < 0.5, CULL_T[0], CULL_T[1])
+        centre = a * t * rng.uniform(0.999, 1.001, (pairs, 1)) + off * 1e-3
+        e1, e2 = e1 * t / dist, e2 * t / dist
+    elif kind == "non_finite":
+        bad = np.array([np.inf, -np.inf, np.nan])
+        for arr in (centre, e1, e2):
+            pick = rng.random(arr.shape) < 0.05
+            arr[pick] = rng.choice(bad, int(pick.sum()))
+        pick = (rng.random((warps, 32, 3)) < 0.02) & in_image[..., None]
+        d[pick] = rng.choice(bad, int(pick.sum()))
+    with np.errstate(invalid="ignore"):
+        v0 = centre - (e1 + e2) / 3
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa
+    return f32(d), torch.as_tensor(in_image), f32(v0), f32(e1), f32(e2)
+
+
+@pytest.mark.parametrize("kind", CULL_CASES)
+def test_warp_cull_is_exact(kind):
+    """No (warp, pair) that the cast kernel's cull removes has a lane
+    that accepts the pair, or, with the depth bound, one that accepts it
+    at a t no larger than the lane's min(best t, running minimum); every
+    lane's rounded det, u, v, u + v and t lie in the cull's intervals. The
+    cull is the kernel's arithmetic (`t_tbin.warp_cull`), the lanes the
+    kernel's per-lane rounding (`t_tbin.moller_trumbore`)."""
+    d, in_image, v0, e1, e2 = _cull_case(kind, CULL_CASES.index(kind))
+    t_min, t_max = CULL_T
+    col = lambda a: tuple(a[:, i][None, None, :] for i in range(3))  # noqa
+    rec = t_tbin.pair_records(col(v0), col(e1), col(e2))  # origin 0
+    lanes = t_tbin.moller_trumbore(
+        tuple(d[..., i:i + 1] for i in range(3)), rec, t_min, t_max)
+    ok, t = lanes["ok"], lanes["t"]                  # [warps, 32, pairs]
+    assert not ok[~in_image].any()                   # padding lanes
+    box = tuple((lo[:, None, None], hi[:, None, None])
+                for lo, hi in t_tbin.warp_boxes(d, in_image))
+    # lanes with a NaN direction stay out of the box: they accept nothing
+    assert not ok[torch.isnan(d).any(-1)].any()
+    inf = torch.full((d.shape[0], 1, 1), np.inf)
+    cut = t_tbin.warp_cull(box, rec, t_min, t_max, inf)[:, 0]
+    assert not (cut[:, None, :] & ok).any()
+    assert 0 < cut.float().mean() < 1
+    assert ok.any() or kind == "zero_area"
+    # the depth bound: a lane's min(best t, running minimum), random
+    rng = np.random.default_rng(7)
+    mu = torch.as_tensor(rng.uniform(t_min, 2.0, (d.shape[0], 32, 1)),
+                         dtype=torch.float32)
+    mu = torch.where(torch.as_tensor(rng.random(mu.shape) < 0.005),
+                     torch.full_like(mu, 3.4e38), mu)
+    # ties: warps 2-5 hold one direction, so their intervals are points;
+    # their lanes' bound is the t of the first pair they accept
+    ties = 0
+    for w in range(2, 6):
+        hit = ok[w, 0].nonzero()[:, 0]
+        if hit.numel():
+            mu[w] = t[w, 0, hit[0]]
+            ties += 1
+    assert ties or kind == "zero_area"
+    bound = torch.where(in_image[..., None], mu,
+                        torch.full_like(mu, -np.inf)).amax(1, True)
+    cut_d = t_tbin.warp_cull(box, rec, t_min, t_max, bound)[:, 0]
+    assert not (cut_d[:, None, :] & ok & (t <= mu)).any()
+    assert (cut_d | ~cut).all()
+    assert (cut_d & ~cut).any() or kind in ("near_plane", "zero_area")
+    # enclosure, lane by lane, where the lane's value is a number
+    iv = t_tbin.cast_intervals(box, rec)
+    inside = in_image & ~torch.isnan(d).any(-1)
+    inside = inside[..., None].expand_as(ok)
+
+    def held(name, val, where):
+        lo, hi = (e.expand_as(val) for e in iv[name])
+        w = where & inside & ~torch.isnan(val) & ~torch.isnan(lo) \
+            & ~torch.isnan(hi)
+        assert ((lo[w] <= val[w]) & (val[w] <= hi[w])).all(), name
+    everywhere = torch.ones_like(ok)
+    held("det", lanes["det"], everywhere)
+    signed = iv["signed"].expand_as(ok)
+    for name in ("u", "v", "t"):
+        held(name, lanes[name], signed)
+    u_lo, v_lo = (iv[k][0].expand_as(ok) for k in ("u", "v"))
+    uv, lo = lanes["u"] + lanes["v"], u_lo + v_lo
+    w = signed & inside & ~torch.isnan(uv) & ~torch.isnan(lo)
+    assert (lo[w] <= uv[w]).all()
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["rect", "exact"])
+def test_zmin_ascends_in_tile_segments(exact):
+    """build_tri_binning sorts each tile's pairs by ascending zmin, near-
+    plane crossers and off-screen triangles included, so once a cast skips
+    a chunk it skips the rest of the tile; a binning that overflowed
+    max_pairs does not keep that order, so the kernel does not rely on
+    it."""
+    v0, v1, v2 = _soup(600, 11, spread=3.0, size=0.8)
+    v0[:20, 2] = -7.5                # behind the camera: near-plane crossers
+    _, cam = _cameras(80, 48)
+    kw = dict(TILE, span_exact=exact)
+    b = t_tbin.build_tri_binning(*map(_t, (v0, v1, v2)), cam,
+                                 max_pairs=1 << 15, **kw)
+    assert not bool(b.overflow)
+    zmin, ts = b.payload[10].numpy(), b.tile_start.numpy()
+    seg = np.repeat(np.arange(ts.shape[0] - 1), np.diff(ts))
+    step = np.diff(zmin[:ts[-1]])
+    assert (np.diff(ts) > t_tbin.CHUNK).any()
+    assert (step[seg[1:] == seg[:-1]] >= 0).all()
+    small = t_tbin.build_tri_binning(*map(_t, (v0, v1, v2)), cam,
+                                     max_pairs=int(b.total_pairs) // 2,
+                                     **kw)
+    zs, tss = small.payload[10].numpy(), small.tile_start.numpy()
+    seg = np.repeat(np.arange(tss.shape[0] - 1), np.diff(tss))
+    assert bool(small.overflow)
+    assert (np.diff(zs[:tss[-1]])[seg[1:] == seg[:-1]] < 0).any()
+
+
+def test_cast_stats_count_culled_steps(binnings, casts):
+    """The plain cast counts the (warp, pair) steps of the chunks it
+    casts and those the kernel's warp cull removes."""
+    for name in SCENES:
+        _, _, _, _, tb = binnings[name, False]
+        stats = casts[name, False][4]
+        nw = TILE["tile_w"] * TILE["tile_h"] // t_tbin.WARP
+        assert stats["warp_steps"] == nw * stats["pairs"]
+        assert 0 < stats["culled_steps"] < stats["warp_steps"]
