@@ -59,8 +59,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              render_tiled_diff with the kernel entry points recorded;
 12. gather / subtile / backward / lut-train — the f32 stream's kernels
              against their plain versions on the captured inputs:
-             expand_pairs and the copy-mode expand at the f32 table's rows
-             bit for bit, blend_subtiles atol 1e-4 over every tile,
+             expand_pairs (one launch that finds its sources itself, no
+             torch.searchsorted; timed also as the kernel alone) and the
+             copy-mode expand at the f32 table's rows bit for bit,
+             blend_subtiles atol 1e-4 over every tile,
              blend_backward per gradient row, divided by the row's largest
              magnitude, atol 1e-3 over every tile, and bit for bit against
              a second run of itself; both again with the exp LUT; for each
@@ -77,7 +79,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
 14. train-check — a small scene where the tiled gradients (kernels) are
              held against render_fast under autograd on the card, each
              divided by its largest magnitude, atol 2e-3;
-15. tri-cast — the binned primary cast's kernel against its plain version
+15. fit    — tools/fit_bench.py's workload through
+             gsrt_torch.models.multiview.fit_views: a 40K-splat ground
+             truth (random_cloud(40_000, seed=0, extent=2.5,
+             scale_range=(0.04, 0.18))), 28 views at 800x600, 50 degrees,
+             on two elevation rings, targets from render_fast; 5,000 noisy
+             SfM points (default_rng(1)) written as a COLMAP text model
+             with the port's writer and read back; holdout 7, a densify
+             event every 300 steps up to 75%, max_splats 120,000, an
+             opacity reset every 900 steps, SH degree 0, max_pairs 2^20,
+             2,000 tiled steps, launch counts to 0 just before the fit and
+             read just after; ms/step at the initial and the final N (CUDA
+             events over 10 steps), each densify event's card and host ms
+             and N before and after, the largest live pair count of a step,
+             train and holdout PSNR; then one tiled step on the final
+             cloud (padding rows included) with its kernels held against
+             their plain versions (the copy expand bit for bit, the forward
+             atol 1e-4, backward rows 1e-3 of their largest); fails on a
+             non-finite loss, a mean loss of the last 100 steps not below
+             the first 100's, a first event whose live count does not grow
+             or that neither clones nor splits, N above
+             round_up_to(max_splats), a holdout PSNR not finite and above
+             the initial cloud's, or a kernel that differs from its plain
+             version;
+16. tri-cast — the binned primary cast's kernel against its plain version
              bit for bit (t and triangle ids) on the inputs captured from
              an SH render of soup359k (rect spans, 32x16 tiles), on
              soup359k's exact spans and on bigtris (rect and exact, 16x8
@@ -90,7 +115,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              plain version bit for bit; bigtris' binned primary (binning
              + cast) timed as tools/tri_bench.py times it, its launches
              counted;
-16. tri-traverse — the packed-cluster traversal kernel's build
+17. tri-traverse — the packed-cluster traversal kernel's build
              (registers, spills, shared memory, resident blocks, the SASS
              instructions of its per-triangle loop where cuobjdump exists),
              then the kernel against its plain version on soup359k:
@@ -104,7 +129,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              result differs counted (closest hit: each a tie at rtol 1e-5;
              any hit: the hit masks equal); bounds by the warp cull's
              tests and the block cull's, and the instruction floor;
-17. tri-render — SH, AO and PT on soup359k through
+18. tri-render — SH, AO and PT on soup359k through
              gsrt_torch.models.path_tracer (primary_impl "auto"), SH with
              exact spans and SH with primary_impl "block": counts set to 0
              just before each and read just after (one cast a render but
@@ -124,6 +149,7 @@ RenderConfig(conic_mode="standard") defaults. The training workload is
 random_cloud(100K, seed=0) at 800x600, SH degree 3,
 RenderConfig(conic_mode="standard") defaults (32x16 tiles), the target its own
 tiled render, the start init_params of it with the means moved by 0.02·N(0, 1).
+The fit workload is tools/fit_bench.py's (phase 15).
 The triangle workloads are tools/tri_bench.py's generator (centres
 U(-2, 2)^3, each vertex its centre + N(0, sd), NumPy default_rng(0)) seen
 from look_at((0, 0, -7), (0, 0, 0)) at 55 degrees, 1920x1080: bigtris is
@@ -177,6 +203,16 @@ FWD_ACCEPT_FLOPS = 9
 # nine sums over pixels 9.
 BWD_ACCEPT_FLOPS = 65
 LUT_STEPS, TILES128_STEPS = 2, 2
+
+# --- the fit workload (tools/fit_bench.py): a synthetic posed capture ---
+FIT_GT, FIT_EXTENT, FIT_SCALES = 40_000, 2.5, (0.04, 0.18)
+FIT_VIEWS, FIT_W, FIT_H, FIT_FOV = 28, 800, 600, 50.0
+FIT_SFM, FIT_SFM_NOISE = 5_000, 0.01     # points; noise × extent
+FIT_ITERS, FIT_HOLDOUT, FIT_DENSIFY_EVERY = 2_000, 7, 300
+FIT_MAX_SPLATS, FIT_RESET_EVERY = 120_000, 900
+FIT_MAX_PAIRS = 1 << 20
+FIT_PROBE_STEPS = 10    # steps timed at the initial and the final N
+FIT_WINDOW = 100        # steps averaged at the start and the end
 
 # --- the serving workload (tools/serving_bench.py) and the tile stream ---
 TILES_SRC = "gsrt_torch/csrc/splat_subtile.cu"
@@ -499,6 +535,28 @@ def train_phases(torch):
         lambda: pair_expand.expand_pairs_plain(tab, base, mp),
         lambda: tab.index_select(1, pair_expand.source_index(base, mp)),
         0, expand_bytes, phase="gather"))
+    # one launch, and no torch.searchsorted outside the kernel
+    before = _kernels.launch_counts()
+
+    def no_search(*a, **kw):
+        raise SystemExit("phase gather: expand_pairs called "
+                         "torch.searchsorted")
+    with Replaced(torch, "searchsorted", no_search):
+        pair_expand.expand_pairs(tab, base, mp)
+    after = _kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    if launched != {"expand_pairs": 1}:
+        raise SystemExit(f"phase gather: expand_pairs launched {launched}, "
+                         f"not one expand_pairs kernel")
+    out = torch.empty((tab.shape[0], mp), dtype=torch.int32, device=DEVICE)
+    stream = _kernels.stream_ptr(tab)
+    rows[-1]["kernel_ms"] = time_cuda(lambda: _kernels.EXPAND_PAIRS(
+        tab.data_ptr(), tab.shape[0], n_src, base.data_ptr(), mp,
+        out.data_ptr(), stream), 20)
+    del out
+    log(f"phase gather: expand_pairs is one launch, no searchsorted; "
+        f"kernel alone {rows[-1]['kernel_ms']:.4f} ms")
     rows.append(expand_row(
         "expand_pairs_fused", EXPAND_TPU,
         lambda: pair_expand.expand_pairs_fused(tab, base, mp),
@@ -1093,6 +1151,275 @@ def tiles128_render(torch, cloud, camera, rows):
         f"({row['bound_by']}), instruction floor "
         + (f"{row['instruction_floor_ms']:.4f} ms"
            if row["instruction_floor_ms"] else "not measured"))
+
+
+def fit_capture(tmpdir: str, device: str = DEVICE, sh_degree: int = 3):
+    """tools/fit_bench.py's synthesize_capture on the port: the ground
+    truth cloud, FIT_VIEWS targets from render_fast on two elevation rings,
+    FIT_SFM noisy SfM points from default_rng(1); the COLMAP text model is
+    written with the port's writer into tmpdir and read back. `sh_degree`
+    below 3 zeroes the ground truth's higher SH bands before the targets
+    are rendered (0: colour that does not depend on the view). Returns
+    (cfg, ViewSet, initial params, scene extent, the model)."""
+    import numpy as np
+    import torch
+    from gsrt_torch import RenderConfig, look_at, make_camera
+    from gsrt_torch.interop import camera_from_numpy
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.models import multiview as mv
+    from gsrt_torch.scene import colmap, random_cloud
+    cloud, _ = random_cloud(FIT_GT, seed=SEED, extent=FIT_EXTENT,
+                            scale_range=FIT_SCALES, width=FIT_W,
+                            height=FIT_H, device=device)
+    cloud.sh[:, (sh_degree + 1) ** 2:] = 0.0
+    means = cloud.means.cpu().numpy()
+    center = means.mean(0)
+    radius = float(np.abs(means - center).max()) * 2.2
+    cfg = RenderConfig(width=FIT_W, height=FIT_H, conic_mode="standard")
+    images, targets = [], []
+    for i in range(FIT_VIEWS):
+        ang = 2 * np.pi * i / FIT_VIEWS
+        h = radius * (0.25 if i % 2 else -0.1)   # two elevation rings
+        eye = center + np.array([radius * np.cos(ang), h,
+                                 radius * np.sin(ang)])
+        view = look_at(eye, center).astype(np.float32)
+        with torch.no_grad():
+            targets.append(grt.render_fast(
+                cloud, make_camera(view, FIT_FOV, FIT_W, FIT_H,
+                                   device=device), cfg).color)
+        images.append(colmap.ColmapImage(name=f"im_{i:03d}.png",
+                                         camera_id=1, view=view))
+    rng = np.random.default_rng(SEED + 1)
+    sh0 = cloud.sh[:, 0, :].cpu().numpy()
+    pick = rng.choice(FIT_GT, size=min(FIT_SFM, FIT_GT), replace=False)
+    pts = means[pick] + rng.normal(0, FIT_SFM_NOISE * FIT_EXTENT,
+                                   (len(pick), 3))
+    cols = np.clip(sh0[pick] * 0.2820948 + 0.5, 0, 1)
+    c0 = make_camera(np.eye(4), FIT_FOV, FIT_W, FIT_H, device="cpu")
+    colmap.write_text_model(os.path.join(tmpdir, "sparse", "0"),
+                            colmap.ColmapModel(
+        cameras={1: colmap.ColmapCamera("PINHOLE", FIT_W, FIT_H,
+                                        float(c0.fx), float(c0.fy),
+                                        FIT_W / 2.0, FIT_H / 2.0)},
+        images=images, points=pts.astype(np.float32),
+        colors=cols.astype(np.float32)))
+    model = colmap.load_colmap_model(tmpdir)
+    cam = model.cameras[1]
+    cams = [camera_from_numpy(im.view, cam.fx, cam.fy, cam.cx, cam.cy,
+                              cam.width, cam.height, device=device)
+            for im in model.images]
+    vs = mv.viewset_from_cameras(cams, targets, device=device)
+    params = colmap.init_params_from_points(model.points, model.colors,
+                                            device=device)
+    return cfg, vs, params, colmap.scene_extent(model), model
+
+
+def fit_kw(extent: float) -> dict:
+    """fit_views's arguments in the fit workload."""
+    return dict(iters=FIT_ITERS, holdout=FIT_HOLDOUT,
+                densify_every=FIT_DENSIFY_EVERY, scene_scale=extent,
+                opacity_reset_every=FIT_RESET_EVERY,
+                max_splats=FIT_MAX_SPLATS, max_pairs=FIT_MAX_PAIRS, seed=SEED)
+
+
+def fit_phase(torch, rows, card: str) -> dict:
+    """The fit phase (see the module docstring). Adds the fit's launches
+    to the rows of the kernels it runs; returns the fit figures."""
+    import tempfile
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import densify as dn
+    from gsrt_torch.models import multiview as mv
+    from gsrt_torch.models import trainer
+    from gsrt_torch.ops import tile_binning
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cfg, vs, params, extent, model = fit_capture(tmpdir, DEVICE)
+    torch.cuda.synchronize()
+    train_idx, test_idx = mv.holdout_split(vs.n_views, FIT_HOLDOUT)
+    n0 = params.means.shape[0]
+    log(f"phase fit: {card}: capture of {vs.n_views} views at "
+        f"{vs.width}x{vs.height} ({len(train_idx)} train, {len(test_idx)} "
+        f"holdout) from {FIT_GT} splats, {len(model.points)} SfM points, "
+        f"scene extent {extent:.4f}, made in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    psnr0 = mv.eval_psnr(params, vs, test_idx[:8], cfg)
+    step = mv.make_train_step_mv(cfg, 0.2, max_pairs=FIT_MAX_PAIRS)
+
+    def probe(p) -> tuple[float, float]:
+        """ms/step on the card's and the host's clocks over
+        FIT_PROBE_STEPS steps of p (changed) after one warm-up."""
+        opt = trainer.make_optimizer(p, lr_means=1.6e-4 * extent)
+        stats = dn.init_stats(p.means.shape[0], p.means.device)
+        views = [train_idx[k % len(train_idx)]
+                 for k in range(FIT_PROBE_STEPS + 1)]
+        stats, _ = step(p, opt, stats, vs, views[0])
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for v in views[1:]:
+            stats, _ = step(p, opt, stats, vs, v)
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / FIT_PROBE_STEPS,
+                (time.perf_counter() - t0) * 1e3 / FIT_PROBE_STEPS)
+
+    from gsrt_torch.scene import colmap
+    ms0 = probe(colmap.init_params_from_points(model.points, model.colors,
+                                               device=DEVICE))
+    log(f"phase fit: {card}: {ms0[0]:.4f} ms/step on the card's clock, "
+        f"{ms0[1]:.4f} on the host's, at the initial N {n0}")
+
+    # the fit, with every densify event and every step's pairs recorded
+    events, pairs = [], []
+    densify, binning = mv.densify_and_prune, tile_binning.build_tile_binning
+
+    def timed_densify(p, *a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = densify(p, *a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(dict(rows_before=p.means.shape[0],
+                           rows_after=out[0].means.shape[0],
+                           card_ms=start.elapsed_time(end),
+                           host_ms=(time.perf_counter() - t0) * 1e3,
+                           **out[3]._asdict()))
+        return out
+
+    def counted_binning(*a, **kw):
+        out = binning(*a, **kw)
+        pairs.append(out.total_pairs.reshape(()))
+        return out
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Replaced(mv, "densify_and_prune", timed_densify), \
+            Replaced(tile_binning, "build_tile_binning", counted_binning):
+        params, rep = mv.fit_views(vs, params, cfg, **fit_kw(extent))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    max_pairs_seen = int(torch.stack(pairs).max())
+    losses = rep.losses
+    first = sum(losses[:FIT_WINDOW]) / FIT_WINDOW
+    last = sum(losses[-FIT_WINDOW:]) / FIT_WINDOW
+    for e in events:
+        log(f"phase fit: {card}: densify event: N {e['rows_before']} -> "
+            f"{e['rows_after']} ({e['n_after']} live: +{e['n_cloned']} "
+            f"cloned, +{e['n_split']} split, -{e['n_pruned']} pruned), "
+            f"{e['card_ms']:.3f} ms on the card's clock, "
+            f"{e['host_ms']:.3f} on the host's")
+    log(f"phase fit: {card}: {FIT_ITERS} steps in {fit_s:.2f} s (train and "
+        f"holdout PSNR included); largest live pair count of a step "
+        f"{max_pairs_seen} of max_pairs {FIT_MAX_PAIRS}; mean loss of the "
+        f"first {FIT_WINDOW} steps {first:.5f}, of the last {last:.5f}")
+    log(f"phase fit: {card}: train PSNR {rep.train_psnr:.4f} dB, holdout "
+        f"PSNR {rep.test_psnr:.4f} dB (initial cloud {psnr0:.4f} dB), "
+        f"N {rep.n_splats}")
+    log(f"phase fit: {card}: launches {counts}")
+    errs = fit_kernel_check(torch, params, vs, cfg, train_idx[0], card)
+    ms1 = probe(params)
+    log(f"phase fit: {card}: {ms1[0]:.4f} ms/step on the card's clock, "
+        f"{ms1[1]:.4f} on the host's, at the final N {rep.n_splats}")
+
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise SystemExit("phase fit: non-finite loss")
+    if not last < first:
+        raise SystemExit(f"phase fit: the mean loss of the last "
+                         f"{FIT_WINDOW} steps {last} is not below the "
+                         f"first's {first}")
+    # live counts: the initial cloud has no padding rows, so the first
+    # event's n_before is its live count too
+    if not events or not (events[0]["n_after"] > events[0]["n_before"]
+                          and events[0]["n_cloned"] + events[0]["n_split"]):
+        raise SystemExit(f"phase fit: the first densify event did not grow "
+                         f"the live count: {events[:1]}")
+    cap = dn.round_up_to(FIT_MAX_SPLATS)
+    if any(e["rows_after"] > cap for e in events) or rep.n_splats > cap:
+        raise SystemExit(f"phase fit: N exceeds round_up_to(max_splats) = "
+                         f"{cap}")
+    if not (rep.test_psnr == rep.test_psnr
+            and abs(rep.test_psnr) != float("inf")
+            and rep.test_psnr > psnr0):
+        raise SystemExit(f"phase fit: holdout PSNR {rep.test_psnr} is not "
+                         f"finite and above the initial cloud's {psnr0}")
+    fit_kernels = ("expand_pairs_fused", "blend_subtiles", "blend_backward")
+    for k in fit_kernels:
+        if counts[k] != FIT_ITERS:
+            raise SystemExit(f"phase fit: {k} launched {counts[k]} times "
+                             f"in {FIT_ITERS} steps")
+    for row in rows:    # the f32 table's expand and the two blends
+        if row["name"] in fit_kernels[1:] or row.get("at", "").startswith(
+                "the f32 stream's table"):
+            row["fit_launches"] = counts[row["name"]]
+            row["fit_max_abs_err"] = errs[row["name"]]
+    log(f"phase fit: {card}: phase took {time.perf_counter() - t_phase:.2f}"
+        f" s")
+    return dict(
+        views=vs.n_views, width=vs.width, height=vs.height, iters=FIT_ITERS,
+        init_splats=n0, final_splats=rep.n_splats, events=events,
+        max_pairs=FIT_MAX_PAIRS, max_live_pairs=max_pairs_seen,
+        ms_per_step_initial=ms0[0], host_ms_per_step_initial=ms0[1],
+        ms_per_step_final=ms1[0], host_ms_per_step_final=ms1[1],
+        loss_first=first, loss_last=last, train_psnr=rep.train_psnr,
+        test_psnr=rep.test_psnr, initial_test_psnr=psnr0,
+        fit_s=fit_s, launches={k: counts[k] for k in fit_kernels},
+        kernel_errors=errs)
+
+
+def fit_kernel_check(torch, params, vs, cfg, view: int, card: str) -> dict:
+    """Holds the fit's kernels against their plain versions on the inputs
+    of one tiled step on `params` (the cloud after the last densify event,
+    its padding rows included): the copy expand bit for bit, the forward
+    blend at atol 1e-4, each backward row at 1e-3 of its largest value.
+    Returns {kernel: max error}."""
+    from gsrt_torch.models import densify as dn
+    from gsrt_torch.models import trainer
+    from gsrt_torch.ops import pair_expand, splat_grad, splat_subtile
+    with Recorder(pair_expand, "expand_pairs_fused") as rec_x, \
+            Recorder(splat_subtile, "blend_subtiles") as rec_fwd, \
+            Recorder(splat_grad, "blend_backward") as rec_bwd:
+        trainer.render_loss_tiled(params, vs.images[view], vs.camera_at(view),
+                                  cfg, FIT_MAX_PAIRS, 0.2).backward()
+    params.zero_grad(set_to_none=True)
+    (tab, base, mp), _ = rec_x.calls[0]
+    (binning,), fwd_kw = rec_fwd.calls[0]
+    (payload, tile_start, pixstate), bwd_kw = rec_bwd.calls[0]
+    pad = int((params.opacity_logit == dn._DEAD_LOGIT).sum())
+    if not torch.equal(pair_expand.expand_pairs_fused(tab, base, mp),
+                       pair_expand.expand_pairs_plain(tab, base, mp)):
+        raise SystemExit("phase fit: the copy expand differs from its plain "
+                         "version on the fit's table")
+    fwd_err = max_abs_err(*(k - p for k, p in zip(
+        splat_subtile.blend_subtiles(binning, **fwd_kw),
+        splat_subtile.blend_subtiles_plain(binning, **fwd_kw))))
+    grad_k = splat_grad.blend_backward(payload, tile_start, pixstate,
+                                       **bwd_kw)
+    grad_p = splat_grad.blend_backward_plain(payload, tile_start, pixstate,
+                                             **bwd_kw)
+    bwd_errs = [normalised_err(grad_k[r], grad_p[r])
+                for r in range(splat_grad.GRAD_ROWS)]
+    log(f"phase fit: {card}: kernels on view {view} after the last densify "
+        f"event: {params.means.shape[0]} rows ({pad} padding rows at logit "
+        f"{dn._DEAD_LOGIT}), table {tuple(tab.shape)}, "
+        f"{int(binning.total_pairs)} pairs of max_pairs {mp}; copy expand "
+        f"bitwise equal, blend_subtiles max |kernel - plain| {fwd_err:.3e} "
+        f"(atol 1e-4), blend_backward per row max |kernel - plain| / max "
+        f"|plain| {', '.join(f'{e:.2e}' for e in bwd_errs)} (atol 1e-3)")
+    if not fwd_err <= 1e-4:
+        raise SystemExit(f"phase fit: blend_subtiles differs from plain by "
+                         f"{fwd_err}")
+    if not all(e <= 1e-3 for e in bwd_errs):    # a NaN fails too
+        raise SystemExit(f"phase fit: blend_backward differs from plain: "
+                         f"{bwd_errs}")
+    return {"expand_pairs_fused": 0.0, "blend_subtiles": fwd_err,
+            "blend_backward": max(bwd_errs)}
 
 
 def tri_soup(n: int, sd: float, seed: int = 0):
@@ -1795,7 +2122,7 @@ def tri_phases(torch, rows):
 
 
 def main() -> int:
-    phase_device()
+    card = phase_device()
     try:
         import torch
         from gsrt_torch import RenderConfig, _kernels
@@ -2040,6 +2367,7 @@ def main() -> int:
     del cloud, camera
     train_rows, train = train_phases(torch)
     rows += train_rows
+    fit = fit_phase(torch, rows, card)
     tri = tri_phases(torch, rows)
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                 for r in rows))
@@ -2049,7 +2377,8 @@ def main() -> int:
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
                       "max_rows": mrows, "serving": serving,
-                      "train": train, "tri": tri}), flush=True)
+                      "train": train, "fit": fit, "tri": tri}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

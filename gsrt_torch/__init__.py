@@ -12,7 +12,9 @@ binning (the pair-expansion kernel), the packed group-stream blend
 kernel, `render_tiled`, `render_fast` and `GaussianRayTracer` in "fast"
 and "tiled" modes; training on the tiled path — the f32 tile stream,
 the subtile blend and its backward kernel, `render_tiled_diff` and the
-trainer (`GaussianParams`, `make_optimizer`, `train_step_tiled`); and
+trainer (`GaussianParams`, `make_optimizer`, `train_step_tiled`), with
+densification (`models.densify`), the multi-view fit
+(`models.multiview.fit_views`) and COLMAP models (`scene.colmap`); and
 serving — the compact tile stream, the packed blend's tile mode with
 saturation tracking and exact hits, the exp LUT in every blend, the
 (128, 8)-tile blend, the cutoff cull, `gsrt_torch.serving.ServingRenderer`

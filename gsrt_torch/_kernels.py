@@ -134,8 +134,10 @@ EXPAND_PLAIN = CudaKernel(
 EXPAND_EMIT = CudaKernel(
     "expand_pairs_binned", "pair_expand", "gsrt_expand_emit",
     [P, I, P, I, P, I, I, I, I, P, P])
-EXPAND_GATHER = CudaKernel(
-    "expand_pairs", "pair_expand", "gsrt_expand_gather",
+# expand_pairs (the TPU's _expand_kernel) is the same copy kernel; it
+# keeps a count of its own
+EXPAND_PAIRS = CudaKernel(
+    "expand_pairs", "pair_expand", "gsrt_expand_plain",
     [P, I, I, P, I, P, P])
 PARTITION = CudaKernel(
     "partition_group_stream", "splat_packed", "gsrt_partition_group",
@@ -170,7 +172,7 @@ TRI_ANY_HIT = CudaKernel(
     "closest_hit_packed_any", "tri_kernel", "gsrt_tri_traverse",
     _TRAVERSE_ARGS)
 
-KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_GATHER, PARTITION, BLEND_GROUP,
+KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_PAIRS, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
            TRI_CLOSEST_HIT, TRI_ANY_HIT)
 

@@ -5,7 +5,12 @@
 // (expand_pairs_binned, whose per-pair arithmetic is _emit_binned_rows,
 // :122-184); and the TPU kernel gsrt/ops/pair_expand.py:_expand_kernel
 // (:47, expand_pairs), which copies through a source row s(p) that its
-// caller computed.
+// caller merged outside the kernel. Here both copies are the one plain
+// kernel below, which finds s(p) itself: the TPU kernel kept the merge
+// outside because a search inside a Mosaic kernel cost more than the
+// merge done by sorts, and its fused sibling's SMEM rank table overflows
+// past 2^24 pairs; neither holds on Hopper, where the block search below
+// serves any max_pairs below the 2^30 sentinel with int32 columns.
 //
 // Contract. tab is [rows, n] int32, row-major (float rows travel as their
 // bits). base [n] is each source's first output column: strictly
@@ -33,11 +38,7 @@
 // row; otherwise it takes the columns tid + 256 k (k < 4) through shared
 // memory, so that a warp's stores of a row still cover 32 consecutive
 // words. A thread issues the loads of 4 rows before their stores. Integer
-// division takes the place of the TPU's f32-division fixups. The gather
-// kernel (expand_pairs) is the same copy with s(p) read from a row
-// the wrapper computed, one thread a column: the TPU kernel streamed
-// 128-aligned table windows and shifted them into place, here it is one
-// indexed load per row.
+// division takes the place of the TPU's f32-division fixups.
 //
 // Bound. Bytes: each output word is written once (rows x 4 B x mp) and each
 // table column is read about once; there is no arithmetic to speak of.
@@ -186,16 +187,6 @@ expand_plain_kernel(const int* __restrict__ tab, int rows, int n,
   }
 }
 
-__global__ void expand_gather_kernel(const int* __restrict__ tab, int rows,
-                                     int n, const int* __restrict__ src,
-                                     int mp, int* __restrict__ out) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= mp) return;
-  int s = __ldg(src + p);
-  for (int r = 0; r < rows; ++r)
-    out[(size_t)r * mp + p] = __ldg(tab + (size_t)r * n + s);
-}
-
 // one tile-relative coordinate -> u16, two-tier: bit 15 = 0 fine
 // (1/256 px over [-64, 64)), = 1 coarse (1/8 px over [-2048, 2048),
 // saturating). Explicit _rn intrinsics: no contraction into FMAs, so the
@@ -270,15 +261,6 @@ int gsrt_expand_plain(const int* tab, int rows, int n, const int* base,
     expand_plain_kernel<<<blocks_for(mp, kBlockCols), kThreads, 0,
                           (cudaStream_t)stream>>>(tab, rows, n, base, mp,
                                                   out);
-  return (int)cudaGetLastError();
-}
-
-int gsrt_expand_gather(const int* tab, int rows, int n, const int* src,
-                       int mp, int* out, void* stream) {
-  if (mp > 0)
-    expand_gather_kernel<<<blocks_for(mp, kThreads), kThreads, 0,
-                           (cudaStream_t)stream>>>(tab, rows, n, src, mp,
-                                                   out);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """Weight carry-over: build the port's objects (clouds, cameras, training
-parameters, path-tracer scenes) from the JAX package's arrays, handed over
-as NumPy.
+parameters, optimiser state, densification statistics, path-tracer
+scenes) from the JAX package's arrays, handed over as NumPy.
 
 The JAX package's cloud and camera hold device arrays; `np.asarray` turns
 each field into NumPy, and these functions put the same bits on the
@@ -16,6 +16,7 @@ import torch
 
 from gsrt_torch.core.types import (Camera, GaussianCloud, Materials,
                                    resolve_device)
+from gsrt_torch.models.densify import DensifyStats
 from gsrt_torch.models.path_tracer import PrimitiveScene
 from gsrt_torch.models.trainer import GaussianParams
 
@@ -77,3 +78,52 @@ def params_to_numpy(params: GaussianParams) -> tuple[np.ndarray, ...]:
     return tuple(p.detach().cpu().numpy() for p in (
         params.means, params.log_scales, params.quats, params.opacity_logit,
         params.sh))
+
+
+def opt_state_from_numpy(optimizer: torch.optim.Optimizer, mu, nu,
+                         count) -> None:
+    """Set the Adam state of the optimizer's groups, in their order (that
+    of `make_optimizer`: means, log_scales, quats, opacity_logit, sh), from
+    NumPy: mu[g] and nu[g] the group's first and second moments and
+    count[g] its step count, the fields of each group's
+    `optax.ScaleByAdamState` in the JAX package's `make_optimizer()`
+    state."""
+    groups = optimizer.param_groups
+    if not len(mu) == len(nu) == len(count) == len(groups):
+        raise ValueError(f"one mu, nu and count per group ({len(groups)})")
+    for group, m, v, c in zip(groups, mu, nu, count):
+        (p,) = group["params"]
+        if np.shape(m) != tuple(p.shape) or np.shape(v) != tuple(p.shape):
+            raise ValueError(f"moments of shape {np.shape(m)} for a "
+                             f"parameter of shape {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(c), dtype=torch.float32),
+            "exp_avg": _f32(m, p.device), "exp_avg_sq": _f32(v, p.device)}
+
+
+def opt_state_to_numpy(optimizer: torch.optim.Optimizer):
+    """(mu, nu, count): per group, in order, the Adam moments as NumPy and
+    the step count as an int (zeros and 0 before the first step)."""
+    mu, nu, count = [], [], []
+    for group in optimizer.param_groups:
+        (p,) = group["params"]
+        st = optimizer.state.get(p, {})
+        zeros = np.zeros(tuple(p.shape), np.float32)
+        mu.append(st["exp_avg"].cpu().numpy() if st else zeros)
+        nu.append(st["exp_avg_sq"].cpu().numpy() if st else zeros.copy())
+        count.append(int(st["step"]) if st else 0)
+    return mu, nu, count
+
+
+def stats_from_numpy(grad_accum, count, device=None) -> DensifyStats:
+    """Densification statistics ([N] f32 gradient sums, [N] int32 counts)
+    on the device."""
+    dev = resolve_device(device)
+    return DensifyStats(grad_accum=_f32(grad_accum, dev),
+                        count=torch.as_tensor(np.array(count, np.int32),
+                                              device=dev))
+
+
+def stats_to_numpy(stats: DensifyStats) -> tuple[np.ndarray, np.ndarray]:
+    """(grad_accum, count) as NumPy arrays."""
+    return stats.grad_accum.cpu().numpy(), stats.count.cpu().numpy()

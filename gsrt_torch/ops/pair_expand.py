@@ -1,9 +1,8 @@
 """Run expansion of a depth-sorted source table into pair columns.
 
-Counterpart of `gsrt.ops.pair_expand`: `expand_pairs_fused` copies source
-columns and finds each pair's source inside the kernel,
-`expand_pairs_binned` emits the compact pair payload, and `expand_pairs`
-copies source columns through a source index computed beforehand. On a
+Counterpart of `gsrt.ops.pair_expand`: `expand_pairs_fused` and
+`expand_pairs` copy source columns, and `expand_pairs_binned` emits the
+compact pair payload; each kernel finds every pair's source itself. On a
 CUDA tensor they launch `csrc/pair_expand.cu` (which replaces the TPU
 kernels `_expand_fused_kernel` and `_expand_kernel`); on a CPU tensor they
 run the plain versions below, which compute the same function with
@@ -77,40 +76,34 @@ def expand_pairs_binned_plain(tab, base, max_pairs: int, *, total, ntx: int,
     return torch.stack([meanp, z[4], z[5], rgba, tile])
 
 
+def _copy(kernel, tab: torch.Tensor, base: torch.Tensor,
+          max_pairs: int) -> torch.Tensor:
+    _check(tab, base, 1)
+    if not tab.is_cuda:
+        return expand_pairs_plain(tab, base, max_pairs)
+    out = torch.empty((tab.shape[0], max_pairs), dtype=torch.int32,
+                      device=tab.device)
+    with torch.cuda.device(tab.device):
+        kernel(tab.data_ptr(), tab.shape[0], tab.shape[1], base.data_ptr(),
+               max_pairs, out.data_ptr(), _kernels.stream_ptr(tab))
+    return out
+
+
 def expand_pairs_fused(tab: torch.Tensor, base: torch.Tensor,
                        max_pairs: int) -> torch.Tensor:
     """out[:, p] = tab[:, s(p)]: [rows, max_pairs] int32. base must be
     strictly increasing over the sources that emit pairs, followed by
     _DEAD_BASE for those that emit none."""
-    _check(tab, base, 1)
-    if not tab.is_cuda:
-        return expand_pairs_plain(tab, base, max_pairs)
-    out = torch.empty((tab.shape[0], max_pairs), dtype=torch.int32,
-                      device=tab.device)
-    with torch.cuda.device(tab.device):
-        _kernels.EXPAND_PLAIN(tab.data_ptr(), tab.shape[0], tab.shape[1],
-                              base.data_ptr(), max_pairs, out.data_ptr(),
-                              _kernels.stream_ptr(tab))
-    return out
+    return _copy(_kernels.EXPAND_PLAIN, tab, base, max_pairs)
 
 
 def expand_pairs(tab: torch.Tensor, base: torch.Tensor,
                  max_pairs: int) -> torch.Tensor:
-    """`expand_pairs_fused` with the dense source row s(p) computed outside
-    the kernel (`source_index`), as the JAX package's `expand_pairs` merges
-    it outside its kernel; the kernel is the gather out[r, p] = tab[r, s[p]].
-    Same contract and the same result, bit for bit."""
-    _check(tab, base, 1)
-    if not tab.is_cuda:
-        return expand_pairs_plain(tab, base, max_pairs)
-    s = source_index(base, max_pairs).to(torch.int32)
-    out = torch.empty((tab.shape[0], max_pairs), dtype=torch.int32,
-                      device=tab.device)
-    with torch.cuda.device(tab.device):
-        _kernels.EXPAND_GATHER(tab.data_ptr(), tab.shape[0], tab.shape[1],
-                               s.data_ptr(), max_pairs, out.data_ptr(),
-                               _kernels.stream_ptr(tab))
-    return out
+    """The counterpart of the JAX package's `expand_pairs`, which merges
+    s(p) outside its kernel; here it is the same one launch as
+    `expand_pairs_fused`, with a launch count of its own. Same contract
+    and the same result, bit for bit."""
+    return _copy(_kernels.EXPAND_PAIRS, tab, base, max_pairs)
 
 
 def expand_pairs_binned(tab: torch.Tensor, base: torch.Tensor,

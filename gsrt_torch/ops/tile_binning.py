@@ -279,13 +279,14 @@ def build_tile_binning(
     tile rows (stream="group") or per tile (stream="tile");
     compact=False the tile-sorted f32 stream. The tile streams expand
     with `expand_impl`: "fused" or "pallas" (the copy kernels), "binned"
-    (the emit kernel on the compact stream; the gather kernel on the f32
-    stream, as in the JAX package), or "xla" (the plain version, CPU
-    only). with_ids adds the gradient-routing bookkeeping (f32 stream);
-    cutoff_map culls by serving's saturation depths (`cutoff_cull`,
-    supertiles of cull_super tiles) before the histogram, so the counts
-    describe the culled stream; carry_depth fills `pair_depth`. Only rect
-    spans are ported: ellipse spans raise NotImplementedError."""
+    (the emit kernel on the compact stream; `expand_pairs`, the copy
+    kernel under a launch count of its own, on the f32 stream, as in the
+    JAX package), or "xla" (the plain version, CPU only). with_ids adds
+    the gradient-routing bookkeeping (f32 stream); cutoff_map culls by
+    serving's saturation depths (`cutoff_cull`, supertiles of cull_super
+    tiles) before the histogram, so the counts describe the culled
+    stream; carry_depth fills `pair_depth`. Only rect spans are ported:
+    ellipse spans raise NotImplementedError."""
     if span_mode != "rect":
         raise NotImplementedError(
             f"gsrt_torch bins rect spans only; span_mode={span_mode!r}: see "

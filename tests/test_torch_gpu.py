@@ -28,8 +28,13 @@ import pytest
 import torch
 
 from gsrt_torch import RenderConfig, _kernels
+from gsrt_torch.interop import (opt_state_from_numpy, opt_state_to_numpy,
+                                params_from_numpy, params_to_numpy,
+                                stats_from_numpy, stats_to_numpy)
+from gsrt_torch.models import densify as t_dn
 from gsrt_torch.models import gaussian_rt as t_rt
 from gsrt_torch.models import tiled_diff as t_td
+from gsrt_torch.models import trainer as t_tr
 from gsrt_torch.ops import pair_expand as t_pe
 from gsrt_torch.ops import splat_grad as t_grad
 from gsrt_torch.ops import splat_packed as t_sp
@@ -126,12 +131,52 @@ def test_expand_gather_kernel_bitwise(cuda):
     base = torch.as_tensor(_runs_to_base(runs), device=cuda)
     tab = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, (11, n))
                           .astype(np.int32), device=cuda)
-    before = _kernels.EXPAND_GATHER.launches
+    before = _kernels.EXPAND_PAIRS.launches
     for mp in (int(runs.sum()) + 1000, int(runs.sum()) - 777):
         got = t_pe.expand_pairs(tab, base, mp)
         assert torch.equal(got, t_pe.expand_pairs_plain(tab, base, mp))
         assert torch.equal(got, t_pe.expand_pairs_fused(tab, base, mp))
-    assert _kernels.EXPAND_GATHER.launches == before + 2
+    assert _kernels.EXPAND_PAIRS.launches == before + 2
+
+
+def _expand_pairs_case(case, rng):
+    """(run lengths, max_pairs) of the cases expand_pairs must get right."""
+    if case == "f32_table":     # the training cell's table: 100K sources
+        return rng.integers(1, 41, 100_000), 1 << 21
+    if case == "ragged":        # max_pairs % 4 != 0: strided stores
+        runs = rng.integers(1, 41, 100_000)
+        return runs, int(runs.sum()) - 3
+    if case == "no_live_source":
+        return np.zeros(5_000, np.int64), 4_099
+    # just past 2^24 pairs, where the TPU kernel needs its fallback
+    runs = rng.integers(1, 33, 1_100_000)
+    return runs, (1 << 24) + (4096 if case == "over_2e24" else 5)
+
+
+@pytest.mark.parametrize("case", ["f32_table", "ragged", "no_live_source",
+                                  "over_2e24", "over_2e24_ragged"])
+def test_expand_pairs_one_launch_bitwise(cuda, case, monkeypatch):
+    """expand_pairs at the f32 table's 11 rows is one launch of the copy
+    kernel, with no torch.searchsorted, and equals its plain version bit
+    for bit."""
+    rng = np.random.default_rng(11)
+    runs, mp = _expand_pairs_case(case, rng)
+    assert case != "over_2e24" or runs.sum() > mp > 1 << 24
+    n = runs.shape[0]
+    base = torch.as_tensor(_runs_to_base(runs), device=cuda)
+    tab = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, (11, n))
+                          .astype(np.int32), device=cuda)
+    before = _kernels.launch_counts()
+
+    def no_search(*a, **kw):
+        raise AssertionError("expand_pairs searched outside its kernel")
+    with monkeypatch.context() as m:
+        m.setattr(torch, "searchsorted", no_search)
+        got = t_pe.expand_pairs(tab, base, mp)
+    after = _kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"expand_pairs": 1}
+    assert torch.equal(got, t_pe.expand_pairs_plain(tab, base, mp))
 
 
 def test_expand_emit_kernel_bitwise(cuda):
@@ -680,3 +725,50 @@ def test_tri_traverse_any_hit_occluded_warps(cuda, rb):
     front = torch.as_tensor((np.arange(2048) // 32) % 2 == 0, device=cuda)
     assert bool(got[2][front].all())
     assert bool((got[0][front] < 6.0).all())     # the occluder's t
+
+
+def test_densify_event_on_card_matches_cpu(cuda):
+    """One densify event (prunes, clones, splits, the budget binding) on
+    CUDA tensors and on CPU tensors from the same NumPy inputs: the same
+    report, every row and every Adam moment equal (the split children's
+    means within 1e-6: A·n summed in another order), the step counts kept,
+    and the optimiser holding the new parameters."""
+    rng = np.random.default_rng(12)
+    n = 20_000
+    f32 = lambda a: np.asarray(a, np.float32)
+    means = rng.uniform(-2, 2, (n, 3))
+    logit = rng.normal(1.0, 1.5, n)
+    logit[rng.random(n) < 0.1] = -8.0
+    params = [f32(means), f32(np.log(rng.uniform(0.02, 0.3, (n, 3)))),
+              f32(rng.normal(size=(n, 4))), f32(logit),
+              f32(rng.normal(0, 0.3, (n, 1, 3)))]
+    count = rng.integers(0, 20, n).astype(np.int32)
+    grad = f32(rng.uniform(0, 1, n) * np.maximum(count, 1)
+               * 10.0 ** rng.uniform(-5, -2, n))
+    mu = [f32(rng.normal(0, 1e-2, p.shape)) for p in params]
+    nu = [f32(rng.uniform(0, 1e-4, p.shape)) for p in params]
+    out = []
+    for dev in ("cpu", cuda):
+        tp = params_from_numpy(*params, device=dev)
+        opt = t_tr.make_optimizer(tp)
+        opt_state_from_numpy(opt, mu, nu, [9] * 5)
+        new, opt, stats, rep = t_dn.densify_and_prune(
+            tp, opt, stats_from_numpy(grad, count, device=dev),
+            grad_threshold=2e-4, scale_threshold=0.15, max_splats=n + 500,
+            bucket=4096, seed=5)
+        for f, g in zip(t_dn.FIELDS, opt.param_groups):
+            assert g["params"][0] is getattr(new, f)
+        out.append((rep, params_to_numpy(new), opt_state_to_numpy(opt),
+                    stats_to_numpy(stats)))
+    (rep_c, p_c, o_c, s_c), (rep_g, p_g, o_g, s_g) = out
+    assert rep_c == rep_g and rep_c.n_split > 0 and rep_c.n_cloned > 0
+    assert rep_c.n_after <= n + 500
+    child = slice(rep_c.n_after - 2 * rep_c.n_split, rep_c.n_after)
+    np.testing.assert_allclose(p_g[0][child], p_c[0][child], atol=1e-6,
+                               rtol=0)
+    p_g[0][child] = p_c[0][child]
+    for g, c in zip(p_g, p_c):
+        np.testing.assert_array_equal(g, c)
+    for g, c in zip(o_g[0] + o_g[1] + list(s_g), o_c[0] + o_c[1] + list(s_c)):
+        np.testing.assert_array_equal(g, c)
+    assert o_g[2] == o_c[2] == [9] * 5
