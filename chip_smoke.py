@@ -88,7 +88,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              with the port's writer and read back; holdout 7, a densify
              event every 300 steps up to 75%, max_splats 120,000, an
              opacity reset every 900 steps, SH degree 0, max_pairs 2^20,
-             2,000 tiled steps, launch counts to 0 just before the fit and
+             2,000 tiled steps (the targets rendered in chunks of 2,048
+             splats, checked on views 0 and 1 against the default 256 to
+             1e-5), launch counts to 0 just before the fit and
              read just after; ms/step at the initial and the final N (CUDA
              events over 10 steps), each densify event's card and host ms
              and N before and after, the largest live pair count of a step,
@@ -102,7 +104,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
              round_up_to(max_splats), a holdout PSNR not finite and above
              the initial cloud's, or a kernel that differs from its plain
              version;
-16. tri-cast — the binned primary cast's kernel against its plain version
+16. kbuffer — the paper's k-buffer path: GaussianRayTracer(cfg,
+             "reference") on REFERENCE_DEMO's demo scene and on
+             random_cloud(20_000, seed=1) at 512x512 (standard conic,
+             max_passes 1024, checked above every pixel's passes), each
+             held against render_fast on the card (trans rtol 1e-4 / atol
+             1e-5, colour rtol 1e-3 / atol 1e-4); launch counts to 0
+             around the scale run (plain PyTorch: none may launch);
+             ms/frame (CUDA events), passes max and mean, hits, (pixel,
+             splat) evaluations a second;
+17. splat-trace — the scale run's 262,144 camera rays through
+             trace_gaussian_rays and trace_gaussian_rays_clustered
+             (clusters of 128, super-clusters of 8, s_max all of them):
+             hits equal, trans rtol 1e-5 / atol 1e-6, colour rtol 1e-4 /
+             atol 1e-5, no overflow; both times, the passes, the first
+             pass's visited share of blocks x super-clusters;
+18. mixed  — mirror_in_gaussians(512, 512) path traced (1 sample, 8
+             bounces) brute force and clustered (clusters of 8, 4
+             super-clusters, blocks of 256 rays), same seed: rtol 5e-3 /
+             atol 1e-3 between them, no flag set, the binned cast launched
+             in each (counts to 0 just before, read just after); the
+             clustered render again with unsorted bounce waves, equal to
+             the sorted one bit for bit; then
+             render_path_traced_calibrated from gauss_s_max 1 must
+             report the overflow, grow and end without it; ms/render;
+19. ellipse — the render cell with span_mode="ellipse" (the compact
+             tile stream) through GaussianRayTracer: calibrate, one frame
+             with counts to 0 just before and read just after (two copy
+             expands, one tile blend), no overflow; against the rect tile
+             stream (every tile's pairs at most its rect count; colour and
+             trans within 2e-3 on the f32 payload, within 1e-2 on the
+             compact one, whose rounded conic and opacity let a dropped
+             pair clear the alpha threshold: the entries above 2e-3 are
+             counted), both frame times and pair totals; the
+             two expands (splats -> tile rows, rows -> pairs) bit for bit
+             against their plain versions and the tile blend on the
+             ellipse payload against its plain version (atol 2e-3), each a
+             row of the kernels line;
+20. tri-cast — the binned primary cast's kernel against its plain version
              bit for bit (t and triangle ids) on the inputs captured from
              an SH render of soup359k (rect spans, 32x16 tiles), on
              soup359k's exact spans and on bigtris (rect and exact, 16x8
@@ -115,7 +154,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              plain version bit for bit; bigtris' binned primary (binning
              + cast) timed as tools/tri_bench.py times it, its launches
              counted;
-17. tri-traverse — the packed-cluster traversal kernel's build
+21. tri-traverse — the packed-cluster traversal kernel's build
              (registers, spills, shared memory, resident blocks, the SASS
              instructions of its per-triangle loop where cuobjdump exists),
              then the kernel against its plain version on soup359k:
@@ -129,7 +168,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
              result differs counted (closest hit: each a tie at rtol 1e-5;
              any hit: the hit masks equal); bounds by the warp cull's
              tests and the block cull's, and the instruction floor;
-18. tri-render — SH, AO and PT on soup359k through
+22. tri-render — SH, AO and PT on soup359k through
              gsrt_torch.models.path_tracer (primary_impl "auto"), SH with
              exact spans and SH with primary_impl "block": counts set to 0
              just before each and read just after (one cast a render but
@@ -149,7 +188,11 @@ RenderConfig(conic_mode="standard") defaults. The training workload is
 random_cloud(100K, seed=0) at 800x600, SH degree 3,
 RenderConfig(conic_mode="standard") defaults (32x16 tiles), the target its own
 tiled render, the start init_params of it with the means moved by 0.02·N(0, 1).
-The fit workload is tools/fit_bench.py's (phase 15).
+The fit workload is tools/fit_bench.py's (phase 15). The k-buffer
+workloads are random_cloud(20_000, seed=1) seen at 512x512 with
+RenderConfig(conic_mode="standard") (phases 16-17) and
+mirror_in_gaussians(512, 512) (phase 18); phase 19 is the render workload
+with ellipse spans.
 The triangle workloads are tools/tri_bench.py's generator (centres
 U(-2, 2)^3, each vertex its centre + N(0, sd), NumPy default_rng(0)) seen
 from look_at((0, 0, -7), (0, 0, 0)) at 55 degrees, 1920x1080: bigtris is
@@ -159,8 +202,8 @@ material (0.73) and the sky, RenderConfig defaults (32x16 tiles), SH with
 the light at (0, 4, -4), radius 0.5, 2 shadow rays; AO with 4 rays of
 radius 2; PT with 1 sample and 16 bounces.
 Before the last line the script prints one JSON object with a row per kernel
-(launches, error against the plain version, times, roofline bound); the last
-line is {"ok": true, "device": {...}}.
+(launches, error against the plain version, times, roofline bound) and the
+run's wall time; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -223,6 +266,15 @@ ORBIT_FRAMES, ORBIT_DEGREES, SPLIT_FRAMES, STATIC_FRAMES = 48, 60.0, 5, 3
 # when all 64 of its tiles hold a finite cutoff, which no supertile of
 # this scene does (the orbit's cull drops a few thousand pairs at most).
 STATIC_SUPER = 2
+
+# --- the paper's k-buffer path: kbuffer, splat-trace and mixed ---
+KB_SPLATS, KB_SEED, KB_W, KB_H = 20_000, 1, 512, 512
+KB_MAX_PASSES = 1024    # above every pixel's passes (checked)
+TRACE_K, TRACE_SUP, TRACE_RB = 128, 8, 256
+# mirror_in_gaussians' 60 splats in clusters of 8 (4 super-clusters of 2):
+# blocks of 256 rays enter more than one, so s_max 1 overflows
+MIX_W, MIX_H, MIX_BOUNCES, MIX_K, MIX_SUP, MIX_RB = 512, 512, 8, 8, 2, 256
+FIT_TARGET_CHUNK = 2048   # splats a chunk of the fit's target renders
 
 # --- the triangle workload and its kernels (Q2.7 cast, Q2.8 traversal) ---
 CAST_SRC = "gsrt_torch/csrc/tri_cast.cu"
@@ -1176,19 +1228,31 @@ def fit_capture(tmpdir: str, device: str = DEVICE, sh_degree: int = 3):
     center = means.mean(0)
     radius = float(np.abs(means - center).max()) * 2.2
     cfg = RenderConfig(width=FIT_W, height=FIT_H, conic_mode="standard")
-    images, targets = [], []
+    # the targets alone in chunks of FIT_TARGET_CHUNK splats (an eighth of
+    # the launches); the first two views against cfg's chunks must differ
+    # by no more than rounding
+    target_cfg = cfg.replace(splat_chunk=FIT_TARGET_CHUNK)
+    images, targets, drift = [], [], []
     for i in range(FIT_VIEWS):
         ang = 2 * np.pi * i / FIT_VIEWS
         h = radius * (0.25 if i % 2 else -0.1)   # two elevation rings
         eye = center + np.array([radius * np.cos(ang), h,
                                  radius * np.sin(ang)])
         view = look_at(eye, center).astype(np.float32)
+        cam = make_camera(view, FIT_FOV, FIT_W, FIT_H, device=device)
         with torch.no_grad():
-            targets.append(grt.render_fast(
-                cloud, make_camera(view, FIT_FOV, FIT_W, FIT_H,
-                                   device=device), cfg).color)
+            targets.append(grt.render_fast(cloud, cam, target_cfg).color)
+            if i < 2:
+                drift.append((grt.render_fast(cloud, cam, cfg).color
+                              - targets[-1]).abs().max().item())
         images.append(colmap.ColmapImage(name=f"im_{i:03d}.png",
                                          camera_id=1, view=view))
+    log(f"fit capture: targets in chunks of {FIT_TARGET_CHUNK} splats "
+        f"against {cfg.splat_chunk} on views 0 and 1: max |diff| "
+        f"{max(drift):.3e} (at most 1e-5)")
+    if not max(drift) <= 1e-5:
+        raise SystemExit("fit capture: the targets' chunking changed them "
+                         "by more than rounding")
     rng = np.random.default_rng(SEED + 1)
     sh0 = cloud.sh[:, 0, :].cpu().numpy()
     pick = rng.choice(FIT_GT, size=min(FIT_SFM, FIT_GT), replace=False)
@@ -1420,6 +1484,376 @@ def fit_kernel_check(torch, params, vs, cfg, view: int, card: str) -> dict:
                          f"{bwd_errs}")
     return {"expand_pairs_fused": 0.0, "blend_subtiles": fwd_err,
             "blend_backward": max(bwd_errs)}
+
+
+def kbuffer_phase(torch, card: str) -> dict:
+    """kbuffer: GaussianRayTracer(cfg, "reference") on the paper's
+    configuration (REFERENCE_DEMO, the demo scene) and on the scale run
+    (KB_SPLATS splats at KB_WxKB_H), each held against render_fast on the
+    card; launch counts read around the scale run (the path is plain
+    PyTorch: no kernel of the package launches)."""
+    from gsrt_torch import REFERENCE_DEMO, RenderConfig, _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.scene import demo_gauss_splat, random_cloud
+
+    def check(name, out, ref):
+        dt = (out.trans - ref.trans).abs()
+        dc = (out.color - ref.color).abs()
+        bad_t = int((dt > 1e-5 + 1e-4 * ref.trans.abs()).sum())
+        bad_c = int((dc > 1e-4 + 1e-3 * ref.color.abs()).sum())
+        log(f"phase kbuffer: {name}: against render_fast max |trans diff| "
+            f"{dt.max().item():.3e} (rtol 1e-4, atol 1e-5), max |colour "
+            f"diff| {dc.max().item():.3e} (rtol 1e-3, atol 1e-4); entries "
+            f"outside {bad_t} | {bad_c}")
+        if bad_t or bad_c or not torch.isfinite(out.color).all():
+            raise SystemExit(f"phase kbuffer: {name} differs from "
+                             f"render_fast")
+
+    c, cam = demo_gauss_splat(16, 16, device=DEVICE)
+    demo = grt.GaussianRayTracer(REFERENCE_DEMO, "reference",
+                                 device=DEVICE)(c, cam)
+    check("REFERENCE_DEMO on demo_gauss_splat(16, 16)", demo,
+          grt.render_fast(c, cam, REFERENCE_DEMO))
+    log(f"phase kbuffer: demo passes max {int(demo.passes.max())}, hits "
+        f"max {int(demo.hits.max())}, trans min {demo.trans.min().item():.5f}")
+
+    cloud, camera = random_cloud(KB_SPLATS, seed=KB_SEED, width=KB_W,
+                                 height=KB_H, device=DEVICE)
+    cfg = RenderConfig(width=KB_W, height=KB_H, conic_mode="standard",
+                       max_passes=KB_MAX_PASSES)
+    tracer = grt.GaussianRayTracer(cfg, "reference", device=DEVICE)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev[0].record()
+    out = tracer(cloud, camera)
+    ev[1].record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    frame_ms = ev[0].elapsed_time(ev[1])
+    passes = out.passes.to(torch.int64)
+    P = KB_W * KB_H
+    if int(passes.max()) >= KB_MAX_PASSES:
+        raise SystemExit("phase kbuffer: a pixel reached max_passes")
+    # every pixel ran its passes and the empty pass that stopped it, each
+    # testing every splat
+    evals = (int(passes.sum()) + P) * KB_SPLATS
+    log(f"phase kbuffer: {card}: {KB_SPLATS} splats at {KB_W}x{KB_H}, "
+        f"{frame_ms:.1f} ms/frame on the card's clock ({host_s:.2f} s "
+        f"host), passes max {int(passes.max())} mean "
+        f"{passes.float().mean().item():.3f}, hits max "
+        f"{int(out.hits.max())} mean {out.hits.float().mean().item():.2f}; "
+        f"{evals} (pixel, splat) evaluations, "
+        f"{evals / (frame_ms * 1e-3):.4e} a second; launches {counts}")
+    if counts:
+        raise SystemExit("phase kbuffer: a kernel launched on a plain "
+                         "PyTorch path")
+    check(f"{KB_SPLATS} splats at {KB_W}x{KB_H}", out,
+          grt.render_fast(cloud, camera, cfg))
+    return dict(demo_passes_max=int(demo.passes.max()), frame_ms=frame_ms,
+                host_s=host_s, passes_max=int(passes.max()),
+                passes_mean=passes.float().mean().item(),
+                hits_max=int(out.hits.max()),
+                hits_mean=out.hits.float().mean().item(), evaluations=evals,
+                evaluations_per_s=evals / (frame_ms * 1e-3))
+
+
+def splat_trace_phase(torch, card: str) -> dict:
+    """splat-trace: the scale run's camera rays through trace_gaussian_rays
+    and trace_gaussian_rays_clustered (clusters of 128, super-clusters of
+    8, s_max every super-cluster), held together; the passes and the first
+    pass's visited share. The brute force traces the cloud in the
+    clusters' slot order: each tracer takes equal t* lowest position
+    first, and ~1e-4 of the rays meet two splats at one f32 t*, whose
+    blend order (and so colour) depends on that position."""
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.core.types import GaussianCloud
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.models.path_tracer import generate_camera_rays
+    from gsrt_torch.ops import clusters, splat_clusters
+    from gsrt_torch.ops.sh import eval_sh
+    from gsrt_torch.scene import random_cloud
+
+    cloud, camera = random_cloud(KB_SPLATS, seed=KB_SEED, width=KB_W,
+                                 height=KB_H, device=DEVICE)
+    cfg = RenderConfig(width=KB_W, height=KB_H, conic_mode="standard")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    orig, dirn = generate_camera_rays(gen, camera, cfg)
+    colors = eval_sh(cloud.sh, grt.unit_dirs(cloud.means, camera.position),
+                     min(cfg.sh_degree, cloud.sh_degree))
+    sc = splat_clusters.build_splat_clusters(cloud, cfg, colors, k=TRACE_K,
+                                             sup=TRACE_SUP)
+    ms = sc.clusters.sup_min.shape[0]
+    r = splat_clusters.splat_world_radius(cloud, cfg)[:, None]
+    slot = clusters.build_clusters(cloud.means - r, cloud.means + r,
+                                   k=TRACE_K, sup=TRACE_SUP)[1][:cloud.n]
+    slot = slot.long()
+    slotted = GaussianCloud(*(a[slot] for a in cloud))
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return res, ev[0].elapsed_time(ev[1])
+    (bt, bc, bh), brute_ms = timed(lambda: grt.trace_gaussian_rays(
+        slotted, orig, dirn, cfg, colors=colors[slot]))
+    with Recorder(splat_clusters, "plan_visits") as rec:
+        (ct, cc, ch, ovf), clus_ms = timed(
+            lambda: splat_clusters.trace_gaussian_rays_clustered(
+                sc, orig, dirn, cfg, rb=TRACE_RB, s_max=ms))
+    passes = len(rec.calls)
+    _, n_hit, _ = splat_clusters.plan_visits(*rec.calls[0][0],
+                                             **rec.calls[0][1])
+    share = n_hit.sum().item() / (n_hit.numel() * ms)
+    err_t = (ct - bt).abs() - (1e-6 + 1e-5 * bt.abs())
+    err_c = (cc - bc).abs() - (1e-5 + 1e-4 * bc.abs())
+    hits_eq = torch.equal(ch, bh)
+    log(f"phase splat-trace: {card}: {orig.shape[0]} camera rays, "
+        f"{KB_SPLATS} splats in {sc.m} clusters of {TRACE_K}, {ms} "
+        f"super-clusters; brute force (slot order) {brute_ms:.1f} ms, "
+        f"clustered "
+        f"{clus_ms:.1f} ms, {passes} passes, hits max {int(ch.max())} mean "
+        f"{ch.float().mean().item():.2f}; the first pass visits "
+        f"{share:.4f} of blocks x super-clusters; hits equal {hits_eq}, "
+        f"max |trans diff| {(ct - bt).abs().max().item():.3e} (rtol 1e-5, "
+        f"atol 1e-6), max |colour diff| {(cc - bc).abs().max().item():.3e} "
+        f"(rtol 1e-4, atol 1e-5), overflow {bool(ovf)}")
+    if not (hits_eq and bool((err_t <= 0).all()) and bool((err_c <= 0).all())
+            and not bool(ovf)):
+        raise SystemExit("phase splat-trace: the clustered tracer differs "
+                         "from the brute force")
+    return dict(brute_ms=brute_ms, clustered_ms=clus_ms, passes=passes,
+                visited_share=share, hits_max=int(ch.max()),
+                hits_mean=ch.float().mean().item(), super_clusters=ms)
+
+
+def mixed_phase(torch, card: str) -> dict:
+    """mixed: mirror_in_gaussians path traced brute force and clustered
+    (same seed), held together; the calibrated render from gauss_s_max 1;
+    launch counts read around the two renders."""
+    from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import splat_clusters
+    from gsrt_torch.ops.sh import eval_sh
+    from gsrt_torch.scene import mirror_in_gaussians
+
+    scene, cloud, cam, opts = mirror_in_gaussians(MIX_W, MIX_H,
+                                                  device=DEVICE)
+    cfg = RenderConfig(width=MIX_W, height=MIX_H, samples=1,
+                       bounces=MIX_BOUNCES, has_sky=opts["has_sky"],
+                       gamma_correction=False)
+    colors = eval_sh(cloud.sh, grt.unit_dirs(cloud.means, cam.position),
+                     min(cfg.sh_degree, cloud.sh_degree))
+    sc = splat_clusters.build_splat_clusters(cloud, cfg, colors, k=MIX_K,
+                                             sup=MIX_SUP)
+    ms = sc.clusters.sup_min.shape[0]
+    bare = pt.render_path_traced(scene, cam, cfg, seed=SEED)   # warm-up
+
+    def timed(**kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        img, flags = pt.render_path_traced(scene, cam, cfg, seed=SEED,
+                                           return_flags=True, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return (img, {k: bool(v) for k, v in flags.items()},
+                ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    brute, f_b, brute_ms, brute_host = timed(gaussians=cloud)
+    clus, f_c, clus_ms, clus_host = timed(gauss_clusters=sc, gauss_s_max=ms,
+                                          gauss_rb=MIX_RB)
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    # the clustered render coherence-sorts its bounce waves, the brute
+    # force does not: unsorted it must give the same image bit for bit
+    flat, f_u, flat_ms, _ = timed(gauss_clusters=sc, gauss_s_max=ms,
+                                  gauss_rb=MIX_RB, sort_bounces=False)
+    sorted_diff = (clus - flat).abs().max().item()
+    d = (clus - brute).abs()
+    bad = int((d > 1e-3 + 5e-3 * brute.abs()).sum())
+    splat_diff = (brute - bare).abs().max().item()
+    log(f"phase mixed: {card}: mirror_in_gaussians({MIX_W}, {MIX_H}), "
+        f"{cloud.n} splats ({sc.m} clusters of {MIX_K}, {ms} "
+        f"super-clusters), {MIX_BOUNCES} bounces; brute force {brute_ms:.1f} "
+        f"ms/render ({brute_host:.1f} host), clustered {clus_ms:.1f} "
+        f"({clus_host:.1f} host), clustered unsorted {flat_ms:.1f}; max "
+        f"|clustered - brute| {d.max().item():.3e} (rtol 5e-3, atol 1e-3), "
+        f"{bad} entries outside; sorted against unsorted {sorted_diff:.3e} "
+        f"(must be 0); the splats change the image by up to "
+        f"{splat_diff:.3f}; flags {f_b} | {f_c}; launches {counts}")
+    if bad or sorted_diff or any(f_b.values()) or any(f_c.values()) or \
+            any(f_u.values()) or not torch.isfinite(brute).all() or \
+            splat_diff < 0.05:
+        raise SystemExit("phase mixed: brute force and clustered differ, "
+                         "or a flag is set")
+    if counts.get("cast_primary", 0) < 2:
+        raise SystemExit("phase mixed: the binned primary cast did not "
+                         "launch in each render")
+    img, info = pt.render_path_traced_calibrated(
+        scene, cam, cfg, seed=SEED, gauss_clusters=sc, gauss_s_max=1,
+        gauss_rb=MIX_RB, max_retries=4)
+    same = (img - clus).abs().max().item()
+    log(f"phase mixed: calibrated from gauss_s_max 1: {info['retries']} "
+        f"re-renders, gauss_s_max {info['gauss_s_max']}, last flags "
+        f"{info['flags']}, max |image - clustered| {same:.3e}")
+    if info["retries"] < 1 or info["flags"]["gauss_visits_overflow"] or \
+            same > 1e-6:
+        raise SystemExit("phase mixed: the calibration did not report the "
+                         "overflow and end without it")
+    return dict(brute_ms=brute_ms, clustered_ms=clus_ms,
+                clustered_unsorted_ms=flat_ms, sorted_vs_unsorted=sorted_diff,
+                brute_host_ms=brute_host, clustered_host_ms=clus_host,
+                launches=counts, calibrated=dict(
+                    retries=info["retries"], gauss_s_max=info["gauss_s_max"]))
+
+
+def ellipse_phase(torch, rows, card: str) -> dict:
+    """ellipse: the render cell with ellipse spans (compact tile stream),
+    calibrated, one frame with its launches counted, against the rect tile
+    stream; the two expands and the tile blend on its inputs against their
+    plain versions (rows of the kernels line)."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import pair_expand, splat_packed, tile_binning
+
+    W, H = WIDTH, HEIGHT
+    cfg0, cloud, camera = render_cell()
+    cfg = cfg0.replace(span_mode="ellipse")
+    plan = grt.stream_plan(cfg, W, H)
+    tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+    tracer.calibrate(cloud, camera)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with Recorder(pair_expand, "expand_pairs_fused") as rec_e, \
+            Recorder(splat_packed, "blend_packed") as rec_b:
+        out = tracer(cloud, camera)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    log(f"phase ellipse: {card}: plan {plan._asdict()}, max_rows "
+        f"{tracer.max_rows}, max_pairs {tracer.max_pairs}; launches {counts}")
+    if not (plan.span_mode == "ellipse" and len(rec_e.calls) == 2
+            and counts.get("expand_pairs_fused") == 2
+            and counts.get("blend_packed_tile") == 1
+            and not bool(out.overflow) and torch.isfinite(out.color).all()):
+        raise SystemExit("phase ellipse: the frame did not run the two "
+                         "expands and the tile blend once, or overflowed")
+    (tab1, rbase, mr), _ = rec_e.calls[0]
+    (tab2, pbase, mp), _ = rec_e.calls[1]
+    (binning,), blend_kw = rec_b.calls[0]
+    rect = grt.GaussianRayTracer(cfg0.replace(stream="tile"), "tiled",
+                                 device=DEVICE)
+    rect.calibrate(cloud, camera)
+    with Recorder(splat_packed, "blend_packed") as rec_r:
+        rout = rect(cloud, camera)
+        torch.cuda.synchronize()
+    rbin = rec_r.calls[0][0][0]
+    err = max_abs_err(out.color - rout.color, out.trans - rout.trans)
+    over = int(((out.color - rout.color).abs() > 2e-3).sum()
+               + ((out.trans - rout.trans).abs() > 2e-3).sum())
+    fewer = bool((binning.tile_count <= rbin.tile_count).all())
+    # the f32 payload: the pairs the ellipse drops are taken by no pixel
+    f32 = [grt.GaussianRayTracer(c.replace(payload="f32"), "tiled",
+                                 device=DEVICE)(cloud, camera)
+           for c in (cfg, rect.cfg)]
+    err32 = max_abs_err(f32[0].color - f32[1].color,
+                        f32[0].trans - f32[1].trans)
+    dead = pair_expand._DEAD_BASE
+    n_rows = int((pbase != dead).sum())
+    pairs, rpairs = int(binning.total_pairs), int(rbin.total_pairs)
+    kw = dict(max_pairs=tracer.max_pairs, max_rows=tracer.max_rows)
+    frame_ms = min(time_cuda(lambda: grt.render_tiled(cloud, camera, cfg,
+                                                      **kw), FRAMES)
+                   for _ in range(3))
+    rect_ms = min(time_cuda(lambda: grt.render_tiled(
+        cloud, camera, rect.cfg, max_pairs=rect.max_pairs), FRAMES)
+        for _ in range(3))
+    log(f"phase ellipse: {int((rbase != dead).sum())} splats with rows, "
+        f"{n_rows} tile rows, {pairs} pairs against {rpairs} on rect spans "
+        f"({pairs / rpairs:.4f}); every tile at most its rect count "
+        f"{fewer}; max |ellipse - rect| on the f32 payload {err32:.3e} "
+        f"(atol 2e-3), on the compact payload {err:.3e} ({over} entries "
+        f"above 2e-3; at most 1e-2); frame {frame_ms:.4f} ms (rect tile "
+        f"stream {rect_ms:.4f})")
+    # on the compact payload a pair the ellipse drops (alpha under the
+    # threshold at every pixel in f32) can clear the threshold under the
+    # payload's bf16 conic and u8 opacity: a few entries move by about
+    # alpha_threshold times a colour
+    if not (fewer and err32 <= 2e-3 and err <= 1e-2
+            and not any(bool(o.overflow) for o in f32)):
+        raise SystemExit("phase ellipse: the ellipse frame differs from the "
+                         "rect one, or a tile gained pairs")
+
+    def library(tab, base, n):
+        src = torch.searchsorted(base, torch.arange(
+            n, device=DEVICE, dtype=torch.int32), right=True)
+        return lambda: tab.index_select(1, src.sub(1).clamp_(
+            0, tab.shape[1] - 1))
+    for name, tab, base, n in (("expand_pairs_fused[ellipse,rows]", tab1,
+                                rbase, mr),
+                               ("expand_pairs_fused[ellipse,pairs]", tab2,
+                                pbase, mp)):
+        rows.append(expand_row(
+            name, EXPAND_TPU,
+            lambda: pair_expand.expand_pairs_fused(tab, base, n),
+            lambda: pair_expand.expand_pairs_plain(tab, base, n),
+            library(tab, base, n), 1,
+            4 * (tab.shape[0] * (n + tab.shape[1]) + tab.shape[1]),
+            phase="ellipse"))
+        rows[-1]["at"] = f"{tuple(tab.shape)} -> {n}"
+
+    # the tile blend on the ellipse payload
+    ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
+    T, npx = ntx * nty, cfg.tile_w * cfg.tile_h
+    plain_keys = ("width", "height", "sub_w", "sub_h", "bs", "chunk",
+                  "g_cutoff", "alpha_threshold", "alpha_clamp", "term_eps",
+                  "skip_range_check", "use_exp_lut")
+    stats = {}
+    t0 = time.perf_counter()
+    cp, tp, _, _ = splat_packed.blend_packed_tile_plain(
+        binning, stats=stats,
+        **{k: blend_kw[k] for k in plain_keys if k in blend_kw})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    run = lambda: splat_packed.blend_packed(binning, **blend_kw)
+    ck, tk = run()[:2]
+    torch.cuda.synchronize()
+    berr = max_abs_err(ck - cp, tk - tp)
+    blended = stats["pairs_blended"]
+    if not berr <= 2e-3:
+        raise SystemExit(f"phase ellipse: the tile blend differs from its "
+                         f"plain version by {berr}")
+    t_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * blended / F32_FLOPS
+    t_bytes = (4 * (tile_binning.COMPACT_WIDTH * blended + T + 1)
+               + 16 * W * H) / HBM_BYTES_PER_S
+    info = blend_kernel_info("tile", blend_kw, npx)
+    rows.append(dict(
+        name="blend_packed_tile[ellipse]", route="cuda", source=BLEND_SRC,
+        replaces=BLEND_TPU, launches=counts["blend_packed_tile"],
+        max_abs_err=berr, ms=time_cuda(run, 10), plain_ms=plain_s * 1e3,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, **blend_floor(stats, info, max_sm_clock_hz()),
+        build=info))
+    row = rows[-1]
+    floor = row["instruction_floor_ms"]
+    log(f"phase ellipse: blend_packed_tile[ellipse]: max |kernel - plain| "
+        f"{berr:.3e} (atol 2e-3), {blended} pairs blended of {pairs}; row "
+        f"cull {row['culled_share']:.4f}; kernel {row['ms']:.4f} ms, plain "
+        f"{plain_s * 1e3:.1f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), instruction floor "
+        + (f"{floor:.4f} ms" if floor else "not measured"))
+    return dict(frame_ms=frame_ms, rect_frame_ms=rect_ms, pairs=pairs,
+                rect_pairs=rpairs, tile_rows=n_rows, max_rows=tracer.max_rows,
+                max_pairs=tracer.max_pairs, max_abs_err_vs_rect=err,
+                entries_above_2e3=over, max_abs_err_vs_rect_f32=err32)
 
 
 def tri_soup(n: int, sd: float, seed: int = 0):
@@ -2122,6 +2556,7 @@ def tri_phases(torch, rows):
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     card = phase_device()
     try:
         import torch
@@ -2368,16 +2803,26 @@ def main() -> int:
     train_rows, train = train_phases(torch)
     rows += train_rows
     fit = fit_phase(torch, rows, card)
+    t0 = time.perf_counter()
+    kbuffer = dict(kbuffer=kbuffer_phase(torch, card),
+                   splat_trace=splat_trace_phase(torch, card),
+                   mixed=mixed_phase(torch, card),
+                   ellipse=ellipse_phase(torch, rows, card))
+    log(f"phases kbuffer, splat-trace, mixed, ellipse: "
+        f"{time.perf_counter() - t0:.1f} s")
     tri = tri_phases(torch, rows)
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                 for r in rows))
+    log(f"run: {time.perf_counter() - t_run:.1f} s wall")
 
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms,
                       "mrays_per_s": mrays, "stages_ms": stages,
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
                       "max_rows": mrows, "serving": serving,
-                      "train": train, "fit": fit, "tri": tri}),
+                      "train": train, "fit": fit, "kbuffer": kbuffer,
+                      "tri": tri,
+                      "wall_s": time.perf_counter() - t_run}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,11 @@ saturation tracking and exact hits, the exp LUT in every blend, the
 and `gsrt_torch.scene.campath`; and triangle ray tracing — the path
 tracer's shadow (SH), ambient-occlusion (AO) and path-traced (PT) renders
 over sphere, box and triangle scenes, the binned primary cast kernel and
-the packed-cluster traversal kernel. ROADMAP.md lists what remains.
+the packed-cluster traversal kernel; and the paper's k-buffer path —
+`GaussianRayTracer` in "reference" mode, free-ray and clustered splat
+tracing (`models.gaussian_rt.trace_gaussian_rays`, `ops.splat_clusters`)
+and splats inside path-traced scenes — with ellipse spans on the tiled
+path. ROADMAP.md lists what remains.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

@@ -1,6 +1,6 @@
 """Weight carry-over: build the port's objects (clouds, cameras, training
 parameters, optimiser state, densification statistics, path-tracer
-scenes) from the JAX package's arrays, handed over as NumPy.
+scenes, clustered splats) from the JAX package's arrays, handed over as NumPy.
 
 The JAX package's cloud and camera hold device arrays; `np.asarray` turns
 each field into NumPy, and these functions put the same bits on the
@@ -62,6 +62,28 @@ def scene_from_numpy(fields: dict, device=None) -> PrimitiveScene:
     mats = Materials(**{k: conv(v) for k, v in fields["materials"].items()})
     return PrimitiveScene(materials=mats, **{
         k: conv(v) for k, v in fields.items() if k != "materials"})
+
+
+def splat_clusters_from_numpy(cl_min, cl_max, sup_min, sup_max, valid,
+                              sup: int, means, cov_inv, opacity, colors,
+                              device=None):
+    """Clustered splats (`ops.splat_clusters.SplatClusters`) from the JAX
+    package's `SplatClusters` arrays as NumPy: the cluster and
+    super-cluster boxes, the [M, K] slot mask, `sup`, and the [M, K, ...]
+    means, Σ⁻¹, opacity and colours. Carrying them over traces the very
+    clusters the JAX package built (its Morton sort may order equal codes
+    otherwise than the port's stable one)."""
+    from gsrt_torch.ops.clusters import Clusters
+    from gsrt_torch.ops.splat_clusters import SplatClusters
+    dev = resolve_device(device)
+    clusters = Clusters(
+        cl_min=_f32(cl_min, dev), cl_max=_f32(cl_max, dev),
+        sup_min=_f32(sup_min, dev), sup_max=_f32(sup_max, dev),
+        valid=torch.as_tensor(np.array(valid, dtype=bool), device=dev),
+        sup=int(sup))
+    return SplatClusters(clusters=clusters, means=_f32(means, dev),
+                         cov_inv=_f32(cov_inv, dev),
+                         opacity=_f32(opacity, dev), colors=_f32(colors, dev))
 
 
 def params_from_numpy(means, log_scales, quats, opacity_logit, sh,

@@ -1,9 +1,14 @@
 """Ray-traced 3D Gaussian Splatting renderer (counterpart of
 `gsrt.models.gaussian_rt`).
 
+* `render_reference`: the paper's multi-pass k-buffer algorithm — per
+  pass, the k nearest splats beyond each pixel's depth front, composited
+  front to back, the front advanced; `trace_gaussian_rays` runs the same
+  passes for arbitrary rays through the ray-space response.
 * `render_fast`: one front-to-back sweep over splats sorted by camera
-  depth — per-pixel visit order is exact because depth is per splat. The
-  port's semantic oracle.
+  depth — per-pixel visit order is exact because depth is per splat, so
+  it computes what the k-buffer passes compute. The port's semantic
+  oracle.
 * `render_tiled`: the performance path. Projection and SH, footprint
   extents, binning, then a blend kernel, by the JAX package's gating:
   the group stream through the packed group kernel (the defaults), the
@@ -11,9 +16,11 @@
   stream through the subtile kernel (blend_impl="subtile") or, at 128×8
   tiles, through `blend_tiles`. Under `serving=True` it takes the tile
   stream, culls by a cutoff map, and returns the saturation feedback
-  (`ServingAux`) that `gsrt_torch.serving` consumes. Only ellipse spans
-  raise NotImplementedError.
-* `GaussianRayTracer`: sizes the static pair and unit buffers from a
+  (`ServingAux`) that `gsrt_torch.serving` consumes. `cfg.span_mode =
+  "ellipse"` bins ellipse spans on the tile stream (at most 255 tile rows;
+  rect spans past that).
+* `GaussianRayTracer`: "fast", "reference" or "tiled"; in "tiled" mode
+  it sizes the static pair and unit buffers from a
   NumPy count of the view (`calibrate`) and re-renders a frame that
   overflowed them, at once or, with defer_overflow=N, N frames later.
 
@@ -32,11 +39,14 @@ import torch
 from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
 from gsrt_torch.ops import explut
-from gsrt_torch.ops.gaussian import (eval_gaussian_response,
-                                     project_gaussians, screen_extents_abc)
+from gsrt_torch.ops.gaussian import (eval_gaussian_response, invert_cov3d,
+                                     project_gaussians,
+                                     ray_gaussian_response,
+                                     screen_extents_abc)
+from gsrt_torch.ops.kbuffer import (advance_depth_front, composite_color,
+                                    merge_nearest)
 from gsrt_torch.ops.sh import eval_sh
-from gsrt_torch.ops.tile_binning import (TODO_ELLIPSE, group_rows_k,
-                                         tile_extent)
+from gsrt_torch.ops.tile_binning import group_rows_k, tile_extent
 
 
 class RenderOutput(NamedTuple):
@@ -63,13 +73,20 @@ def _precompute(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig):
     depth, mean2d, quad, det, in_front = project_gaussians(
         cloud.means, cloud.cov3d, camera, conic_mode=cfg.conic_mode,
         cov2d_dilation=cfg.cov2d_dilation)
-    d = cloud.means - camera.position
+    colors = eval_sh(cloud.sh, unit_dirs(cloud.means, camera.position),
+                     min(cfg.sh_degree, cloud.sh_degree))
+    return depth, mean2d, quad, in_front, colors
+
+
+def unit_dirs(means: torch.Tensor, origin) -> torch.Tensor:
+    """Unit directions from `origin` ([3]) to each mean: the view
+    directions SH colours are evaluated at."""
+    d = means - torch.as_tensor(origin, dtype=means.dtype,
+                                device=means.device)
     inv_n = 1.0 / torch.clamp_min(
         torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]),
         1e-9)
-    degree = min(cfg.sh_degree, cloud.sh_degree)
-    colors = eval_sh(cloud.sh, d * inv_n[:, None], degree)
-    return depth, mean2d, quad, in_front, colors
+    return d * inv_n[:, None]
 
 
 def alive_mask(depth, opacity, in_front, cfg: RenderConfig) -> torch.Tensor:
@@ -169,6 +186,151 @@ def render_fast(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
                         depth=dacc.reshape(H, W) if with_depth else None)
 
 
+def _nearest_pass(n_rays: int, candidates, k: int, init_d: float, dev):
+    """One k-buffer pass: every chunk's candidates (depth, alpha, id)
+    merged into a fresh buffer. Returns (kd, ka, ki, count)."""
+    kd = torch.full((n_rays, k), init_d, device=dev)
+    ka = torch.zeros((n_rays, k), device=dev)
+    ki = torch.zeros((n_rays, k), dtype=torch.int64, device=dev)
+    for cd, ca, ci in candidates:
+        kd, ka, ki = merge_nearest(kd, ka, ki, cd, ca, ci)
+    return kd, ka, ki, (kd < init_d).sum(-1, dtype=torch.int32)
+
+
+def render_reference(cloud: GaussianCloud, camera: Camera,
+                     cfg: RenderConfig) -> RenderOutput:
+    """The paper's multi-pass k-buffer render: each pass keeps, per pixel,
+    the k nearest accepted splats beyond its depth front (chunks of
+    cfg.splat_chunk splats merged into the buffer), composites them front
+    to back and advances the front to the last one. A pixel is done on a
+    pass that finds nothing or after cfg.max_passes passes; `passes`
+    counts the passes that found something, `hits` the splats blended.
+    Equal depths are taken lowest splat index first (`ops.kbuffer`).
+
+    Each pass traces only the pixels still live; the JAX package runs
+    every pixel each pass and keeps the finished ones' state unchanged,
+    which gives the same outputs."""
+    if cloud.n == 0:
+        return _empty_output(camera, cfg)
+    dev = cloud.device
+    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
+    lut = explut.build_exp_lut(device=dev) if cfg.use_exp_lut else None
+    pix = _pixel_grid(camera.width, camera.height, dev)
+    P = pix.shape[0]
+    init_d = float(cfg.init_depth)
+    ids = torch.arange(cloud.n, device=dev)
+    front = torch.zeros(P, device=dev)
+    trans = torch.ones(P, device=dev)
+    color = torch.zeros((P, 3), device=dev)
+    passes = torch.zeros(P, dtype=torch.int32, device=dev)
+    hits = torch.zeros(P, dtype=torch.int32, device=dev)
+    live = torch.arange(P, device=dev)
+
+    def candidates(px, fr):
+        for c0 in range(0, cloud.n, cfg.splat_chunk):
+            sl = slice(c0, c0 + cfg.splat_chunk)
+            alpha, accept = _chunk_alphas(px, mean2d[sl], quad[sl],
+                                          depth[sl], cloud.opacity[sl],
+                                          in_front[sl], cfg, lut)
+            ds = depth[sl][None, :]
+            valid = accept & (ds > fr[:, None])
+            yield (torch.where(valid, ds, init_d),
+                   torch.where(valid, alpha, 0.0), ids[sl])
+
+    while live.numel():
+        fr = front[live]
+        kd, ka, ki, count = _nearest_pass(
+            live.numel(), candidates(pix[live], fr), cfg.k, init_d, dev)
+        trans[live], color[live] = composite_color(
+            trans[live], color[live], ka, colors[ki], count)
+        front[live] = advance_depth_front(fr, kd, count)
+        miss = count == 0
+        p = passes[live] + (~miss).to(torch.int32)
+        passes[live] = p
+        hits[live] += count
+        live = live[~(miss | (p >= cfg.max_passes))]
+
+    if cfg.white_background:
+        color = color + trans[:, None]
+    H, W = camera.height, camera.width
+    return RenderOutput(trans=trans.reshape(H, W),
+                        color=color.reshape(H, W, 3),
+                        passes=passes.reshape(H, W),
+                        hits=hits.reshape(H, W))
+
+
+def ray_window(t_max, n_rays: int, cfg: RenderConfig, dev) -> torch.Tensor:
+    """Per-ray upper bound on t ([R], cfg.t_max when None), clamped to
+    init_depth: the k-buffer's empty-slot depth, past which hits would be
+    dropped silently."""
+    t = torch.as_tensor(cfg.t_max if t_max is None else t_max,
+                        dtype=torch.float32, device=dev)
+    return torch.clamp_max(t.expand(n_rays), float(cfg.init_depth))
+
+
+def trace_gaussian_rays(cloud: GaussianCloud, origins, dirs,
+                        cfg: RenderConfig, colors=None, t_max=None,
+                        sh_origin=None):
+    """The k-buffer passes for arbitrary rays, through the ray-space
+    response (`ops.gaussian.ray_gaussian_response`, t* as the depth).
+
+    origins, dirs [R, 3] (dirs need not be unit: t is the ray parameter);
+    t_max an optional per-ray [R] bound on t (cfg.t_max when None),
+    clamped to cfg.init_depth; colors [N, 3] per splat, or SH seen from
+    sh_origin (a [3] point), or the SH's DC term when both are None.
+    Returns (trans [R], color [R, 3], hits [R]). A ray is done on a pass
+    that finds nothing or once hits ≥ cfg.max_passes·k. Every pass sweeps
+    all splats in chunks of cfg.splat_chunk, tracing only the rays still
+    live (the same outputs as tracing all). Equal t* are taken lowest
+    splat index first."""
+    dev = origins.device
+    R, N = origins.shape[0], cloud.n
+    cov_inv = invert_cov3d(cloud.cov3d)
+    if colors is None:
+        if sh_origin is not None:
+            colors = eval_sh(cloud.sh, unit_dirs(cloud.means, sh_origin),
+                             min(cfg.sh_degree, cloud.sh_degree))
+        else:
+            colors = eval_sh(cloud.sh, torch.zeros_like(cloud.means), 0)
+    tmax_r = ray_window(t_max, R, cfg, dev)
+    op = torch.where(cloud.opacity > cfg.alpha_threshold, cloud.opacity,
+                     torch.zeros_like(cloud.opacity))
+    init_d = float(cfg.init_depth)
+    ids = torch.arange(N, device=dev)
+    front = torch.zeros(R, device=dev)
+    trans = torch.ones(R, device=dev)
+    color = torch.zeros((R, 3), device=dev)
+    hits = torch.zeros(R, dtype=torch.int32, device=dev)
+    live = torch.arange(R, device=dev)
+
+    def candidates(o, d, lo, hi):
+        for c0 in range(0, N, cfg.splat_chunk):
+            sl = slice(c0, c0 + cfg.splat_chunk)
+            t_star, g = ray_gaussian_response(o, d, cloud.means[sl],
+                                              cov_inv[sl])
+            alpha = torch.clamp_max(op[sl][None, :] * torch.exp(-g), 0.99)
+            valid = ((g <= cfg.g_cutoff) & (alpha > cfg.alpha_threshold)
+                     & (t_star > lo) & (t_star < hi))
+            yield (torch.where(valid, t_star, init_d),
+                   torch.where(valid, alpha, 0.0), ids[sl])
+
+    while live.numel():
+        fr = front[live]
+        kd, ka, ki, count = _nearest_pass(
+            live.numel(),
+            candidates(origins[live], dirs[live],
+                       torch.clamp_min(fr, cfg.t_min)[:, None],
+                       tmax_r[live][:, None]),
+            cfg.k, init_d, dev)
+        trans[live], color[live] = composite_color(
+            trans[live], color[live], ka, colors[ki], count)
+        front[live] = advance_depth_front(fr, kd, count)
+        h = hits[live] + count
+        hits[live] = h
+        live = live[~((count == 0) | (h >= cfg.max_passes * cfg.k))]
+    return trans, color, hits
+
+
 class StreamPlan(NamedTuple):
     span_mode: str      # after the ellipse → rect fallback
     stream: str         # "group" or "tile"
@@ -236,9 +398,6 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
         raise ValueError("serving needs the packed blend and tiles other "
                          "than 128x8")
     plan = stream_plan(cfg, camera.width, camera.height, serving)
-    if plan.span_mode == "ellipse":
-        raise NotImplementedError(
-            f"gsrt_torch bins rect spans only: see {TODO_ELLIPSE}")
     ntx, nty = tile_extent(camera.width, camera.height, tw, th)
     bs = plan.group_k * ntx if plan.stream == "group" else cfg.blend_bs
     if cloud.n == 0:
@@ -267,7 +426,8 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
         max_pairs=max_pairs, compact=plan.compact, span_mode=plan.span_mode,
         max_rows=max_rows, stream=plan.stream, expand_impl=cfg.expand_impl,
         cutoff_map=cutoff_map, carry_depth=serving,
-        cull_super=cfg.serving_super)
+        cull_super=cfg.serving_super, g_cutoff=cfg.g_cutoff,
+        alpha_threshold=cfg.alpha_threshold)
     size = dict(width=camera.width, height=camera.height)
     exact_hits = None
     consumed = None
@@ -387,6 +547,40 @@ def count_pairs_numpy(cloud: GaussianCloud, camera: Camera,
     return int(_spans_numpy(cloud, camera, cfg)["touched"].sum())
 
 
+def count_rows_pairs_numpy(cloud: GaussianCloud, camera: Camera,
+                           cfg: RenderConfig) -> tuple[int, int]:
+    """Host-side (pairs, tile-row units) under ellipse spans: the span math
+    of `tile_binning._build_ellipse` in float64, 1e-3 px dilation
+    included (so the count may differ from the binning's f32 by a few
+    pairs)."""
+    s = _spans_numpy(cloud, camera, cfg)
+    alive = s["touched"] > 0
+    x0, x1, y0, y1 = s["x0"], s["x1"], s["y0"], s["y1"]
+    rows = np.where(alive, y1 - y0 + 1, 0).astype(np.int64)
+    idx = np.repeat(np.arange(rows.shape[0]), rows)
+    off = np.cumsum(rows) - rows
+    ty = y0[idx] + (np.arange(idx.shape[0]) - off[idx])
+    qa = np.maximum(s["qa"][idx], 1e-12)
+    qb = s["qb"][idx]
+    det = np.maximum(qa * s["qc"][idx] - qb * qb, 1e-18)
+    g = s["g"][idx]
+    my, mx = s["py"][idx], s["px"][idx]
+    th, tw = cfg.tile_h, cfg.tile_w
+    dy_lo = ty * th - my
+    dy_hi = dy_lo + (th - 1)
+    dy0 = np.clip(0.0, dy_lo, dy_hi)
+    wmax = np.sqrt(np.maximum(2.0 * g * qa - det * dy0 * dy0, 0.0)) / qa \
+        + 1e-3
+    slope = qb / qa
+    xc_lo = mx - slope * dy_lo
+    xc_hi = mx - slope * dy_hi
+    dxmin = np.minimum(xc_lo, xc_hi) - wmax
+    dxmax = np.maximum(xc_lo, xc_hi) + wmax
+    tx0 = np.clip(np.floor(dxmin / tw), x0[idx], x1[idx])
+    tx1 = np.clip(np.floor(dxmax / tw), tx0, x1[idx])
+    return int((tx1 - tx0 + 1).sum()), int(rows.sum())
+
+
 def count_units_numpy(cloud: GaussianCloud, camera: Camera,
                       cfg: RenderConfig, k: int) -> tuple[int, int]:
     """Host-side (pairs, row-group units) for the group-contiguous stream:
@@ -419,10 +613,8 @@ class GaussianRayTracer:
     def __init__(self, cfg: RenderConfig, mode: str = "fast",
                  max_pairs: Optional[int] = None, device=None,
                  defer_overflow: int = 0):
-        if mode not in ("fast", "tiled"):
-            raise NotImplementedError(
-                f"mode {mode!r}: gsrt_torch ports 'fast' and 'tiled'; "
-                f"'reference' is ROADMAP.md Queue 1 item 11")
+        if mode not in ("fast", "reference", "tiled"):
+            raise ValueError(f"unknown mode {mode!r}")
         self.cfg = cfg
         self.mode = mode
         self.device = resolve_device(device)
@@ -432,13 +624,16 @@ class GaussianRayTracer:
         self._overflow_pending: list[torch.Tensor] = []
 
     def calibrate(self, cloud: GaussianCloud, camera: Camera) -> int:
-        """Size max_pairs (and, on the group stream, max_rows) from a NumPy
-        count of this view with 10% slack. The stream is decided by the
-        same gating `render_tiled` applies — after the ellipse → rect
-        fallback — so the unit buffer is sized whenever the render takes
-        the group stream."""
+        """Size max_pairs (and max_rows: the group stream's units or the
+        ellipse spans' tile rows) from a NumPy count of this view with 10%
+        slack. The span mode and stream are decided by the same gating
+        `render_tiled` applies — after the ellipse → rect fallback — so
+        the buffers sized are the ones the render uses."""
         plan = stream_plan(self.cfg, camera.width, camera.height)
-        if plan.stream == "group":
+        if plan.span_mode == "ellipse":
+            total, rows = count_rows_pairs_numpy(cloud, camera, self.cfg)
+            self.max_rows = pair_bucket(int(rows * 1.1))
+        elif plan.stream == "group":
             total, units = count_units_numpy(cloud, camera, self.cfg,
                                              plan.group_k)
             self.max_rows = pair_bucket(int(units * 1.1))
@@ -456,6 +651,8 @@ class GaussianRayTracer:
         cloud, camera = cloud.to(self.device), camera.to(self.device)
         if self.mode == "fast":
             return render_fast(cloud, camera, self.cfg)
+        if self.mode == "reference":
+            return render_reference(cloud, camera, self.cfg)
         if self.max_pairs is None:
             self.calibrate(cloud, camera)
         out = self._render(cloud, camera)

@@ -21,9 +21,14 @@ draws with `jax.random`, so the two packages' noise differs for the same
 seed. The JAX package's `lax.map` over samples and `fori_loop` over
 bounces are Python loops here.
 
+Splats share the scene with the primitives (`render_path_traced`'s
+`gaussians` or `gauss_clusters`): every bounce segment composites
+through them by the k-buffer passes of `models.gaussian_rt` or
+`ops.splat_clusters`.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-cylinders, Mandelbulbs, textures and mips, alpha cutouts, Gaussian splats
-in the scene and the `tri_clusters` traversal.
+cylinders, Mandelbulbs, textures and mips, alpha cutouts and the
+`tri_clusters` traversal.
 """
 
 from __future__ import annotations
@@ -35,11 +40,11 @@ import torch
 
 from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, Materials
-from gsrt_torch.ops.primitives import (box_normal, ray_box, ray_sphere,
-                                       ray_triangle, sphere_normal,
-                                       triangle_normal)
+from gsrt_torch.ops.primitives import (_dot, box_normal, ray_box,
+                                       ray_sphere, ray_triangle,
+                                       sphere_normal, triangle_normal)
 
-_QUEUED = "ROADMAP.md Queue 1 item 12"
+_QUEUED = "ROADMAP.md Queue 1 item D"
 
 
 class PrimitiveScene(NamedTuple):
@@ -136,11 +141,11 @@ def _barycentric(orig, dirn, v0, v1, v2):
     e1 = v1 - v0
     e2 = v2 - v0
     pvec = _cross(dirn, e2)
-    det = (e1 * pvec).sum(-1)
+    det = _dot(e1, pvec)
     inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, torch.zeros_like(det))
     tvec = orig - v0
-    u = (tvec * pvec).sum(-1) * inv_det
-    v = (dirn * _cross(tvec, e1)).sum(-1) * inv_det
+    u = _dot(tvec, pvec) * inv_det
+    v = _dot(dirn, _cross(tvec, e1)) * inv_det
     return u, v
 
 
@@ -190,7 +195,7 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
     def face_forward(i):
         v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
         n = triangle_normal(v0, v1, v2)
-        n = torch.where((n * dirn).sum(-1, keepdim=True) > 0, -n, n)
+        n = torch.where(_dot(n, dirn)[:, None] > 0, -n, n)
         return v0, v1, v2, n
 
     if tri_override is not None:
@@ -231,14 +236,22 @@ def _closest_hit_cutout(scene: PrimitiveScene, orig, dirn, t_min, t_max):
     return _closest_hit(scene, orig, dirn, t_min, t_max)
 
 
-def _scene_sort_bounds(scene):
+def _scene_sort_bounds(scene, gauss_clusters=None):
     """(lo, hi, park_o, park_d) for coherence sorting, or (None,) * 4
-    without a triangle table. Retired rays are parked at park_o, outside
-    the scene, all along park_d, so blocks of them plan no visits."""
-    if scene.tri_table is None:
+    without a triangle table or splat clusters. lo, hi bound the table's
+    and the clusters' super-cluster boxes; retired rays are parked at
+    park_o, outside both, all along park_d, so blocks of them plan no
+    visits."""
+    boxes = []
+    if scene.tri_table is not None:
+        boxes.append((scene.tri_table.sup_min, scene.tri_table.sup_max))
+    if gauss_clusters is not None:
+        cl = gauss_clusters.clusters
+        boxes.append((cl.sup_min, cl.sup_max))
+    if not boxes:
         return None, None, None, None
-    lo = scene.tri_table.sup_min.amin(0)
-    hi = scene.tri_table.sup_max.amax(0)
+    lo = torch.stack([b[0].amin(0) for b in boxes]).amin(0)
+    hi = torch.stack([b[1].amax(0) for b in boxes]).amax(0)
     park_o = hi + (hi - lo) + 1.0
     park_d = torch.full((3,), 1.0 / math.sqrt(3.0), device=lo.device)
     return lo, hi, park_o, park_d
@@ -442,38 +455,73 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
                        cfg: RenderConfig, seed: int = 0,
                        aperture: float = 0.0, focus: float = 1.0,
                        gaussians=None, gauss_clusters=None,
+                       gauss_s_max: int = 48, gauss_rb: int = 256,
                        primary_impl: str = "auto",
                        tri_max_pairs: int = 1 << 20,
                        tri_span_exact: bool = False,
+                       sort_bounces: bool = True,
                        return_flags: bool = False):
     """Full path trace: [H, W, 3] linear colour, square-rooted under
     cfg.gamma_correction. return_flags adds {"tri_visits_overflow",
-    "binned_pairs_overflow"}: a True flag means the image may miss
-    geometry. With a triangle table each bounce wave is coherence-sorted
-    and its retired rays parked (output-identical). primary_impl
-    "binned" (the "auto" choice for a pinhole camera over triangles) casts
-    bounce 0 through the screen-tile binning, its pair buffer sized by
-    tri_max_pairs; "block" traces it through the traversal. Splats in the scene (gaussians,
-    gauss_clusters) are not ported yet and raise."""
-    if gaussians is not None or gauss_clusters is not None:
-        raise NotImplementedError(f"gsrt_torch does not render splats in a "
-                                  f"primitive scene yet: see {_QUEUED}")
+    "gauss_visits_overflow", "binned_pairs_overflow"}: a True flag means
+    the image may miss geometry. With a triangle table or splat clusters
+    each bounce wave is coherence-sorted and its retired rays parked
+    (output-identical; sort_bounces=False traces the waves unsorted).
+    primary_impl "binned" (the "auto" choice for a pinhole camera over
+    triangles) casts bounce 0 through the screen-tile binning, its pair
+    buffer sized by tri_max_pairs; "block" traces it through the
+    traversal.
+
+    Splats in the scene: `gaussians` (a GaussianCloud, traced brute force
+    by `trace_gaussian_rays`, colours from SH seen from the camera) or
+    `gauss_clusters` (prebuilt `ops.splat_clusters.SplatClusters`, traced
+    by `trace_gaussian_rays_clustered` in blocks of gauss_rb rays, at most
+    gauss_s_max super-clusters a block). Every bounce segment, up to its
+    surface hit, composites through them: their in-scatter is added and
+    their transmittance scales the path's throughput, so splats are seen
+    by primary, reflected and refracted rays alike."""
+    from gsrt_torch.models.gaussian_rt import (unit_dirs,
+                                               trace_gaussian_rays)
+    from gsrt_torch.ops.sh import eval_sh
+    from gsrt_torch.ops.splat_clusters import trace_gaussian_rays_clustered
+
     _check_ported(scene)
     H, W = camera.height, camera.width
     R = H * W
     dev = scene.device
     gen = torch.Generator(device=dev).manual_seed(seed)
+    gauss_colors = None
+    if gaussians is not None and gauss_clusters is None:
+        gauss_colors = eval_sh(gaussians.sh,
+                               unit_dirs(gaussians.means, camera.position),
+                               min(cfg.sh_degree, gaussians.sh_degree))
+    has_gauss = gaussians is not None or gauss_clusters is not None
     primary_impl = _resolve_primary(primary_impl, scene, aperture)
     if primary_impl == "binned" and aperture != 0.0:
         raise ValueError("the binned primary cast needs a shared ray origin "
                          "(aperture 0)")
-    sort_lo, sort_hi, park_o, park_d = _scene_sort_bounds(scene)
+    sort_lo, sort_hi, park_o, park_d = (
+        _scene_sort_bounds(scene, gauss_clusters) if sort_bounces
+        else (None,) * 4)
     binning = None
     if primary_impl == "binned":
         binning = _tri_binning(scene, camera, cfg, tri_max_pairs,
                                tri_span_exact)
     ovf_tri = torch.zeros((), dtype=torch.bool, device=dev)
+    ovf_gauss = torch.zeros((), dtype=torch.bool, device=dev)
     acc = torch.zeros((R, 3), device=dev)
+
+    def gauss_segment(o, d, t, hit):
+        """(trans, color, overflow) of the splats along each segment."""
+        seg_tmax = torch.where(hit, t, torch.full_like(t, cfg.t_max))
+        if gauss_clusters is not None:
+            g_trans, g_color, _, g_ovf = trace_gaussian_rays_clustered(
+                gauss_clusters, o, d, cfg, t_max=seg_tmax, rb=gauss_rb,
+                s_max=gauss_s_max)
+            return g_trans, g_color, g_ovf
+        g_trans, g_color, _ = trace_gaussian_rays(
+            gaussians, o, d, cfg, colors=gauss_colors, t_max=seg_tmax)
+        return g_trans, g_color, torch.zeros_like(ovf_gauss)
 
     for _ in range(cfg.samples):
         orig, dirn = generate_camera_rays(gen, camera, cfg, aperture, focus)
@@ -481,10 +529,13 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
         out_color = torch.zeros((R, 3), device=dev)
         active = torch.ones((R,), dtype=torch.bool, device=dev)
         for b in range(cfg.bounces):
+            g = None
             if b == 0 and binning is not None:
                 t, n, mat, hit, _, ovf = _closest_hit(
                     scene, orig, dirn, cfg.t_min, cfg.t_max,
                     tri_override=_cast(binning, camera, cfg, dirn))
+                if has_gauss:
+                    g = gauss_segment(orig, dirn, t, hit)
             elif sort_lo is not None:
                 perm, inv = _coherence_perm(orig, dirn, active, sort_lo,
                                             sort_hi)
@@ -493,12 +544,27 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
                 d_s = torch.where(act_s, dirn[perm], park_d)
                 t, n, mat, hit, _, ovf = _closest_hit_cutout(
                     scene, o_s, d_s, cfg.t_min, cfg.t_max)
+                if has_gauss:
+                    g_trans, g_color, g_ovf = gauss_segment(o_s, d_s, t, hit)
+                    g = (g_trans[inv], g_color[inv], g_ovf)
                 t, n, mat, hit = t[inv], n[inv], mat[inv], hit[inv]
             else:
                 t, n, mat, hit, _, ovf = _closest_hit_cutout(
                     scene, orig, dirn, cfg.t_min, cfg.t_max)
+                if has_gauss:
+                    g = gauss_segment(orig, dirn, t, hit)
             ovf_tri = ovf_tri | ovf
 
+            if g is not None:
+                # the segment through the splats: their in-scatter, then
+                # T_gauss times what lies beyond
+                g_trans, g_color, g_ovf = g
+                ovf_gauss = ovf_gauss | g_ovf
+                act = active[:, None]
+                out_color = out_color + torch.where(act, ray_color * g_color,
+                                                    0.0)
+                ray_color = torch.where(act, ray_color * g_trans[:, None],
+                                        ray_color)
             miss_now = (active & ~hit)[:, None]
             out_color = out_color + torch.where(
                 miss_now, ray_color * _sky(dirn, cfg.has_sky), 0.0)
@@ -521,6 +587,7 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     img = color.reshape(H, W, 3)
     if return_flags:
         return img, {"tri_visits_overflow": ovf_tri,
+                     "gauss_visits_overflow": ovf_gauss,
                      "binned_pairs_overflow": torch.zeros_like(ovf_tri)
                      if binning is None else binning.overflow}
     return img
@@ -528,23 +595,31 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
 
 def render_path_traced_calibrated(scene: PrimitiveScene, camera: Camera,
                                   cfg: RenderConfig, *,
+                                  gauss_s_max: int = 48,
                                   tri_max_pairs: int = 1 << 20,
                                   max_retries: int = 2, growth: float = 2.0,
                                   **kw):
-    """render_path_traced re-rendered with a grown tri_max_pairs while the
-    binned pair buffer overflows (at most max_retries times). Returns
-    (img, info) with the final size, the retries and the last flags as
-    Python values; it reads the flags from the device."""
+    """render_path_traced rendered again with a grown buffer while one
+    overflows, at most max_retries times: tri_max_pairs (the binned pair
+    buffer) times growth, and gauss_s_max (the clustered splats' visits)
+    to max(gauss_s_max·growth, gauss_s_max + 8). Returns (img, info) with
+    the final sizes, the retries and the last flags as Python values; it
+    reads the flags from the device."""
     retries = 0
     while True:
-        img, flags = render_path_traced(scene, camera, cfg,
-                                        tri_max_pairs=tri_max_pairs,
-                                        return_flags=True, **kw)
+        img, flags = render_path_traced(
+            scene, camera, cfg, gauss_s_max=gauss_s_max,
+            tri_max_pairs=tri_max_pairs, return_flags=True, **kw)
         concrete = {k: bool(v) for k, v in flags.items()}
-        if not concrete["binned_pairs_overflow"] or retries >= max_retries:
-            return img, {"retries": retries, "tri_max_pairs": tri_max_pairs,
-                         "flags": concrete}
-        tri_max_pairs = int(tri_max_pairs * growth)
+        grow_pairs = concrete["binned_pairs_overflow"]
+        grow_smax = concrete["gauss_visits_overflow"]
+        if not (grow_pairs or grow_smax) or retries >= max_retries:
+            return img, {"retries": retries, "gauss_s_max": gauss_s_max,
+                         "tri_max_pairs": tri_max_pairs, "flags": concrete}
+        if grow_pairs:
+            tri_max_pairs = int(tri_max_pairs * growth)
+        if grow_smax:
+            gauss_s_max = max(int(gauss_s_max * growth), gauss_s_max + 8)
         retries += 1
 
 

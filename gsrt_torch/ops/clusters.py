@@ -1,6 +1,7 @@
 """Morton clusters of primitives (counterpart of `gsrt.ops.clusters`'s
-`build_clusters`; the bundle traversal `traverse_clusters` and
-`TriClusters` are not ported yet, ROADMAP.md Queue 1 item 12).
+`build_clusters`, `ray_aabb_hit` and `safe_inv_dir`; the bundle
+traversal `traverse_clusters` and `TriClusters` are not ported yet,
+ROADMAP.md Queue 1 item D).
 
 Primitives are ordered by the Morton code of their AABB centres and packed
 into M clusters of k members (M a multiple of `sup`); each cluster and
@@ -59,3 +60,20 @@ def build_clusters(aabb_min, aabb_max, k: int = 64, sup: int = 8):
     return (Clusters(cl_min=cl_min, cl_max=cl_max, sup_min=sup_min,
                      sup_max=sup_max, valid=slot_valid, sup=sup),
             order_p)
+
+
+def ray_aabb_hit(orig, inv_d, bmin, bmax, t_lo, t_hi):
+    """Slab test: orig, inv_d [..., 3] and bmin, bmax [..., 3] broadcast
+    against each other, t_lo, t_hi the rays' windows (broadcast likewise).
+    True where the ray's [t_lo, t_hi] meets the box."""
+    lo = (bmin - orig) * inv_d
+    hi = (bmax - orig) * inv_d
+    t_near = torch.minimum(lo, hi).amax(-1)
+    t_far = torch.maximum(lo, hi).amin(-1)
+    return (t_near <= t_far) & (t_far >= t_lo) & (t_near <= t_hi)
+
+
+def safe_inv_dir(dirn):
+    """1 / dirn with components below 1e-12 in size replaced by ±1e-12."""
+    tiny = torch.where(dirn >= 0, 1e-12, -1e-12)
+    return 1.0 / torch.where(dirn.abs() > 1e-12, dirn, tiny)

@@ -160,3 +160,49 @@ def eval_gaussian_response(pix: torch.Tensor, mean2d: torch.Tensor,
     dx, dy = d[..., 0], d[..., 1]
     a, b, c = quad[..., 0], quad[..., 1], quad[..., 2]
     return 0.5 * (a * dx * dx + 2.0 * b * dx * dy + c * dy * dy)
+
+
+def invert_cov3d(cov3d: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """[..., 6] upper-triangular Σ → [..., 6] upper-triangular Σ⁻¹
+    (closed-form adjugate)."""
+    a, b, c, d, e, f = (cov3d[..., i] for i in range(6))
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(det.abs() > eps, det,
+                                torch.full_like(det, eps))
+    return torch.stack(
+        [A * inv_det, B * inv_det, C * inv_det,
+         (a * f - c * c) * inv_det, (b * c - a * e) * inv_det,
+         (a * d - b * b) * inv_det], -1)
+
+
+def ray_gaussian_response(orig, dirn, means, cov3d_inv):
+    """Largest response of rays x(t) = o + t·d against 3D Gaussians, in ray
+    space: valid for any ray, not only camera rays. q(t) = (x − μ)ᵀΣ⁻¹(x − μ)
+    is smallest at t* = −(dᵀΣ⁻¹m)/(dᵀΣ⁻¹d) with m = o − μ. orig, dirn
+    [..., R, 3], means [..., P, 3], cov3d_inv [..., P, 6] (leading batch
+    dims broadcast). Returns (t_star [..., R, P], g_min = ½·q(t*)), g with
+    the pixel-space response's meaning (alpha = opacity·exp(−g)). The
+    symmetric mat-vecs are elementwise, in the JAX package's order (no
+    batched matmul, which would round otherwise)."""
+    ci = cov3d_inv[..., None, :, :]
+    i0, i1, i2, i3, i4, i5 = (ci[..., i] for i in range(6))
+    m = orig[..., :, None, :] - means[..., None, :, :]       # [..., R, P, 3]
+    mx, my, mz = m[..., 0], m[..., 1], m[..., 2]
+    dx = dirn[..., :, None, 0]
+    dy = dirn[..., :, None, 1]
+    dz = dirn[..., :, None, 2]
+    sd_x = i0 * dx + i1 * dy + i2 * dz
+    sd_y = i1 * dx + i3 * dy + i4 * dz
+    sd_z = i2 * dx + i4 * dy + i5 * dz
+    d_sd = dx * sd_x + dy * sd_y + dz * sd_z                 # dᵀΣ⁻¹d > 0
+    m_sd = mx * sd_x + my * sd_y + mz * sd_z                 # mᵀΣ⁻¹d
+    sm_x = i0 * mx + i1 * my + i2 * mz
+    m_sm = mx * sm_x + my * (i1 * mx + i3 * my + i4 * mz) \
+        + mz * (i2 * mx + i4 * my + i5 * mz)                 # mᵀΣ⁻¹m
+    d_sd_safe = torch.clamp_min(d_sd, 1e-12)
+    t_star = -m_sd / d_sd_safe
+    q_min = m_sm - (m_sd * m_sd) / d_sd_safe
+    return t_star, 0.5 * torch.clamp_min(q_min, 0.0)

@@ -16,7 +16,12 @@ INF = float("inf")
 
 
 def _dot(a, b):
-    return (a * b).sum(-1)
+    """a · b over the last axis of 3, summed left to right as elementwise
+    ops: `(a * b).sum(-1)` on CUDA may sum a row in another order
+    depending on its address, so a ray's hit would change with its place
+    in the batch (the coherence sort moves rays)."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] \
+        + a[..., 2] * b[..., 2]
 
 
 def _cross(a, b):
@@ -26,7 +31,8 @@ def _cross(a, b):
 
 
 def _norm(a, keepdim=False):
-    return torch.sqrt((a * a).sum(-1, keepdim=keepdim))
+    n = torch.sqrt(_dot(a, a))
+    return n[..., None] if keepdim else n
 
 
 def _normalize(a):

@@ -1,6 +1,7 @@
-"""Screen-tile binning of projected splats, in three streams.
+"""Screen-tile binning of projected splats, in three streams and two
+span modes.
 
-Counterpart of `gsrt.ops.tile_binning` for rect spans.
+Counterpart of `gsrt.ops.tile_binning`.
 
 * The group-contiguous compact stream (`compact=True, stream="group"`),
   the path `render_tiled` takes at its defaults. Splats are depth-sorted
@@ -19,6 +20,16 @@ Counterpart of `gsrt.ops.tile_binning` for rect spans.
   stream, but the payload carries the f32 features unrounded. With
   `with_ids` it also carries each pair's depth-order index and the
   per-splat bookkeeping that routes pair gradients back to splats.
+
+Ellipse spans (`span_mode="ellipse"`, both tile streams): a splat pairs
+only with the tiles its ellipse reaches, not every tile of its bounding
+box. Depth-sorted splats expand to tile-row units (level 1, the copy
+expand); each row takes the exact x-interval of the ellipse over its
+pixel rows; the rows then go through the tile stream's second half as
+w_span × 1 units (level 2). Only pairs that no pixel takes in f32 are
+gone, so the f32 payload renders the rect spans' image; on the compact
+payload the rounded conic and opacity can let a dropped pair clear the
+alpha threshold, by about alpha_threshold times its colour.
 
 Serving adds two hooks: `cutoff_map` culls, before the histogram, the
 splats that lie behind the previous frame's saturation depth in every
@@ -66,7 +77,6 @@ N_FEATURES = 7
 PACK_RANGE = 4.0           # pack15 covers [0, PACK_RANGE) in 15 bits
 _PACK_BIAS = 1 << 30
 
-TODO_ELLIPSE = "ROADMAP.md Queue 1 item 8 (ellipse spans)"
 SUPER = 8   # tiles per supertile side for the cutoff coarsening
 
 
@@ -271,6 +281,7 @@ def build_tile_binning(
     max_rows: int | None = None, stream: str = "group",
     expand_impl: str = "fused", with_ids: bool = False, cutoff_map=None,
     carry_depth: bool = False, cull_super: int = SUPER,
+    g_cutoff: float = 5.6, alpha_threshold: float = 1.0 / 255.0,
 ) -> TileBinning:
     """Bin splats into per-tile depth-ordered pairs.
 
@@ -285,23 +296,30 @@ def build_tile_binning(
     the gradient-routing bookkeeping (f32 stream); cutoff_map culls by
     serving's saturation depths (`cutoff_cull`, supertiles of cull_super
     tiles) before the histogram, so the counts describe the culled
-    stream; carry_depth fills `pair_depth`. Only rect spans are ported:
-    ellipse spans raise NotImplementedError."""
-    if span_mode != "rect":
-        raise NotImplementedError(
-            f"gsrt_torch bins rect spans only; span_mode={span_mode!r}: see "
-            f"{TODO_ELLIPSE}")
+    stream; carry_depth fills `pair_depth`. span_mode="ellipse" bins
+    ellipse spans on the tile stream of either payload (stream is then
+    ignored; at most 255 tile rows; max_rows sizes its tile-row buffer,
+    max_pairs when None); it is forward only (with_ids raises)."""
+    if span_mode not in ("rect", "ellipse"):
+        raise ValueError(f"unknown span_mode {span_mode!r}")
     if stream not in ("group", "tile"):
         raise ValueError(f"unknown stream {stream!r}")
-    group = compact and stream == "group"
+    ellipse = span_mode == "ellipse"
+    group = compact and stream == "group" and not ellipse
     if with_ids and compact:
         raise ValueError("with_ids needs the f32 stream (compact=False)")
+    if with_ids and ellipse:
+        raise ValueError("ellipse spans are forward only: with_ids needs "
+                         "rect spans")
     ntx, nty = tile_extent(width, height, tile_w, tile_h)
     T = ntx * nty
     k = group_rows_k(ntx)
     if compact and ntx > 127:
         raise ValueError("the compact payload packs the tile x-span in 7 "
                          f"bits: ntx={ntx} > 127")
+    if ellipse and nty > 255:
+        raise ValueError(f"ellipse spans take at most 255 tile rows: "
+                         f"nty={nty}; use rect spans")
     if group and k is None:
         raise ValueError(f"tile grid ntx={ntx} has no group shape; use "
                          f"stream='tile'")
@@ -315,6 +333,15 @@ def build_tile_binning(
         keep = cutoff_cull(depth, x0, x1, y0, y1, cutoff_map, ntx, nty,
                            super_size=cull_super)
         touched = torch.where(keep, touched, torch.zeros_like(touched))
+    if ellipse:
+        return _build_ellipse(
+            depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+            x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
+            tile_h=tile_h, max_pairs=max_pairs,
+            max_rows=max_rows if max_rows is not None else max_pairs,
+            compact=compact, expand_impl=expand_impl,
+            carry_depth=carry_depth, g_cutoff=g_cutoff,
+            alpha_threshold=alpha_threshold)
     counts = tile_histogram(x0, x1, y0, y1, touched > 0, ntx, nty).reshape(T)
     total = touched.sum(dtype=torch.int32)
     overflow = total > max_pairs
@@ -382,15 +409,9 @@ def _build_compact_stream(
     touched, *, ntx, T, tile_w, tile_h, max_pairs, expand_impl,
     carry_depth, counts, tile_start, total, overflow,
 ) -> TileBinning:
-    """Depth sort, expand splats → pairs, stable sort by tile id, compact
-    payload [5, max_pairs] (`_build_compact` + `_finish_compact` of the
-    JAX package). With expand_impl="binned" the emit kernel writes the
-    payload rows and only rgba is zeroed on dead columns; the copy
-    expansions zero every feature row there, as in the JAX package."""
-    from gsrt_torch.ops.pair_expand import expand_pairs_binned
-
-    dev = depth.device
-    order, touched_s, base = _depth_order(depth, touched)
+    """Depth sort, then `_finish_compact` over the splats
+    (`_build_compact` of the JAX package)."""
+    order, _, base = _depth_order(depth, touched)
     w_span = torch.clamp_min(x1 - x0 + 1, 1)
     l11 = torch.sqrt(torch.clamp_min(qa_c, 1e-12))
     l21 = qb_c / torch.clamp_min(l11, 1e-12)
@@ -400,6 +421,28 @@ def _build_compact_stream(
                        pack_bf16_pair(l11, l21), pack_bf16_pair(l22, depth),
                        pack_rgba8(cr, cg, cb, opacity)])[:, order]
     tab[1] = base
+    return _finish_compact(
+        tab, base, ntx=ntx, T=T, tile_w=tile_w, tile_h=tile_h,
+        max_pairs=max_pairs, expand_impl=expand_impl,
+        carry_depth=carry_depth, counts=counts, tile_start=tile_start,
+        total=total, overflow=overflow)
+
+
+def _finish_compact(
+    tab, base, *, ntx, T, tile_w, tile_h, max_pairs, expand_impl,
+    carry_depth, counts, tile_start, total, overflow,
+) -> TileBinning:
+    """Expand depth-ordered units → pairs, stable sort by tile id, compact
+    payload [5, max_pairs]. A unit (a splat under rect spans, a tile row
+    under ellipse spans) is a column of tab [7, U]: geometry
+    x0 | y0 << 12 | w_span << 24, its first pair `base` (_DEAD_BASE if
+    none), mean x and y bits, qab, qcd, rgba. With expand_impl="binned"
+    the emit kernel writes the payload rows and only rgba is zeroed on
+    dead columns; the copy expansions zero every feature row there, as in
+    the JAX package."""
+    from gsrt_torch.ops.pair_expand import expand_pairs_binned
+
+    dev = tab.device
     live_total = torch.clamp_max(total, max_pairs)
     if expand_impl == "binned":
         rb = expand_pairs_binned(tab, base, max_pairs, total=live_total,
@@ -523,13 +566,8 @@ def _build_f32_stream(
     touched, *, ntx, T, max_pairs, expand_impl, with_ids, carry_depth,
     counts, tile_start, total, overflow,
 ) -> TileBinning:
-    """Depth sort, expand splats → pairs, stable sort by tile id, f32
-    payload [8, max_pairs]."""
-    dev = depth.device
+    """Depth sort, then `_finish_f32` over the splats."""
     bits = lambda a: a.view(torch.int32)
-
-    # --- the table: 4 geometry rows (row 3 the base) + the 7 feature
-    # rows, and the camera depth for serving's pair_depth ---
     order, touched_s, base = _depth_order(depth, touched)
     rows = [x0, y0, torch.clamp_min(x1 - x0 + 1, 1), x0, bits(m2x),
             bits(m2y), bits(qa_c), bits(qb_c), bits(qc_c), pack15(cr, cg),
@@ -538,6 +576,24 @@ def _build_f32_stream(
         rows.append(bits(depth))
     tab = torch.stack(rows)[:, order]
     tab[3] = base
+    return _finish_f32(
+        tab, base, ntx=ntx, T=T, max_pairs=max_pairs,
+        expand_impl=expand_impl, carry_depth=carry_depth, counts=counts,
+        tile_start=tile_start, total=total, overflow=overflow,
+        ids=(order, touched_s) if with_ids else None)
+
+
+def _finish_f32(
+    tab, base, *, ntx, T, max_pairs, expand_impl, carry_depth, counts,
+    tile_start, total, overflow, ids=None,
+) -> TileBinning:
+    """Expand depth-ordered units → pairs, stable sort by tile id, f32
+    payload [8, max_pairs]. A unit (a splat under rect spans, a tile row
+    under ellipse spans) is a column of tab: 4 geometry rows (x0, y0,
+    w_span, base), the 7 feature rows, and its camera depth bits with
+    carry_depth. ids = (order, touched_s) of the depth sort fills the
+    gradient-routing fields (with_ids)."""
+    dev = tab.device
     rows = _expand_copy(tab, base, max_pairs, expand_impl)
     gx0, gy0, gw, gbase = rows[0], rows[1], rows[2], rows[3]
 
@@ -548,13 +604,14 @@ def _build_f32_stream(
     tile = torch.where(valid, (gy0 + q) * ntx + gx0 + (rank - q * gw),
                        torch.full_like(slots, T))               # sentinel T
 
-    # --- stable sort by tile: splats are depth-ordered, so each tile's
+    # --- stable sort by tile: units are depth-ordered, so each tile's
     # segment stays front to back; dead slots sink to the tail ---
     tile_s, perm = torch.sort(tile, stable=True)
     dead = tile_s >= T
     feats = rows[4:4 + N_FEATURES][:, perm]
     feats = torch.where(dead[None, :], torch.zeros_like(feats), feats)
-    if with_ids:
+    order, touched_s = ids if ids is not None else (None, None)
+    if ids is not None:
         row7 = torch.where(dead, torch.full_like(tile_s, max_pairs),
                            _i32(perm))
     else:
@@ -563,8 +620,124 @@ def _build_f32_stream(
     return TileBinning(
         payload=payload, tile_start=tile_start, tile_count=counts,
         total_pairs=total, overflow=overflow,
-        sorted_base=base if with_ids else None,
-        sorted_touched=touched_s if with_ids else None,
-        sorted_orig=_i32(order) if with_ids else None,
+        sorted_base=base if ids is not None else None,
+        sorted_touched=touched_s,
+        sorted_orig=_i32(order) if ids is not None else None,
         pair_depth=rows[11][perm].view(torch.float32) if carry_depth
         else None)
+
+
+def _build_ellipse(
+    depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+    x0, x1, y0, y1, touched, *, ntx, nty, T, tile_w, tile_h, max_pairs,
+    max_rows, compact, expand_impl, carry_depth, g_cutoff, alpha_threshold,
+) -> TileBinning:
+    """Ellipse spans (`_build_ellipse` of the JAX package).
+
+    Level 0 sorts the splats by depth; level 1 expands each into its
+    bounding box's tile rows (the copy expand); each row then takes the
+    ellipse's x-interval over its pixel rows: with conic [[a, b], [b, c]]
+    and cutoff G (alpha-tightened as in `screen_extents_abc`),
+    a·dx² + 2b·dy·dx + c·dy² ≤ 2G gives centre −b·dy/a (extremal at the
+    row's ends) and half-width sqrt(2G·a − det·dy²)/a (largest at the dy
+    nearest 0), both in f32, dilated 1e-3 px before the floor to tiles and
+    clamped to the box's span. A tile the ellipse misses holds no pixel
+    that takes the splat. The rows go through `_finish_compact` /
+    `_finish_f32` as w_span × 1 units (level 2). The overflow flag covers
+    the row buffer (max_rows) and the pair buffer. The level-1 table
+    carries each field in an int32 row of its own, where the JAX package
+    packs the geometry into 12/12/8-bit fields and pads the table to 16
+    rows for the TPU."""
+    from gsrt_torch.ops.pair_expand import _DEAD_BASE
+
+    dev = depth.device
+    bits = lambda a: a.view(torch.int32)
+    live = touched > 0
+    rows_n = torch.where(live, y1 - y0 + 1, torch.zeros_like(y1))
+
+    # --- level 0: splats with rows first, front to back ---
+    order, rows_s, row_base = _depth_order(depth, rows_n)
+    rows_total = rows_s.sum(dtype=torch.int32)
+    if compact:
+        # rgba8888 packed from the raw f32 colours, bit-identical to the
+        # rect stream's word
+        cw = [pack_rgba8(cr, cg, cb, opacity)]
+    else:
+        cw = [pack15(cr, cg), pack15(cb, opacity)]
+    op = torch.where(live, opacity, torch.zeros_like(opacity))
+    tab = torch.stack([x0, x0, x1, y0, bits(m2x), bits(m2y), bits(qa_c),
+                       bits(qb_c), bits(qc_c), bits(op)] + cw
+                      + [bits(depth)])[:, order]
+    tab[1] = row_base
+
+    # --- level 1: splats → tile rows ---
+    r = _expand_copy(tab, row_base, max_rows, expand_impl)
+    f = lambda i: r[i].view(torch.float32)
+    rx0, rbase, rx1, ry0 = r[0], r[1], r[2], r[3]
+    mx, my, qa_r, qb_r, qc_r, op_r = f(4), f(5), f(6), f(7), f(8), f(9)
+    depth_r = f(r.shape[0] - 1)
+    rslot = torch.arange(max_rows, dtype=torch.int32, device=dev)
+    rvalid = rslot < torch.clamp_max(rows_total, max_rows)
+    ty = torch.where(rvalid, ry0 + (rslot - rbase), torch.zeros_like(ry0))
+
+    # --- each row's x-interval of the ellipse ---
+    det_r = torch.clamp_min(qa_r * qc_r - qb_r * qb_r, 1e-18)
+    qa_p = torch.clamp_min(qa_r, 1e-12)
+    g_row = torch.clamp_max(torch.clamp_min(torch.log(torch.clamp_min(
+        op_r / alpha_threshold, 1e-6)), 0.0), g_cutoff)
+    dy_lo = ty.to(torch.float32) * tile_h - my
+    dy_hi = dy_lo + (tile_h - 1)
+    dy0 = torch.minimum(torch.clamp_min(dy_lo, 0.0), dy_hi)  # |dy|'s min
+    two_g_a = torch.clamp_min(2.0 * g_row * qa_r, 0.0)
+    wmax = torch.sqrt(torch.clamp_min(two_g_a - det_r * dy0 * dy0, 0.0)) \
+        / qa_p + 1e-3
+    slope = qb_r / qa_p
+    xc_lo = mx - slope * dy_lo
+    xc_hi = mx - slope * dy_hi
+    dxmin = torch.minimum(xc_lo, xc_hi) - wmax
+    dxmax = torch.maximum(xc_lo, xc_hi) + wmax
+
+    def tile_x(v, lo, hi):
+        # clamped as a float first: a saturating conversion, then the clip
+        t = torch.clamp(torch.floor(v / tile_w), -2.0 ** 30, 2.0 ** 30)
+        return torch.minimum(torch.maximum(_i32(t), lo), hi)
+
+    zero = torch.zeros_like(rx0)
+    tx0 = torch.where(rvalid, tile_x(dxmin, rx0, rx1), zero)
+    tx1 = torch.where(rvalid, tile_x(dxmax, tx0, rx1), zero)
+    span = torch.where(rvalid, tx1 - tx0 + 1, zero)
+
+    # --- per-tile counts from the one-row rects ---
+    counts = tile_histogram(tx0, tx1, ty, ty, span > 0, ntx, nty).reshape(T)
+    total = span.sum(dtype=torch.int32)
+    overflow = (rows_total > max_rows) | (total > max_pairs)
+    tile_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                            torch.cumsum(counts, 0, dtype=torch.int32)])
+    tile_start = torch.minimum(tile_start, torch.clamp_max(total, max_pairs))
+    pair_off = torch.cumsum(span, 0, dtype=torch.int32)
+    base = torch.where(span > 0, pair_off - span,
+                       torch.full_like(span, _DEAD_BASE))
+    w_span = torch.clamp_min(span, 1)
+    bk = dict(counts=counts, tile_start=tile_start, total=total,
+              overflow=overflow, ntx=ntx, T=T, max_pairs=max_pairs,
+              expand_impl=expand_impl, carry_depth=carry_depth)
+
+    # --- level 2: rows → pairs ---
+    if compact:
+        l11 = torch.sqrt(torch.clamp_min(qa_r, 1e-12))
+        l21 = qb_r / torch.clamp_min(l11, 1e-12)
+        l22 = torch.sqrt(torch.clamp_min(qc_r - l21 * l21, 1e-12))
+        tab2 = torch.stack([
+            tx0 | (ty << 12) | (w_span << 24), base, r[4], r[5],
+            pack_bf16_pair(l11, l21),
+            pack_bf16_pair(l22, torch.where(rvalid, depth_r,
+                                            torch.zeros_like(depth_r))),
+            r[10]])
+        return _finish_compact(tab2, base, tile_w=tile_w, tile_h=tile_h,
+                               **bk)
+    rows2 = [tx0, ty, w_span, base] + [r[i] for i in range(4, 9)] \
+        + [r[10], r[11]]
+    if carry_depth:
+        rows2.append(bits(torch.where(
+            rvalid, depth_r, torch.full_like(depth_r, float("inf")))))
+    return _finish_f32(torch.stack(rows2), base, **bk)

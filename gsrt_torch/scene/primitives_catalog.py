@@ -1,6 +1,7 @@
 """Triangle, sphere and box scenes for the path tracer (counterpart of
-`gsrt.scene.primitives_catalog`: the scene builder without textures, and
-the Cornell box). Scenes are built on CUDA unless device="cpu".
+`gsrt.scene.primitives_catalog`: the scene builder without textures, the
+Cornell box, and `mirror_in_gaussians`, a scene with splats). Scenes are
+built on CUDA unless device="cpu".
 """
 
 from __future__ import annotations
@@ -116,3 +117,28 @@ def cornell_box(width=512, height=512, with_boxes=True, device=None):
                          width, height, device=device)
     return b.build(device), camera, dict(aperture=0.0, focus=10.0,
                                          has_sky=False, gamma=True)
+
+
+def mirror_in_gaussians(width=128, height=128, n_splats=60, seed=7,
+                        device=None):
+    """A fuzz-0 metal sphere and a ground plane inside a cloud of splats:
+    the splats must show directly and in the mirror. The same NumPy draws
+    as the JAX package's scene. Returns (scene, cloud, camera, options)."""
+    from gsrt_torch.scene.catalog import _cloud_from_params
+    dev = resolve_device(device)
+    b = _SceneBuilder()
+    b.sphere((0.0, 1.0, 0.0), 1.0, b.metallic((0.9, 0.9, 0.9), 0.0))
+    b.quad((-20, 0, -20), (20, 0, -20), (20, 0, 20), (-20, 0, 20),
+           b.lambertian((0.5, 0.5, 0.5)))
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-3.0, 3.0, (n_splats, 3)).astype(np.float32)
+    centers[:, 1] = rng.uniform(0.5, 3.0, n_splats)  # above the floor
+    quats = rng.normal(size=(n_splats, 4)).astype(np.float32)
+    scales = rng.uniform(0.08, 0.25, (n_splats, 3)).astype(np.float32)
+    opac = rng.uniform(0.4, 0.9, n_splats).astype(np.float32)
+    rgb = rng.uniform(0.2, 1.0, (n_splats, 3)).astype(np.float32)
+    cloud = _cloud_from_params(centers, quats, scales, opac, rgb, dev)
+    camera = make_camera(look_at((0, 1.5, 6.0), (0, 1.0, 0.0)), 45.0,
+                         width, height, device=dev)
+    return b.build(dev), cloud, camera, dict(aperture=0.0, focus=6.0,
+                                             has_sky=True, gamma=False)

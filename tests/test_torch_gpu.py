@@ -772,3 +772,117 @@ def test_densify_event_on_card_matches_cpu(cuda):
     for g, c in zip(o_g[0] + o_g[1] + list(s_g), o_c[0] + o_c[1] + list(s_c)):
         np.testing.assert_array_equal(g, c)
     assert o_g[2] == o_c[2] == [9] * 5
+
+
+def test_render_reference_cuda_matches_cpu(cuda):
+    """The k-buffer passes on the card against the CPU: passes and hits
+    equal, trans and colour at the bounds the CPU tests hold the port to
+    against the JAX package (rtol 1e-4 / atol 1e-5, 1e-3 / 1e-4)."""
+    from gsrt_torch import REFERENCE_DEMO
+    from gsrt_torch.scene import demo_gauss_splat
+    scenes = [(demo_gauss_splat(16, 16, device="cpu"), REFERENCE_DEMO),
+              (random_cloud(2000, seed=1, width=96, height=64,
+                            device="cpu"),
+               RenderConfig(width=96, height=64, max_passes=256))]
+    for (c, cam), cfg in scenes:
+        want = t_rt.render_reference(c, cam, cfg)
+        got = t_rt.GaussianRayTracer(cfg, "reference", device=cuda)(c, cam)
+        assert torch.equal(got.passes.cpu(), want.passes)
+        assert torch.equal(got.hits.cpu(), want.hits)
+        np.testing.assert_allclose(got.trans.cpu().numpy(),
+                                   want.trans.numpy(), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got.color.cpu().numpy(),
+                                   want.color.numpy(), rtol=1e-3, atol=1e-4)
+        assert int(got.hits.max()) >= 2
+
+
+def test_clustered_trace_cuda_matches_bruteforce(cuda):
+    """Free rays through clustered splats on the card: against the brute
+    force on the card (hits equal, trans rtol 1e-5 / atol 1e-6, colour
+    rtol 1e-4 / atol 1e-5, no overflow) and against itself on the CPU."""
+    from gsrt_torch.ops import splat_clusters as t_sc
+    c, _ = random_cloud(3000, seed=0, extent=1.5, width=64, height=64,
+                        device="cpu")
+    cfg = RenderConfig(width=64, height=64, k=8)
+    rng = np.random.default_rng(1)
+    o = (rng.normal(size=(600, 3)) * 0.5 + [0, 0, -1.0]).astype(np.float32)
+    d = (rng.normal(size=(600, 3)) * 0.3 + [0, 0, 1.0]).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    colors = torch.abs(torch.sin(c.means * 5.0))
+    out = {}
+    for dev in ("cpu", cuda):
+        cd = c.to(dev)
+        sc = t_sc.build_splat_clusters(cd, cfg, colors.to(dev), k=64, sup=4)
+        ms = sc.clusters.sup_min.shape[0]
+        ot, dt = torch.as_tensor(o, device=dev), torch.as_tensor(d,
+                                                                 device=dev)
+        out[str(dev)] = (
+            t_sc.trace_gaussian_rays_clustered(sc, ot, dt, cfg, rb=128,
+                                               s_max=ms),
+            t_rt.trace_gaussian_rays(cd, ot, dt, cfg,
+                                     colors=colors.to(dev)))
+    (ct, cc, ch, covf), (bt, bc, bh) = (
+        [a.cpu() for a in x] for x in out[str(cuda)])
+    assert not bool(covf) and int(ch.max()) > 8
+    assert torch.equal(ch, bh)
+    np.testing.assert_allclose(ct.numpy(), bt.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(cc.numpy(), bc.numpy(), rtol=1e-4, atol=1e-5)
+    (pt, pc, ph, _), _ = out["cpu"]
+    assert torch.equal(ph, ch)
+    np.testing.assert_allclose(ct.numpy(), pt.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("payload", ["compact", "f32"])
+def test_ellipse_expands_bitwise(cuda, payload, monkeypatch):
+    """Both expands of ellipse spans (splats → tile rows, rows → pairs) on
+    their real inputs, each bit-equal to its plain version, and the
+    ellipse render on the card against the CPU's."""
+    calls = []
+    orig = t_pe.expand_pairs_fused
+
+    def record(tab, base, max_pairs):
+        calls.append((tab, base, max_pairs))
+        return orig(tab, base, max_pairs)
+    monkeypatch.setattr(t_pe, "expand_pairs_fused", record)
+    cfg = RenderConfig(width=320, height=256, span_mode="ellipse",
+                       stream="tile", payload=payload)
+    c, cam = random_cloud(20_000, seed=2, width=320, height=256,
+                          scale_range=(0.01, 0.06), device="cpu")
+    cpu = t_rt.GaussianRayTracer(cfg, "tiled", device="cpu")(c, cam)
+    calls.clear()
+    gpu = t_rt.GaussianRayTracer(cfg, "tiled", device=cuda)(c, cam)
+    assert len(calls) == 2 and not bool(gpu.overflow)
+    for tab, base, mp in calls:
+        assert tab.is_cuda
+        assert torch.equal(orig(tab, base, mp),
+                           t_pe.expand_pairs_plain(tab, base, mp))
+    assert calls[0][0].shape[1] == c.n and calls[1][2] == \
+        t_rt.GaussianRayTracer(cfg, "tiled", device="cpu").calibrate(c, cam)
+    np.testing.assert_allclose(gpu.color.cpu().numpy(), cpu.color.numpy(),
+                               atol=2e-3)
+
+
+def test_sorted_bounce_waves_match_unsorted(cuda):
+    """Coherence-sorting a bounce wave moves every ray to another row; its
+    segment must not change. On the card `(a * b).sum(-1)` over rows of 3
+    may sum in an order that depends on the row's address, which flipped
+    grazing sphere hits of mirror_in_gaussians' sorted waves (0.9 on 7,635
+    of 786,432 entries at 512x512, 8 bounces); the ray tests now sum
+    left to right as elementwise ops."""
+    from gsrt_torch.models import path_tracer as t_pt
+    from gsrt_torch.ops.sh import eval_sh
+    from gsrt_torch.ops.splat_clusters import build_splat_clusters
+    from gsrt_torch.scene import mirror_in_gaussians
+    scene, cloud, cam, _ = mirror_in_gaussians(256, 256, device=cuda)
+    cfg = RenderConfig(width=256, height=256, bounces=4,
+                       gamma_correction=False)
+    colors = eval_sh(cloud.sh, t_rt.unit_dirs(cloud.means, cam.position),
+                     0)
+    sc = build_splat_clusters(cloud, cfg, colors, k=8, sup=2)
+    kw = dict(gauss_clusters=sc, gauss_s_max=4, seed=0)
+    srt = t_pt.render_path_traced(scene, cam, cfg, **kw)
+    flat = t_pt.render_path_traced(scene, cam, cfg, sort_bounces=False, **kw)
+    brute = t_pt.render_path_traced(scene, cam, cfg, seed=0, gaussians=cloud)
+    assert torch.equal(srt, flat)
+    np.testing.assert_allclose(srt.cpu().numpy(), brute.cpu().numpy(),
+                               rtol=5e-3, atol=1e-3)

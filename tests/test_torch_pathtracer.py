@@ -423,11 +423,23 @@ def test_cornell_box_and_scene_from_numpy_match_jax(scenes):
                                   "alpha_textures", "tri_clusters",
                                   "gaussians"])
 def test_unported_parts_raise(scenes, part):
+    """Each part of a scene the port does not render yet raises. Splats
+    ("gaussians") are ported: a cloud of opacity 0 in the Cornell box
+    leaves its path-traced render as it was (the mixed scenes are held
+    against the JAX package in tests/test_torch_splat_clusters.py)."""
     _, ts, _, tcam = scenes["cornell"]
+    if part == "gaussians":
+        from gsrt_torch.core.types import GaussianCloud
+        cfg = RenderConfig(**dict(KW, samples=1, bounces=2))
+        cloud = GaussianCloud(means=torch.tensor([[278.0, 278.0, -200.0]]),
+                              cov3d=torch.tensor([[900.0, 0, 0, 900, 0,
+                                                   900]]),
+                              opacity=torch.zeros(1),
+                              sh=torch.ones((1, 1, 3)))
+        base = t_pt.render_path_traced(ts, tcam, cfg)
+        mixed = t_pt.render_path_traced(ts, tcam, cfg, gaussians=cloud)
+        assert torch.allclose(mixed, base, atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if part == "gaussians":
-            t_pt.render_path_traced(ts, tcam, RenderConfig(**KW),
-                                    gaussians=object())
-        else:
-            scene = ts._replace(**{part: torch.zeros((1, 3))})
-            t_pt.render_shadow_rays(scene, tcam, RenderConfig(**KW), LIGHT)
+        scene = ts._replace(**{part: torch.zeros((1, 3))})
+        t_pt.render_shadow_rays(scene, tcam, RenderConfig(**KW), LIGHT)

@@ -196,15 +196,12 @@ def test_calibrate_gates_on_post_fallback_span_mode():
                                 dict(tile_w=128, tile_h=8)])
 def test_unported_streams_raise(scene, kw):
     """Each configuration the JAX package renders on another stream than
-    the group stream: ellipse spans are not ported and raise; the others
-    (the compact or f32 tile stream through the packed tile kernel, the
-    (128, 8) tiles through blend_tiles) match the JAX package with its
-    f32 blend, atol 1e-4."""
+    the group stream (the compact or f32 tile stream through the packed
+    tile kernel, ellipse spans on the compact tile stream, the (128, 8)
+    tiles through blend_tiles) matches the JAX package with its f32
+    blend, atol 1e-4. (None raises any more: ellipse spans were the last
+    stream left to port.)"""
     jc, jcam, c, cam = scene
-    if kw.get("span_mode") == "ellipse":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_rt.render_tiled(c, cam, RenderConfig(width=W, height=H, **kw))
-        return
     plan = t_rt.stream_plan(RenderConfig(width=W, height=H, **kw), W, H)
     assert plan.stream == "tile"
     j = j_rt.render_tiled(jc, jcam, JCfg(width=W, height=H, blend_math="f32",
@@ -275,5 +272,15 @@ def test_reference_demo_renders_tiled():
 
 
 def test_reference_mode_not_ported():
-    with pytest.raises(NotImplementedError):
-        t_rt.GaussianRayTracer(RenderConfig(), "reference", device="cpu")
+    """"reference" mode is ported now: GaussianRayTracer dispatches to
+    render_reference (held against the JAX package in
+    tests/test_torch_kbuffer.py), and an unknown mode raises."""
+    from gsrt_torch import REFERENCE_DEMO
+    from gsrt.scene.catalog import demo_gauss_splat as j_demo
+    c, cam = _port(*j_demo(16, 16))
+    out = t_rt.GaussianRayTracer(REFERENCE_DEMO, "reference",
+                                 device="cpu")(c, cam)
+    want = t_rt.render_reference(c, cam, REFERENCE_DEMO)
+    assert torch.equal(out.trans, want.trans) and out.passes.max() >= 1
+    with pytest.raises(ValueError):
+        t_rt.GaussianRayTracer(RenderConfig(), "bogus", device="cpu")

@@ -132,10 +132,18 @@ def test_f32_binning_without_ids_and_overflow():
         *(torch.as_tensor(c) for c in cols), width=W, height=H, tile_w=16,
         tile_h=16, max_pairs=512, compact=False)
     assert bool(small.overflow) and int(small.tile_start[-1]) == 512
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ellipse spans bin the f32 stream too (a subset of its rect pairs;
+    # held against the JAX package in tests/test_torch_ellipse.py), but
+    # forward only: no gradient-routing ids
+    eb = t_tb.build_tile_binning(
+        *(torch.as_tensor(c) for c in cols), width=W, height=H, tile_w=16,
+        tile_h=16, max_pairs=MP, compact=False, span_mode="ellipse")
+    assert (eb.tile_count <= tb.tile_count).all()
+    assert 0 < int(eb.total_pairs) < int(tb.total_pairs)
+    with pytest.raises(ValueError, match="forward only"):
         t_tb.build_tile_binning(
             *(torch.as_tensor(c) for c in cols), width=W, height=H,
-            compact=False, span_mode="ellipse")
+            compact=False, span_mode="ellipse", with_ids=True)
     with pytest.raises(ValueError):
         t_tb.build_tile_binning(
             *(torch.as_tensor(c) for c in cols), width=W, height=H,
