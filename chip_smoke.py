@@ -122,12 +122,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
 18. mixed  — mirror_in_gaussians(512, 512) path traced (1 sample, 8
              bounces) brute force and clustered (clusters of 8, 4
              super-clusters, blocks of 256 rays), same seed: rtol 5e-3 /
-             atol 1e-3 between them, no flag set, the binned cast launched
-             in each (counts to 0 just before, read just after); the
-             clustered render again with unsorted bounce waves, equal to
-             the sorted one bit for bit; then
+             atol 1e-3 between them, no flag set, the binned cast and
+             its binning's copy expand launched once in each (counts to 0
+             just before, read just after); the clustered render again
+             with unsorted bounce waves, equal to the sorted one bit for
+             bit; the cast (Q2.7) and the quad binning's expand (Q2.1) on
+             the inputs they took there, against their plain versions bit
+             for bit (rows of the kernels line); then
              render_path_traced_calibrated from gauss_s_max 1 must
              report the overflow, grow and end without it; ms/render;
+             then the kbuffer phase's 20,000-splat cloud moved round the
+             mirror at 128x128, brute force against clustered (clusters
+             of 128, super-clusters of 8), same bounds, ms/render;
 19. ellipse — the render cell with span_mode="ellipse" (the compact
              tile stream) through GaussianRayTracer: calibrate, one frame
              with counts to 0 just before and read just after (two copy
@@ -135,8 +141,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              stream (every tile's pairs at most its rect count; colour and
              trans within 2e-3 on the f32 payload, within 1e-2 on the
              compact one, whose rounded conic and opacity let a dropped
-             pair clear the alpha threshold: the entries above 2e-3 are
-             counted), both frame times and pair totals; the
+             pair clear the alpha threshold: at most 16 entries above
+             2e-3, and past 2e-3 the worst pixel must hold such a pair,
+             logged with its alpha in f32 and on the payload), both frame
+             times and pair totals; the
              two expands (splats -> tile rows, rows -> pairs) bit for bit
              against their plain versions and the tile blend on the
              ellipse payload against its plain version (atol 2e-3), each a
@@ -274,6 +282,12 @@ TRACE_K, TRACE_SUP, TRACE_RB = 128, 8, 256
 # mirror_in_gaussians' 60 splats in clusters of 8 (4 super-clusters of 2):
 # blocks of 256 rays enter more than one, so s_max 1 overflows
 MIX_W, MIX_H, MIX_BOUNCES, MIX_K, MIX_SUP, MIX_RB = 512, 512, 8, 8, 2, 256
+# the 20,000-splat cloud of kbuffer / splat-trace (centre (0, 0, 6))
+# moved onto the mirror sphere's centre (0, 1, 0); its view cut to 128x128
+MIX_BIG_W, MIX_BIG_H, MIX_BIG_SHIFT = 128, 128, (0.0, 1.0, -6.0)
+# entries of the ellipse frame's compact payload more than 2e-3 off the
+# rect one's (5 in every run before the bound was set)
+ELLIPSE_OVER_MAX = 16
 FIT_TARGET_CHUNK = 2048   # splats a chunk of the fit's target renders
 
 # --- the triangle workload and its kernels (Q2.7 cast, Q2.8 traversal) ---
@@ -345,19 +359,31 @@ def serving_orbit(device: str = DEVICE) -> list:
 
 
 class Recorder:
-    """Wraps a module function, keeping the arguments of every call."""
+    """Wraps a module function, keeping the arguments of every call and
+    the kernel launches each call made (`launches`, a dict a call)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.calls = []
+        self.calls, self.launches = [], []
 
     def __enter__(self):
+        from gsrt_torch import _kernels
+
         def wrapped(*args, **kw):
             self.calls.append((args, kw))
-            return self.orig(*args, **kw)
+            before = _kernels.launch_counts()
+            out = self.orig(*args, **kw)
+            self.launches.append({k: v - before[k] for k, v in
+                                  _kernels.launch_counts().items()
+                                  if v != before[k]})
+            return out
         setattr(self.module, self.name, wrapped)
         return self
+
+    def launched(self, kernel: str) -> int:
+        """The launches of `kernel` over the recorded calls."""
+        return sum(c.get(kernel, 0) for c in self.launches)
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
@@ -1632,30 +1658,30 @@ def splat_trace_phase(torch, card: str) -> dict:
                 hits_mean=ch.float().mean().item(), super_clusters=ms)
 
 
-def mixed_phase(torch, card: str) -> dict:
+def mixed_phase(torch, rows, card: str) -> dict:
     """mixed: mirror_in_gaussians path traced brute force and clustered
-    (same seed), held together; the calibrated render from gauss_s_max 1;
-    launch counts read around the two renders."""
+    (same seed), held together, launch counts read around the two
+    renders; the binned cast (Q2.7) and the quad binning's copy expand
+    (Q2.1) on the inputs they took there, each against its plain version
+    bit for bit (rows of the kernels line); the calibrated render from
+    gauss_s_max 1; then the splat-trace phase's cloud around the mirror,
+    brute force against clustered."""
     from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch.core.types import GaussianCloud
     from gsrt_torch.models import gaussian_rt as grt
     from gsrt_torch.models import path_tracer as pt
-    from gsrt_torch.ops import splat_clusters
+    from gsrt_torch.ops import clusters, splat_clusters, tri_binning
     from gsrt_torch.ops.sh import eval_sh
-    from gsrt_torch.scene import mirror_in_gaussians
+    from gsrt_torch.scene import mirror_in_gaussians, random_cloud
 
-    scene, cloud, cam, opts = mirror_in_gaussians(MIX_W, MIX_H,
-                                                  device=DEVICE)
-    cfg = RenderConfig(width=MIX_W, height=MIX_H, samples=1,
-                       bounces=MIX_BOUNCES, has_sky=opts["has_sky"],
-                       gamma_correction=False)
-    colors = eval_sh(cloud.sh, grt.unit_dirs(cloud.means, cam.position),
-                     min(cfg.sh_degree, cloud.sh_degree))
-    sc = splat_clusters.build_splat_clusters(cloud, cfg, colors, k=MIX_K,
-                                             sup=MIX_SUP)
-    ms = sc.clusters.sup_min.shape[0]
-    bare = pt.render_path_traced(scene, cam, cfg, seed=SEED)   # warm-up
+    def clustered(cloud, cam, cfg, k, sup):
+        colors = eval_sh(cloud.sh, grt.unit_dirs(cloud.means, cam.position),
+                         min(cfg.sh_degree, cloud.sh_degree))
+        sc = splat_clusters.build_splat_clusters(cloud, cfg, colors, k=k,
+                                                 sup=sup)
+        return sc, sc.clusters.sup_min.shape[0]
 
-    def timed(**kw):
+    def timed(scene, cam, cfg, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1666,37 +1692,84 @@ def mixed_phase(torch, card: str) -> dict:
         torch.cuda.synchronize()
         return (img, {k: bool(v) for k, v in flags.items()},
                 ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3)
+
+    def held(name, clus, brute):
+        d = (clus - brute).abs()
+        bad = int((d > 1e-3 + 5e-3 * brute.abs()).sum())
+        log(f"phase mixed: {name}: max |clustered - brute| "
+            f"{d.max().item():.3e} (rtol 5e-3, atol 1e-3), {bad} entries "
+            f"outside")
+        return bad
+
+    scene, cloud, cam, opts = mirror_in_gaussians(MIX_W, MIX_H,
+                                                  device=DEVICE)
+    cfg = RenderConfig(width=MIX_W, height=MIX_H, samples=1,
+                       bounces=MIX_BOUNCES, has_sky=opts["has_sky"],
+                       gamma_correction=False)
+    sc, ms = clustered(cloud, cam, cfg, MIX_K, MIX_SUP)
+    bare = pt.render_path_traced(scene, cam, cfg, seed=SEED)   # warm-up
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
-    brute, f_b, brute_ms, brute_host = timed(gaussians=cloud)
-    clus, f_c, clus_ms, clus_host = timed(gauss_clusters=sc, gauss_s_max=ms,
-                                          gauss_rb=MIX_RB)
+    with Recorder(tri_binning, "cast_primary") as rec_c, \
+            Recorder(tri_binning, "expand_pairs_fused") as rec_x:
+        brute, f_b, brute_ms, brute_host = timed(scene, cam, cfg,
+                                                 gaussians=cloud)
+        clus, f_c, clus_ms, clus_host = timed(
+            scene, cam, cfg, gauss_clusters=sc, gauss_s_max=ms,
+            gauss_rb=MIX_RB)
     counts = {k: v for k, v in _kernels.launch_counts().items() if v}
     # the clustered render coherence-sorts its bounce waves, the brute
     # force does not: unsorted it must give the same image bit for bit
-    flat, f_u, flat_ms, _ = timed(gauss_clusters=sc, gauss_s_max=ms,
-                                  gauss_rb=MIX_RB, sort_bounces=False)
+    flat, f_u, flat_ms, _ = timed(scene, cam, cfg, gauss_clusters=sc,
+                                  gauss_s_max=ms, gauss_rb=MIX_RB,
+                                  sort_bounces=False)
     sorted_diff = (clus - flat).abs().max().item()
-    d = (clus - brute).abs()
-    bad = int((d > 1e-3 + 5e-3 * brute.abs()).sum())
     splat_diff = (brute - bare).abs().max().item()
     log(f"phase mixed: {card}: mirror_in_gaussians({MIX_W}, {MIX_H}), "
         f"{cloud.n} splats ({sc.m} clusters of {MIX_K}, {ms} "
         f"super-clusters), {MIX_BOUNCES} bounces; brute force {brute_ms:.1f} "
         f"ms/render ({brute_host:.1f} host), clustered {clus_ms:.1f} "
-        f"({clus_host:.1f} host), clustered unsorted {flat_ms:.1f}; max "
-        f"|clustered - brute| {d.max().item():.3e} (rtol 5e-3, atol 1e-3), "
-        f"{bad} entries outside; sorted against unsorted {sorted_diff:.3e} "
-        f"(must be 0); the splats change the image by up to "
-        f"{splat_diff:.3f}; flags {f_b} | {f_c}; launches {counts}")
+        f"({clus_host:.1f} host), clustered unsorted {flat_ms:.1f}; sorted "
+        f"against unsorted {sorted_diff:.3e} (must be 0); the splats "
+        f"change the image by up to {splat_diff:.3f}; flags {f_b} | {f_c}; "
+        f"launches {counts}")
+    bad = held(f"{cloud.n} splats", clus, brute)
     if bad or sorted_diff or any(f_b.values()) or any(f_c.values()) or \
             any(f_u.values()) or not torch.isfinite(brute).all() or \
             splat_diff < 0.05:
         raise SystemExit("phase mixed: brute force and clustered differ, "
                          "or a flag is set")
-    if counts.get("cast_primary", 0) < 2:
-        raise SystemExit("phase mixed: the binned primary cast did not "
-                         "launch in each render")
+    if counts.get("cast_primary", 0) < 2 or len(rec_c.calls) != 2 or \
+            len(rec_x.calls) != 2:
+        raise SystemExit("phase mixed: the binned primary cast and its "
+                         "binning's expand did not run once a render")
+
+    # Q2.7 and Q2.1 at the quad's binning, as bounce 0 of both renders
+    # gave it to them (the same inputs twice, up to the payload's unused
+    # columns: checked)
+    (binning, dirs, origin), cast_kw = rec_c.calls[0]
+    (binning2, dirs2, _), _ = rec_c.calls[1]
+    live = int(binning.total_pairs)
+    if not (torch.equal(dirs, dirs2)
+            and torch.equal(binning.tile_start, binning2.tile_start)
+            and torch.equal(binning.payload[:, :live],
+                            binning2.payload[:, :live])):
+        raise SystemExit("phase mixed: the two renders cast different "
+                         "bounce-0 inputs")
+    at = f"mirror_in_gaussians {MIX_W}x{MIX_H}, 2 triangles, bounce 0"
+    cast = cast_row(torch, "cast_primary[mixed]", binning, dirs, origin,
+                    cast_kw, max_sm_clock_hz(), phase="mixed")
+    expand = tri_expand_rows(torch, rec_x.calls[:1],
+                             ["expand_pairs_fused[mixed]"], at,
+                             phase="mixed")[0]
+    cast.update(launches=rec_c.launched("cast_primary"), at=at)
+    expand["launches"] = rec_x.launched("expand_pairs_fused")
+    if cast["launches"] != 2 or expand["launches"] != 2:
+        raise SystemExit(f"phase mixed: launches {rec_c.launches} | "
+                         f"{rec_x.launches}")
+    rows += [cast, expand]
+    del rec_c, rec_x, binning, binning2, dirs, dirs2
+
     img, info = pt.render_path_traced_calibrated(
         scene, cam, cfg, seed=SEED, gauss_clusters=sc, gauss_s_max=1,
         gauss_rb=MIX_RB, max_retries=4)
@@ -1708,18 +1781,53 @@ def mixed_phase(torch, card: str) -> dict:
             same > 1e-6:
         raise SystemExit("phase mixed: the calibration did not report the "
                          "overflow and end without it")
+
+    # the splat-trace phase's cloud moved round the mirror: every bounce
+    # segment crosses thousands of splats. The brute force traces it in
+    # the clusters' slot order, so both take equal t* alike (splat-trace)
+    scene, _, cam, _ = mirror_in_gaussians(MIX_BIG_W, MIX_BIG_H,
+                                           device=DEVICE)
+    big, _ = random_cloud(KB_SPLATS, seed=KB_SEED, device=DEVICE)
+    big = big._replace(means=big.means + torch.tensor(
+        MIX_BIG_SHIFT, device=DEVICE))
+    cfg_big = cfg.replace(width=MIX_BIG_W, height=MIX_BIG_H)
+    sc_big, ms_big = clustered(big, cam, cfg_big, TRACE_K, TRACE_SUP)
+    r = splat_clusters.splat_world_radius(big, cfg_big)[:, None]
+    slot = clusters.build_clusters(big.means - r, big.means + r, k=TRACE_K,
+                                   sup=TRACE_SUP)[1][:big.n].long()
+    slotted = GaussianCloud(*(a[slot] for a in big))
+    brute_b, fb_b, brute_b_ms, _ = timed(scene, cam, cfg_big,
+                                         gaussians=slotted)
+    clus_b, fc_b, clus_b_ms, _ = timed(
+        scene, cam, cfg_big, gauss_clusters=sc_big, gauss_s_max=ms_big,
+        gauss_rb=MIX_RB)
+    log(f"phase mixed: {card}: {big.n} splats round the mirror at "
+        f"{MIX_BIG_W}x{MIX_BIG_H} ({sc_big.m} clusters of {TRACE_K}, "
+        f"{ms_big} super-clusters), {MIX_BOUNCES} bounces: brute force "
+        f"{brute_b_ms:.1f} ms/render, clustered {clus_b_ms:.1f}; flags "
+        f"{fb_b} | {fc_b}; mean colour {brute_b.mean().item():.5f}")
+    bad = held(f"{big.n} splats", clus_b, brute_b)
+    if bad or any(fb_b.values()) or any(fc_b.values()) or \
+            not torch.isfinite(brute_b).all():
+        raise SystemExit("phase mixed: brute force and clustered differ "
+                         "round the 20,000-splat cloud, or a flag is set")
     return dict(brute_ms=brute_ms, clustered_ms=clus_ms,
                 clustered_unsorted_ms=flat_ms, sorted_vs_unsorted=sorted_diff,
                 brute_host_ms=brute_host, clustered_host_ms=clus_host,
                 launches=counts, calibrated=dict(
-                    retries=info["retries"], gauss_s_max=info["gauss_s_max"]))
+                    retries=info["retries"], gauss_s_max=info["gauss_s_max"]),
+                big=dict(splats=big.n, width=MIX_BIG_W, height=MIX_BIG_H,
+                         brute_ms=brute_b_ms, clustered_ms=clus_b_ms,
+                         super_clusters=ms_big))
 
 
 def ellipse_phase(torch, rows, card: str) -> dict:
     """ellipse: the render cell with ellipse spans (compact tile stream),
-    calibrated, one frame with its launches counted, against the rect tile
-    stream; the two expands and the tile blend on its inputs against their
-    plain versions (rows of the kernels line)."""
+    calibrated, one frame with its launches counted (each expand's on its
+    own), against the rect tile stream, the worst pixel's difference
+    traced to the pairs the ellipse drops (`ellipse_witness`); the two
+    expands and the tile blend on its inputs against their plain versions
+    (rows of the kernels line)."""
     from gsrt_torch import _kernels
     from gsrt_torch.models import gaussian_rt as grt
     from gsrt_torch.ops import pair_expand, splat_packed, tile_binning
@@ -1733,7 +1841,8 @@ def ellipse_phase(torch, rows, card: str) -> dict:
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
     with Recorder(pair_expand, "expand_pairs_fused") as rec_e, \
-            Recorder(splat_packed, "blend_packed") as rec_b:
+            Recorder(splat_packed, "blend_packed") as rec_b, \
+            Recorder(tile_binning, "build_tile_binning") as rec_t:
         out = tracer(cloud, camera)
         torch.cuda.synchronize()
     counts = {k: v for k, v in _kernels.launch_counts().items() if v}
@@ -1741,6 +1850,7 @@ def ellipse_phase(torch, rows, card: str) -> dict:
         f"{tracer.max_rows}, max_pairs {tracer.max_pairs}; launches {counts}")
     if not (plan.span_mode == "ellipse" and len(rec_e.calls) == 2
             and counts.get("expand_pairs_fused") == 2
+            and all(c == {"expand_pairs_fused": 1} for c in rec_e.launches)
             and counts.get("blend_packed_tile") == 1
             and not bool(out.overflow) and torch.isfinite(out.color).all()):
         raise SystemExit("phase ellipse: the frame did not run the two "
@@ -1756,8 +1866,13 @@ def ellipse_phase(torch, rows, card: str) -> dict:
         torch.cuda.synchronize()
     rbin = rec_r.calls[0][0][0]
     err = max_abs_err(out.color - rout.color, out.trans - rout.trans)
+    px_err = torch.maximum((out.color - rout.color).abs().amax(-1),
+                           (out.trans - rout.trans).abs())
     over = int(((out.color - rout.color).abs() > 2e-3).sum()
                + ((out.trans - rout.trans).abs() > 2e-3).sum())
+    worst_y, worst_x = divmod(int(px_err.argmax()), W)
+    (cols, bkw), = rec_t.calls
+    wit = ellipse_witness(torch, cols, bkw, blend_kw, worst_x, worst_y)
     fewer = bool((binning.tile_count <= rbin.tile_count).all())
     # the f32 payload: the pairs the ellipse drops are taken by no pixel
     f32 = [grt.GaussianRayTracer(c.replace(payload="f32"), "tiled",
@@ -1780,31 +1895,46 @@ def ellipse_phase(torch, rows, card: str) -> dict:
         f"({pairs / rpairs:.4f}); every tile at most its rect count "
         f"{fewer}; max |ellipse - rect| on the f32 payload {err32:.3e} "
         f"(atol 2e-3), on the compact payload {err:.3e} ({over} entries "
-        f"above 2e-3; at most 1e-2); frame {frame_ms:.4f} ms (rect tile "
-        f"stream {rect_ms:.4f})")
+        f"above 2e-3, at most {ELLIPSE_OVER_MAX}; at most 1e-2); frame "
+        f"{frame_ms:.4f} ms (rect tile stream {rect_ms:.4f})")
+    log(f"phase ellipse: the compact payload's worst pixel ({worst_x}, "
+        f"{worst_y}), off by {px_err.max().item():.3e}: {wit['rect_pairs']} "
+        f"pairs of its tile {wit['tile']} on rect spans, "
+        f"{wit['dropped']} of them dropped by the ellipse, of which "
+        f"{wit['lifted']} take the pixel only after the payload's rounding"
+        + ("; the largest: splat {splat}, alpha {alpha_f32:.6f} in f32 "
+           "(g {g_f32:.4f}, opacity {op_f32:.6f}) against "
+           "{alpha_payload:.6f} on the payload (g {g_payload:.4f}, "
+           "opacity {op_payload:.6f}), threshold {threshold:.6f}, colour "
+           "{rgb}".format(**wit["largest"]) if wit["largest"] else ""))
     # on the compact payload a pair the ellipse drops (alpha under the
     # threshold at every pixel in f32) can clear the threshold under the
-    # payload's bf16 conic and u8 opacity: a few entries move by about
-    # alpha_threshold times a colour
+    # payload's bf16 Cholesky factor and u8 opacity: a few entries move by
+    # about alpha_threshold times a colour. Past the f32 payload's 2e-3
+    # only such a pair may move the worst pixel
     if not (fewer and err32 <= 2e-3 and err <= 1e-2
+            and over <= ELLIPSE_OVER_MAX
+            and (err <= 2e-3 or wit["lifted"] > 0)
             and not any(bool(o.overflow) for o in f32)):
         raise SystemExit("phase ellipse: the ellipse frame differs from the "
-                         "rect one, or a tile gained pairs")
+                         "rect one beyond what the payload's rounding "
+                         "explains, or a tile gained pairs")
 
     def library(tab, base, n):
         src = torch.searchsorted(base, torch.arange(
             n, device=DEVICE, dtype=torch.int32), right=True)
         return lambda: tab.index_select(1, src.sub(1).clamp_(
             0, tab.shape[1] - 1))
-    for name, tab, base, n in (("expand_pairs_fused[ellipse,rows]", tab1,
-                                rbase, mr),
-                               ("expand_pairs_fused[ellipse,pairs]", tab2,
-                                pbase, mp)):
+    for name, tab, base, n, launched in (
+            ("expand_pairs_fused[ellipse,rows]", tab1, rbase, mr,
+             rec_e.launches[0]),
+            ("expand_pairs_fused[ellipse,pairs]", tab2, pbase, mp,
+             rec_e.launches[1])):
         rows.append(expand_row(
             name, EXPAND_TPU,
             lambda: pair_expand.expand_pairs_fused(tab, base, n),
             lambda: pair_expand.expand_pairs_plain(tab, base, n),
-            library(tab, base, n), 1,
+            library(tab, base, n), launched["expand_pairs_fused"],
             4 * (tab.shape[0] * (n + tab.shape[1]) + tab.shape[1]),
             phase="ellipse"))
         rows[-1]["at"] = f"{tuple(tab.shape)} -> {n}"
@@ -1853,7 +1983,66 @@ def ellipse_phase(torch, rows, card: str) -> dict:
     return dict(frame_ms=frame_ms, rect_frame_ms=rect_ms, pairs=pairs,
                 rect_pairs=rpairs, tile_rows=n_rows, max_rows=tracer.max_rows,
                 max_pairs=tracer.max_pairs, max_abs_err_vs_rect=err,
-                entries_above_2e3=over, max_abs_err_vs_rect_f32=err32)
+                entries_above_2e3=over, max_abs_err_vs_rect_f32=err32,
+                worst_pixel=dict(x=worst_x, y=worst_y, **wit))
+
+
+def ellipse_witness(torch, cols, bkw, blend_kw, x, y) -> dict:
+    """What moves pixel (x, y) between the ellipse and the rect tile
+    stream on the compact payload: the splats the rect spans bin into its
+    tile, those whose ellipse row span (`ellipse_row_tiles`, the binning's
+    own f32 math) leaves the tile out, and of these the ones the pixel
+    rejects in f32 but takes after the payload's rounding (fixed-point
+    tile-relative mean, bf16 Cholesky factor, u8 opacity), with the
+    largest such pair's alphas both ways. `cols` and `bkw` are the
+    arguments of the frame's build_tile_binning, `blend_kw` its blend's."""
+    from gsrt_torch.ops import splat_packed as sp, tile_binning as tb
+    (depth, m2x, m2y, qa, qb, qc, opacity, cr, cg, cb, rx, ry,
+     alive) = cols
+    tw, th = bkw["tile_w"], bkw["tile_h"]
+    x0, x1, y0, y1, touched = tb.compute_tile_spans(
+        m2x, m2y, rx, ry, alive, bkw["width"], bkw["height"], tw, th)
+    op = torch.where(alive, opacity, torch.zeros_like(opacity))
+    tx, ty = x // tw, y // th
+    cand = ((touched > 0) & (x0 <= tx) & (tx <= x1) & (y0 <= ty)
+            & (ty <= y1)).nonzero()[:, 0]
+    e0, e1 = tb.ellipse_row_tiles(
+        m2x[cand], m2y[cand], qa[cand], qb[cand], qc[cand], op[cand],
+        torch.full_like(x0[cand], ty), x0[cand], x1[cand], tile_w=tw,
+        tile_h=th, g_cutoff=bkw["g_cutoff"],
+        alpha_threshold=bkw["alpha_threshold"])
+    d = cand[(tx < e0) | (tx > e1)]
+    akw = {k: blend_kw[k] for k in ("g_cutoff", "alpha_threshold",
+                                    "alpha_clamp", "skip_range_check",
+                                    "use_exp_lut")}
+    at = lambda v: torch.tensor([float(v)], device=DEVICE)
+    g32 = sp.response(dict(mx=m2x[d], my=m2y[d], qa=qa[d], qb=qb[d],
+                           qc=qc[d]), at(x), at(y))[0]
+    _, take32 = sp.alphas(g32[None], op[d], **akw)
+    l11, l21, l22 = tb.conic_cholesky(qa[d], qb[d], qc[d])
+    f = sp.decode_pairs(torch.stack([
+        tb.pack_mean_rel(m2x[d] - tx * tw, m2y[d] - ty * th),
+        tb.pack_bf16_pair(l11, l21), tb.pack_bf16_pair(l22, depth[d]),
+        tb.pack_rgba8(cr[d], cg[d], cb[d], op[d])]))
+    gp = sp.response(f, at(x - tx * tw), at(y - ty * th))[0]
+    _, takep = sp.alphas(gp[None], f["op"], **akw)
+    lifted = (takep & ~take32)[0]
+    raw = lambda o, g: torch.clamp_max(o * torch.exp(-g),
+                                       akw["alpha_clamp"])
+    a32, ap = raw(op[d], g32), raw(f["op"], gp)
+    largest = None
+    if bool(lifted.any()):
+        i = int(torch.where(lifted, ap, torch.full_like(ap, -1.0)).argmax())
+        largest = dict(
+            splat=int(d[i]), alpha_f32=a32[i].item(),
+            alpha_payload=ap[i].item(), g_f32=g32[i].item(),
+            g_payload=gp[i].item(), op_f32=op[d][i].item(),
+            op_payload=f["op"][i].item(),
+            threshold=akw["alpha_threshold"],
+            rgb=[round(v, 4) for v in f["rgb"][i].tolist()])
+    return dict(tile=[tx, ty], rect_pairs=int(cand.numel()),
+                dropped=int(d.numel()), lifted=int(lifted.sum()),
+                largest=largest)
 
 
 def tri_soup(n: int, sd: float, seed: int = 0):
@@ -1885,7 +2074,8 @@ def tri_scene(verts):
     return scene_from_numpy(fields, device=DEVICE)
 
 
-def cast_row(torch, name, binning, dirs, origin, kw, clock_hz):
+def cast_row(torch, name, binning, dirs, origin, kw, clock_hz,
+             phase="tri-cast"):
     """Q2.7 against its plain version on one binning, bit for bit; the
     row with its times, bound, build, the warp cull's share of the
     (warp, pair) steps and the instruction floor."""
@@ -1903,7 +2093,7 @@ def cast_row(torch, name, binning, dirs, origin, kw, clock_hz):
     torch.cuda.synchronize()
     if not (torch.equal(t_k, t_p) and torch.equal(id_k, id_p)):
         raise SystemExit(
-            f"phase tri-cast: {name} differs from its plain version: "
+            f"phase {phase}: {name} differs from its plain version: "
             f"{int((t_k != t_p).sum())} t, {int((id_k != id_p).sum())} ids")
     W, H, npx = kw["width"], kw["height"], kw["tile_w"] * kw["tile_h"]
     total, cast = int(binning.total_pairs), int(stats["pairs"])
@@ -1924,7 +2114,7 @@ def cast_row(torch, name, binning, dirs, origin, kw, clock_hz):
                culled_steps=stats["culled_steps"], build=info,
                **blend_floor(stats, info, clock_hz))
     sass = info["sass"]
-    log(f"phase tri-cast: {name}: bit-equal to plain, {W}x{H} at "
+    log(f"phase {phase}: {name}: bit-equal to plain, {W}x{H} at "
         f"{kw['tile_w']}x{kw['tile_h']} tiles, {total} pairs, {cast} cast "
         f"in {stats['chunks']} chunks, {hit:.4f} of pixels hit; warp cull "
         f"{stats['culled_steps']} of {stats['warp_steps']} (warp, pair) "
@@ -1951,7 +2141,7 @@ def cast_kernel_info(threads: int) -> dict:
     return info
 
 
-def tri_expand_rows(torch, calls, names, at):
+def tri_expand_rows(torch, calls, names, at, phase="tri-cast"):
     """Q2.1 rows (the copy kernel) at the triangle binning's recorded
     calls of expand_pairs_fused, bit for bit against the plain version."""
     from gsrt_torch.ops import pair_expand
@@ -1966,7 +2156,7 @@ def tri_expand_rows(torch, calls, names, at):
                 pair_expand.expand_pairs_plain(tab, base, mp),
             lambda tab=tab, base=base, mp=mp:
                 tab.index_select(1, pair_expand.source_index(base, mp)),
-            0, 4 * (tab.shape[0] * (mp + n) + n), phase="tri-cast")
+            0, 4 * (tab.shape[0] * (mp + n) + n), phase=phase)
         row["at"] = f"{at}, table {tuple(tab.shape)} to {mp} columns"
         out.append(row)
     return out
@@ -2806,7 +2996,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kbuffer = dict(kbuffer=kbuffer_phase(torch, card),
                    splat_trace=splat_trace_phase(torch, card),
-                   mixed=mixed_phase(torch, card),
+                   mixed=mixed_phase(torch, rows, card),
                    ellipse=ellipse_phase(torch, rows, card))
     log(f"phases kbuffer, splat-trace, mixed, ellipse: "
         f"{time.perf_counter() - t0:.1f} s")

@@ -43,8 +43,7 @@ from gsrt_torch.ops.gaussian import (eval_gaussian_response, invert_cov3d,
                                      project_gaussians,
                                      ray_gaussian_response,
                                      screen_extents_abc)
-from gsrt_torch.ops.kbuffer import (advance_depth_front, composite_color,
-                                    merge_nearest)
+from gsrt_torch.ops.kbuffer import finish_pass, merge_nearest, ray_window
 from gsrt_torch.ops.sh import eval_sh
 from gsrt_torch.ops.tile_binning import group_rows_k, tile_extent
 
@@ -241,9 +240,8 @@ def render_reference(cloud: GaussianCloud, camera: Camera,
         fr = front[live]
         kd, ka, ki, count = _nearest_pass(
             live.numel(), candidates(pix[live], fr), cfg.k, init_d, dev)
-        trans[live], color[live] = composite_color(
-            trans[live], color[live], ka, colors[ki], count)
-        front[live] = advance_depth_front(fr, kd, count)
+        trans[live], color[live], front[live] = finish_pass(
+            trans[live], color[live], fr, kd, ka, colors[ki], count)
         miss = count == 0
         p = passes[live] + (~miss).to(torch.int32)
         passes[live] = p
@@ -257,15 +255,6 @@ def render_reference(cloud: GaussianCloud, camera: Camera,
                         color=color.reshape(H, W, 3),
                         passes=passes.reshape(H, W),
                         hits=hits.reshape(H, W))
-
-
-def ray_window(t_max, n_rays: int, cfg: RenderConfig, dev) -> torch.Tensor:
-    """Per-ray upper bound on t ([R], cfg.t_max when None), clamped to
-    init_depth: the k-buffer's empty-slot depth, past which hits would be
-    dropped silently."""
-    t = torch.as_tensor(cfg.t_max if t_max is None else t_max,
-                        dtype=torch.float32, device=dev)
-    return torch.clamp_max(t.expand(n_rays), float(cfg.init_depth))
 
 
 def trace_gaussian_rays(cloud: GaussianCloud, origins, dirs,
@@ -322,9 +311,8 @@ def trace_gaussian_rays(cloud: GaussianCloud, origins, dirs,
                        torch.clamp_min(fr, cfg.t_min)[:, None],
                        tmax_r[live][:, None]),
             cfg.k, init_d, dev)
-        trans[live], color[live] = composite_color(
-            trans[live], color[live], ka, colors[ki], count)
-        front[live] = advance_depth_front(fr, kd, count)
+        trans[live], color[live], front[live] = finish_pass(
+            trans[live], color[live], fr, kd, ka, colors[ki], count)
         h = hits[live] + count
         hits[live] = h
         live = live[~((count == 0) | (h >= cfg.max_passes * cfg.k))]

@@ -112,3 +112,19 @@ def composite_color(trans, color, k_alpha, k_color, count):
     w = a * excl * trans[..., None]                          # [..., k]
     color = color + (w[..., None] * k_color).sum(-2)
     return trans * cum[..., -1], color
+
+
+def finish_pass(trans, color, front, k_depth, k_alpha, k_color, count):
+    """A pass's end: the buffered hits blended front to back, the front
+    advanced to the last of them. Returns (trans, color, front)."""
+    trans, color = composite_color(trans, color, k_alpha, k_color, count)
+    return trans, color, advance_depth_front(front, k_depth, count)
+
+
+def ray_window(t_max, n_rays: int, cfg, dev) -> torch.Tensor:
+    """Per-ray upper bound on t ([n_rays], cfg.t_max when None), clamped
+    to cfg.init_depth: the k-buffer's empty-slot depth, past which hits
+    would be dropped silently."""
+    t = torch.as_tensor(cfg.t_max if t_max is None else t_max,
+                        dtype=torch.float32, device=dev)
+    return torch.clamp_max(t.expand(n_rays), float(cfg.init_depth))

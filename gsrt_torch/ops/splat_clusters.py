@@ -36,8 +36,7 @@ from gsrt_torch.core.types import GaussianCloud
 from gsrt_torch.ops.clusters import (Clusters, build_clusters, ray_aabb_hit,
                                      safe_inv_dir)
 from gsrt_torch.ops.gaussian import invert_cov3d, ray_gaussian_response
-from gsrt_torch.ops.kbuffer import (advance_depth_front, composite_color,
-                                    merge_nearest)
+from gsrt_torch.ops.kbuffer import finish_pass, merge_nearest, ray_window
 
 
 class SplatClusters(NamedTuple):
@@ -135,8 +134,6 @@ def trace_gaussian_rays_clustered(sc: SplatClusters, origins, dirs,
     a cluster there and still hold a live ray: the steps and blocks left
     out would merge nothing into a live ray's buffer, so the outputs are
     those of all s_max·sup steps over every block."""
-    from gsrt_torch.models.gaussian_rt import ray_window
-
     dev = origins.device
     R0 = origins.shape[0]
     pad = (-R0) % rb
@@ -192,13 +189,12 @@ def trace_gaussian_rays_clustered(sc: SplatClusters, origins, dirs,
                 torch.where(valid, alpha, 0.0), slot)
         kd, ka, ki = kd.reshape(R, k), ka.reshape(R, k), ki.reshape(R, k)
         count = (kd < init_d).sum(-1, dtype=torch.int32)
-        new_trans, new_color = composite_color(trans, color, ka, colors[ki],
-                                               count)
+        new_trans, new_color, new_front = finish_pass(
+            trans, color, front, kd, ka, colors[ki], count)
         live = ~done
         trans = torch.where(live, new_trans, trans)
         color = torch.where(live[:, None], new_color, color)
-        front = torch.where(live, advance_depth_front(front, kd, count),
-                            front)
+        front = torch.where(live, new_front, front)
         hits = hits + torch.where(live, count, torch.zeros_like(count))
         done = done | (count == 0) | (hits >= cfg.max_passes * k)
     return trans[:R0], color[:R0], hits[:R0], overflow

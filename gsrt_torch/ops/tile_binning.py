@@ -194,6 +194,15 @@ class TileBinning(NamedTuple):
                                # streams); defined on live columns
 
 
+def conic_cholesky(qa, qb, qc):
+    """(l11, l21, l22): the Cholesky factor of the conic [[a, b], [b, c]]
+    that the compact payload carries (as bf16 pairs), floored at 1e-12."""
+    l11 = torch.sqrt(torch.clamp_min(qa, 1e-12))
+    l21 = qb / torch.clamp_min(l11, 1e-12)
+    l22 = torch.sqrt(torch.clamp_min(qc - l21 * l21, 1e-12))
+    return l11, l21, l22
+
+
 def tile_extent(width: int, height: int, tile_w: int, tile_h: int):
     return -(-width // tile_w), -(-height // tile_h)
 
@@ -413,9 +422,7 @@ def _build_compact_stream(
     (`_build_compact` of the JAX package)."""
     order, _, base = _depth_order(depth, touched)
     w_span = torch.clamp_min(x1 - x0 + 1, 1)
-    l11 = torch.sqrt(torch.clamp_min(qa_c, 1e-12))
-    l21 = qb_c / torch.clamp_min(l11, 1e-12)
-    l22 = torch.sqrt(torch.clamp_min(qc_c - l21 * l21, 1e-12))
+    l11, l21, l22 = conic_cholesky(qa_c, qb_c, qc_c)
     tab = torch.stack([x0 | (y0 << 12) | (w_span << 24), x0,
                        m2x.view(torch.int32), m2y.view(torch.int32),
                        pack_bf16_pair(l11, l21), pack_bf16_pair(l22, depth),
@@ -502,9 +509,7 @@ def _build_group_stream(
     rows_n = torch.where(live, y1 - y0 + 1, zeros)
     xy0g = x0 | (y0 << 7) | (rows_n << 19)
     w_spl = torch.where(live, x1 - x0 + 1, zeros + 1)
-    l11 = torch.sqrt(torch.clamp_min(qa_c, 1e-12))
-    l21 = qb_c / torch.clamp_min(l11, 1e-12)
-    l22 = torch.sqrt(torch.clamp_min(qc_c - l21 * l21, 1e-12))
+    l11, l21, l22 = conic_cholesky(qa_c, qb_c, qc_c)
     order = torch.argsort(key)
     xy0g, w_spl = xy0g[order], w_spl[order]
     qab = pack_bf16_pair(l11, l21)[order]
@@ -627,6 +632,41 @@ def _finish_f32(
         else None)
 
 
+def ellipse_row_tiles(mx, my, qa, qb, qc, op, ty, x0, x1, *, tile_w: int,
+                      tile_h: int, g_cutoff: float, alpha_threshold: float):
+    """The tiles [tx0, tx1] of tile row ty that an ellipse span keeps, for
+    a splat with mean (mx, my), conic [[a, b], [b, c]] and opacity op
+    whose bounding box spans tiles [x0, x1]. With the cutoff G
+    alpha-tightened as in `screen_extents_abc`, a·dx² + 2b·dy·dx + c·dy²
+    ≤ 2G gives centre −b·dy/a (extremal at the row's ends) and half-width
+    sqrt(2G·a − det·dy²)/a (largest at the dy nearest 0), both in f32,
+    dilated 1e-3 px before the floor to tiles and clamped to [x0, x1]. A
+    tile outside holds no pixel whose f32 alpha clears the threshold."""
+    det = torch.clamp_min(qa * qc - qb * qb, 1e-18)
+    qa_p = torch.clamp_min(qa, 1e-12)
+    g = torch.clamp_max(torch.clamp_min(torch.log(torch.clamp_min(
+        op / alpha_threshold, 1e-6)), 0.0), g_cutoff)
+    dy_lo = ty.to(torch.float32) * tile_h - my
+    dy_hi = dy_lo + (tile_h - 1)
+    dy0 = torch.minimum(torch.clamp_min(dy_lo, 0.0), dy_hi)  # |dy|'s min
+    two_g_a = torch.clamp_min(2.0 * g * qa, 0.0)
+    wmax = torch.sqrt(torch.clamp_min(two_g_a - det * dy0 * dy0, 0.0)) \
+        / qa_p + 1e-3
+    slope = qb / qa_p
+    xc_lo = mx - slope * dy_lo
+    xc_hi = mx - slope * dy_hi
+    dxmin = torch.minimum(xc_lo, xc_hi) - wmax
+    dxmax = torch.maximum(xc_lo, xc_hi) + wmax
+
+    def tile_x(v, lo, hi):
+        # clamped as a float first: a saturating conversion, then the clip
+        t = torch.clamp(torch.floor(v / tile_w), -2.0 ** 30, 2.0 ** 30)
+        return torch.minimum(torch.maximum(_i32(t), lo), hi)
+
+    tx0 = tile_x(dxmin, x0, x1)
+    return tx0, tile_x(dxmax, tx0, x1)
+
+
 def _build_ellipse(
     depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
     x0, x1, y0, y1, touched, *, ntx, nty, T, tile_w, tile_h, max_pairs,
@@ -636,15 +676,10 @@ def _build_ellipse(
 
     Level 0 sorts the splats by depth; level 1 expands each into its
     bounding box's tile rows (the copy expand); each row then takes the
-    ellipse's x-interval over its pixel rows: with conic [[a, b], [b, c]]
-    and cutoff G (alpha-tightened as in `screen_extents_abc`),
-    a·dx² + 2b·dy·dx + c·dy² ≤ 2G gives centre −b·dy/a (extremal at the
-    row's ends) and half-width sqrt(2G·a − det·dy²)/a (largest at the dy
-    nearest 0), both in f32, dilated 1e-3 px before the floor to tiles and
-    clamped to the box's span. A tile the ellipse misses holds no pixel
-    that takes the splat. The rows go through `_finish_compact` /
-    `_finish_f32` as w_span × 1 units (level 2). The overflow flag covers
-    the row buffer (max_rows) and the pair buffer. The level-1 table
+    ellipse's x-interval over its pixel rows (`ellipse_row_tiles`). The
+    rows go through `_finish_compact` / `_finish_f32` as w_span × 1 units
+    (level 2). The overflow flag covers the row buffer (max_rows) and the
+    pair buffer. The level-1 table
     carries each field in an int32 row of its own, where the JAX package
     packs the geometry into 12/12/8-bit fields and pads the table to 16
     rows for the TPU."""
@@ -681,30 +716,13 @@ def _build_ellipse(
     ty = torch.where(rvalid, ry0 + (rslot - rbase), torch.zeros_like(ry0))
 
     # --- each row's x-interval of the ellipse ---
-    det_r = torch.clamp_min(qa_r * qc_r - qb_r * qb_r, 1e-18)
-    qa_p = torch.clamp_min(qa_r, 1e-12)
-    g_row = torch.clamp_max(torch.clamp_min(torch.log(torch.clamp_min(
-        op_r / alpha_threshold, 1e-6)), 0.0), g_cutoff)
-    dy_lo = ty.to(torch.float32) * tile_h - my
-    dy_hi = dy_lo + (tile_h - 1)
-    dy0 = torch.minimum(torch.clamp_min(dy_lo, 0.0), dy_hi)  # |dy|'s min
-    two_g_a = torch.clamp_min(2.0 * g_row * qa_r, 0.0)
-    wmax = torch.sqrt(torch.clamp_min(two_g_a - det_r * dy0 * dy0, 0.0)) \
-        / qa_p + 1e-3
-    slope = qb_r / qa_p
-    xc_lo = mx - slope * dy_lo
-    xc_hi = mx - slope * dy_hi
-    dxmin = torch.minimum(xc_lo, xc_hi) - wmax
-    dxmax = torch.maximum(xc_lo, xc_hi) + wmax
-
-    def tile_x(v, lo, hi):
-        # clamped as a float first: a saturating conversion, then the clip
-        t = torch.clamp(torch.floor(v / tile_w), -2.0 ** 30, 2.0 ** 30)
-        return torch.minimum(torch.maximum(_i32(t), lo), hi)
-
     zero = torch.zeros_like(rx0)
-    tx0 = torch.where(rvalid, tile_x(dxmin, rx0, rx1), zero)
-    tx1 = torch.where(rvalid, tile_x(dxmax, tx0, rx1), zero)
+    tx0, tx1 = ellipse_row_tiles(mx, my, qa_r, qb_r, qc_r, op_r, ty, rx0,
+                                 rx1, tile_w=tile_w, tile_h=tile_h,
+                                 g_cutoff=g_cutoff,
+                                 alpha_threshold=alpha_threshold)
+    tx0 = torch.where(rvalid, tx0, zero)
+    tx1 = torch.where(rvalid, tx1, zero)
     span = torch.where(rvalid, tx1 - tx0 + 1, zero)
 
     # --- per-tile counts from the one-row rects ---
@@ -724,9 +742,7 @@ def _build_ellipse(
 
     # --- level 2: rows → pairs ---
     if compact:
-        l11 = torch.sqrt(torch.clamp_min(qa_r, 1e-12))
-        l21 = qb_r / torch.clamp_min(l11, 1e-12)
-        l22 = torch.sqrt(torch.clamp_min(qc_r - l21 * l21, 1e-12))
+        l11, l21, l22 = conic_cholesky(qa_r, qb_r, qc_r)
         tab2 = torch.stack([
             tx0 | (ty << 12) | (w_span << 24), base, r[4], r[5],
             pack_bf16_pair(l11, l21),

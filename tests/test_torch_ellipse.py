@@ -36,7 +36,7 @@ from gsrt_torch import RenderConfig
 from gsrt_torch.models import gaussian_rt as t_rt
 from gsrt_torch.ops import tile_binning as t_tb
 from test_torch_render import _port
-from test_torch_tilestream import H, MP, TH, TW, W, scene_columns
+from test_torch_tilestream import H, MP, NTY, TH, TW, W, scene_columns
 
 MR = 1 << 12
 EXPANDS = {True: ["fused", "binned", "xla"], False: ["fused", "pallas",
@@ -190,3 +190,43 @@ def test_calibrate_sizes_ellipse_rows():
         t_tb.build_tile_binning(
             *(torch.zeros(4) for _ in range(12)), torch.ones(4, dtype=bool),
             width=96, height=256, tile_w=16, tile_h=1, span_mode="ellipse")
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_ellipse_row_tiles_keep_every_taking_pixel(kind):
+    """`ellipse_row_tiles` leaves a tile out of a splat's tile row only
+    where no pixel of it takes the splat in f32 (the blend's accept rule
+    with the range test): every (pixel, splat) the blend takes lies in
+    the splat's box and its row's ellipse span, and the spans leave out
+    some of the box."""
+    from gsrt_torch.ops.splat_packed import alphas, response
+    (depth, m2x, m2y, qa, qb, qc, opacity, cr, cg, cb, rx, ry,
+     alive) = (torch.as_tensor(np.array(c)) for c in scene_columns(kind))
+    x0, x1, y0, y1, touched = t_tb.compute_tile_spans(
+        m2x, m2y, rx, ry, alive, W, H, TW, TH)
+    op = torch.where(alive, opacity, torch.zeros_like(opacity))
+    n = (touched > 0).nonzero()[:, 0]
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing="ij")
+    g = response(dict(mx=m2x[n], my=m2y[n], qa=qa[n], qb=qb[n], qc=qc[n]),
+                 xs.flatten(), ys.flatten())                 # [P, n]
+    _, take = alphas(g, op[n], g_cutoff=5.6, alpha_threshold=1.0 / 255.0,
+                     alpha_clamp=0.99, skip_range_check=False,
+                     use_exp_lut=False)
+    e0, e1 = t_tb.ellipse_row_tiles(
+        *(a[n][None, :].expand(NTY, -1) for a in (m2x, m2y, qa, qb, qc,
+                                                   op)),
+        torch.arange(NTY, dtype=torch.int32)[:, None].expand(-1, n.numel()),
+        *(a[n][None, :].expand(NTY, -1) for a in (x0, x1)), tile_w=TW,
+        tile_h=TH, g_cutoff=5.6, alpha_threshold=1.0 / 255.0)  # [NTY, n]
+    ty = (ys.flatten() // TH).long()
+    tx = (xs.flatten() // TW).int()[:, None]
+    inside = ((y0[n] <= ty[:, None]) & (ty[:, None] <= y1[n])
+              & (e0[ty] <= tx) & (tx <= e1[ty]))
+    assert take.any() and not (take & ~inside).any()
+    rows = (torch.arange(NTY)[:, None] >= y0[n]) \
+        & (torch.arange(NTY)[:, None] <= y1[n])
+    kept = torch.where(rows, e1 - e0 + 1, 0).sum()
+    boxed = ((x1 - x0 + 1) * (y1 - y0 + 1))[n].sum()
+    assert 0 < kept < boxed
