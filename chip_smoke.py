@@ -186,7 +186,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
              per render on the card's and the host's clocks, the mean
              colour; then for SH, AO and PT the split by stage, every
              traversal launch's card ms and visits a block, and the
-             profiler's device-busy share.
+             profiler's device-busy share;
+23. scenes — after ellipse: the path tracer's catalog at its factories'
+             sizes (RTIOW, planets, the 30-grid cube and cylinder fields
+             and the Mandelbulb at 640x480, cube and spheres at 256x256,
+             simple at 512x512), PT at 1 spp and 16 bounces with each
+             factory's aperture, focus, sky and gamma, each twice with one
+             seed and bit-equal, ms, peak memory and launches (only
+             simple's binned cast and its expand); render_foveated on
+             RTIOW, its outer ring bit-equal to the 1-spp render; the
+             1080p foliage field (an OBJ grass card with a procedural
+             texture and a blade cutout, 90,000 instances on a 300x300
+             grid, RTIOW's ground sphere, the traversal table): PT with
+             cutouts, launches counted, sorted bounce waves equal to
+             unsorted, every traversal launch (the re-traces with a
+             per-ray t_min too) equal to its plain version on every
+             4th block (each launch from its own offset), bounce 0's
+             first re-trace a row of the kernels line, the rays each trace
+             cut, the card split; the field opaque with mips: the binned
+             cast and its copy expand against their plain versions (rows),
+             the LOD histogram; tri-clusters on 480x270 primary rays
+             against the brute-force sweep (t bit-equal, ids equal but at
+             ties); the render cell's 1M splats through save_gaussian_ply
+             and the native decode (means, SH bit-equal; opacity, Σ 1e-6)
+             and one render_tiled frame of them within 2e-2.
 
 The render workload is the JAX package's benchmark: random_cloud(1M, seed=0,
 scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig defaults.
@@ -2745,6 +2768,493 @@ def tri_phases(torch, rows):
                 bigtris=bigtris)
 
 
+# --- the scenes phase: the catalog, foveated PT, the foliage field ---
+
+# the catalog at its factories' sizes: (factory, width, height, kwargs)
+CATALOG = {"rtiow": ("ray_tracing_in_one_weekend", 640, 480, {}),
+           "planets": ("planets_in_one_weekend", 640, 480, {}),
+           "cubesgrid": ("cubes_and_common_scene", 640, 480, dict(grid=30)),
+           "cylinders": ("cylinder_cubes_common_scene", 640, 480,
+                         dict(grid=30)),
+           "mandelbulb": ("mandelbulb_scene", 640, 480, {}),
+           "cubes": ("cube_and_spheres", 256, 256, {}),
+           "simple": ("simple_test", 512, 512, {})}
+FOV_RINGS, FOV_SPP = (15, 40), (16, 8, 1)
+# the foliage field: one grass card (a quad with texcoords) instanced on a
+# 300 x 300 grid of 0.1-unit cells, random y rotation, scale 0.5-1.5, on
+# RTIOW's ground sphere; LumiBench's trees_and_grass shape at 1080p
+FIELD_N, FIELD_CELL, FIELD_SEED = 300, 0.1, 0
+FIELD_TEX = 64
+FIELD_EYE, FIELD_AT, FIELD_FOV = (0.0, 1.0, -17.0), (0.0, 0.0, 0.0), 40.0
+CLUSTER_W, CLUSTER_H = 480, 270
+# the cutout render's traversal launches are held to their plain version
+# on every HOLD_STRIDE-th block: on all blocks the plain versions took
+# 217-293 s of the phase on an H100 80GB HBM3 at 700 W, and the whole
+# script 995 s of its 1200 (PERF.md)
+HOLD_STRIDE = 4
+
+
+def timed_render(torch, render):
+    """(output, card ms, host ms, peak MiB allocated) of one render."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev[0].record()
+    out = render()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return (out, ev[0].elapsed_time(ev[1]), (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def catalog_renders(torch) -> dict:
+    """The catalog's scenes, PT at 1 spp and 16 bounces with each
+    factory's aperture, focus, sky and gamma, twice with one seed (bit for
+    bit), launch counts read around the first: only `simple` has
+    triangles (its binned cast and the binning's expand, once each)."""
+    from gsrt_torch import RenderConfig, _kernels
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.scene import primitives_catalog as cat
+    out = {}
+    for name, (fn, w, h, kw) in CATALOG.items():
+        scene, cam, opts = getattr(cat, fn)(w, h, device=DEVICE, **kw)
+        cfg = RenderConfig(width=w, height=h, samples=PT_SAMPLES,
+                           bounces=PT_BOUNCES, has_sky=opts["has_sky"],
+                           gamma_correction=opts["gamma"])
+        render = lambda: pt.render_path_traced(  # noqa: E731
+            scene, cam, cfg, seed=SEED, aperture=opts["aperture"],
+            focus=opts["focus"], return_flags=True)
+        _kernels.reset_launch_counts()
+        (img, flags), ms, host_ms, peak = timed_render(torch, render)
+        counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+        (again, _), ms2, _, _ = timed_render(torch, render)
+        want = ({"cast_primary": 1, "expand_pairs_fused": 1}
+                if name == "simple" else {})
+        log(f"phase scenes: {name} {w}x{h} ({scene.counts[0]} spheres, "
+            f"{scene.counts[1]} boxes, {scene.counts[2]} triangles"
+            + (f", {scene.cyl_center.shape[0]} cylinders"
+               if scene.cyl_center is not None else "")
+            + (f", {scene.mnd_center.shape[0]} Mandelbulb"
+               if scene.mnd_center is not None else "")
+            + f"): {ms:.1f} ms ({host_ms:.1f} host; again {ms2:.1f}), peak "
+            f"{peak:.0f} MiB, launches {counts}, mean colour "
+            f"{img.mean().item():.6f}")
+        if not torch.equal(img, again) or counts != want or \
+                any(bool(v) for v in flags.values()) or \
+                not torch.isfinite(img).all() or img.std().item() < 0.02:
+            raise SystemExit(f"phase scenes: {name}: the two renders differ, "
+                             f"its launches are {counts} (want {want}), a "
+                             f"flag is set or the image is off")
+        out[name] = dict(width=w, height=h, ms=ms, again_ms=ms2,
+                         host_ms=host_ms, peak_mib=peak, launches=counts,
+                         mean=img.mean().item(), counts=scene.counts)
+        del scene, img, again
+    return out
+
+
+def foveated(torch) -> dict:
+    """render_foveated on RTIOW at 640x480, rings (15, 40), spp (16, 8,
+    1): the outer ring bit-equal to the 1-spp render at seed SEED * 16."""
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.scene import ray_tracing_in_one_weekend
+    scene, cam, opts = ray_tracing_in_one_weekend(640, 480, device=DEVICE)
+    cfg = RenderConfig(width=640, height=480, bounces=PT_BOUNCES,
+                       has_sky=opts["has_sky"], gamma_correction=opts["gamma"])
+    lens = dict(aperture=opts["aperture"], focus=opts["focus"])
+    img, ms, _, peak = timed_render(torch, lambda: pt.render_foveated(
+        scene, cam, cfg, seed=SEED, rings=FOV_RINGS, ring_samples=FOV_SPP,
+        **lens))
+    one = pt.render_path_traced(scene, cam, cfg.replace(samples=1),
+                                seed=SEED * max(FOV_SPP), **lens)
+    ys, xs = torch.meshgrid(torch.arange(480, device=DEVICE),
+                            torch.arange(640, device=DEVICE), indexing="ij")
+    outer = torch.sqrt((xs - 320.0) ** 2 + (ys - 240.0) ** 2).to(
+        torch.int32) > FOV_RINGS[1]
+    same = torch.equal(img[outer], one[outer])
+    log(f"phase scenes: foveated RTIOW 640x480, rings {FOV_RINGS}, spp "
+        f"{FOV_SPP}: {ms:.1f} ms, peak {peak:.0f} MiB; the outer ring "
+        f"({int(outer.sum())} px) equals the 1-spp render at seed "
+        f"{SEED * max(FOV_SPP)}: {same}")
+    if not same or not torch.isfinite(img).all():
+        raise SystemExit("phase scenes: the foveated outer ring differs "
+                         "from its 1-spp render")
+    return dict(ms=ms, peak_mib=peak, outer_pixels=int(outer.sum()))
+
+
+def foliage_field(torch, tmpdir: str, cutout: bool = True):
+    """The foliage field: an OBJ grass card (with vt; its MTL has no
+    map_Kd) loaded by load_obj, a procedural 64x64 texture and a blade
+    cutout (about half the texels clear) attached with _replace, 90,000
+    instances, RTIOW's ground sphere, the traversal table. Returns (scene,
+    seconds to build, the share of clear texels)."""
+    import numpy as np
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.scene.instancing import instantiate_scene, make_transform
+    from gsrt_torch.scene.obj import load_obj
+    from gsrt_torch.scene.reference_scenes import _add_ground_sphere
+    t0 = time.perf_counter()
+    with open(os.path.join(tmpdir, "grass.mtl"), "w") as f:
+        f.write("newmtl blade\nKd 0.9 0.9 0.9\n")
+    with open(os.path.join(tmpdir, "grass.obj"), "w") as f:
+        f.write("mtllib grass.mtl\nv -0.08 0 0\nv 0.08 0 0\nv 0.08 0.35 0\n"
+                "v -0.08 0.35 0\nvt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n"
+                "usemtl blade\nf 1/1 2/2 3/3 4/4\n")
+    card = load_obj(os.path.join(tmpdir, "grass.obj"), device=DEVICE)
+    y, x = np.mgrid[:FIELD_TEX, :FIELD_TEX] / (FIELD_TEX - 1.0)
+    rgb = np.stack([0.25 + 0.2 * np.sin(9 * x), 0.55 + 0.3 * y,
+                    0.15 + 0.1 * np.cos(7 * x)], -1).astype(np.float32)
+    blade = (np.abs(x - 0.5) < 0.5 * (1.0 - y)).astype(np.float32)
+    mats = card.materials._replace(texture_id=torch.tensor(
+        [-1] * (card.materials.model.shape[0] - 1) + [0], dtype=torch.int32,
+        device=DEVICE))
+    card = card._replace(
+        materials=mats, textures=torch.as_tensor(rgb[None], device=DEVICE),
+        alpha_textures=(torch.as_tensor(blade[None], device=DEVICE)
+                        if cutout else None))
+    rng = np.random.default_rng(FIELD_SEED)
+    half = FIELD_N * FIELD_CELL / 2
+    xs = (np.arange(FIELD_N) + 0.5) * FIELD_CELL - half
+    jit = rng.uniform(-0.4, 0.4, (FIELD_N, FIELD_N, 2)) * FIELD_CELL
+    rot = rng.uniform(0, 360, (FIELD_N, FIELD_N))
+    scale = rng.uniform(0.5, 1.5, (FIELD_N, FIELD_N))
+    transforms = [make_transform((xs[i] + jit[i, j, 0], 0.0,
+                                  xs[j] + jit[i, j, 1]), rot[i, j],
+                                 scale[i, j])
+                  for i in range(FIELD_N) for j in range(FIELD_N)]
+    field = instantiate_scene(card, transforms)
+    field = _add_ground_sphere(field, (0.0, -1000.0, 0.0), 1000.0,
+                               (0.5, 0.5, 0.5))
+    field = pt.with_tri_table(field)
+    torch.cuda.synchronize()
+    return field, time.perf_counter() - t0, 1.0 - float(blade.mean())
+
+
+def held_launches(torch, calls, stride: int = HOLD_STRIDE,
+                  phase="scenes") -> dict:
+    """Every recorded closest_hit_packed call launched again; the plain
+    version runs on every stride-th block of RB rays of it (launch k from
+    block k % stride, so the launches cover every block position) and
+    must give those rays' t and slots and those blocks' executed visits
+    bit for bit. Blocks are traversed independently, so a block's rays
+    take the same results in any set of whole blocks. Returns the
+    launches held, the rays held and the plain version's seconds."""
+    from gsrt_torch.ops import tri_kernel
+    rays = 0
+    t0 = time.perf_counter()
+    for k, ((tt, *args), kw) in enumerate(calls):
+        t_k, s_k, _, plan_k = tri_kernel.closest_hit_packed(tt, *args, **kw)
+        R = t_k.shape[0]
+        blocks = torch.arange(k % stride, -(-R // RB), stride,
+                              device=t_k.device)
+        idx = (blocks[:, None] * RB + torch.arange(RB, device=t_k.device)
+               ).reshape(-1)
+        idx = idx[idx < R]
+        sub = [a[idx] if torch.is_tensor(a) and a.dim() and a.shape[0] == R
+               else a for a in args]
+        t_p, s_p, _, plan_p = tri_kernel.closest_hit_packed_plain(tt, *sub,
+                                                                  **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(t_k[idx], t_p) and torch.equal(s_k[idx], s_p)
+                and torch.equal(plan_k.actual[blocks], plan_p.actual)):
+            raise SystemExit(
+                f"phase {phase}: traversal launch {k} differs from its "
+                f"plain version: {int((t_k[idx] != t_p).sum())} t, "
+                f"{int((s_k[idx] != s_p).sum())} slots")
+        rays += idx.numel()
+    return dict(held=len(calls), rays_held=rays, stride=stride,
+                seconds=time.perf_counter() - t0)
+
+
+def foliage_cutout(torch, rows, field, camera, cfg, card: str) -> dict:
+    """PT of the cutout field: launch counts around the render, every
+    traversal launch (re-traces with a per-ray t_min too) recorded and
+    held to its plain version, the bounce-0 re-trace as the kernels
+    line's row, sorted waves against unsorted bit for bit, the rays each
+    cutout trace cut, and the card time split."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import tri_kernel
+    render = lambda **kw: pt.render_path_traced(  # noqa: E731
+        field, camera, cfg, seed=SEED, return_flags=True, **kw)
+    cutouts = pt._closest_hit_cutout
+    traces = []
+
+    def counted(*a, **kw):
+        traces.append([])
+        return cutouts(*a, retraced=traces[-1], **kw)
+    render()                                                # warm-up
+    _kernels.reset_launch_counts()
+    with Recorder(tri_kernel, "closest_hit_packed") as rec, \
+            Replaced(pt, "_closest_hit_cutout", counted):
+        (img, flags), ms, host_ms, peak = timed_render(torch, render)
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    flags = {k: bool(v) for k, v in flags.items()}
+    (flat, _), flat_ms, _, _ = timed_render(
+        torch, lambda: render(sort_bounces=False))
+    sorted_diff = (img - flat).abs().max().item()
+    per_trace = [sum(t[i] for t in traces if len(t) > i)
+                 for i in range(max(map(len, traces)))]
+    log(f"phase scenes: {card}: foliage field with cutouts, "
+        f"{field.tri_v0.shape[0]} triangles, {cfg.width}x{cfg.height}, "
+        f"{cfg.bounces} bounces: {ms:.1f} ms ({host_ms:.1f} host), peak "
+        f"{peak:.0f} MiB; unsorted waves {flat_ms:.1f} ms, max |sorted - "
+        f"unsorted| {sorted_diff:.3e} (must be 0); launches {counts}; "
+        f"flags {flags}; rays cut by trace 1, 2, ...: bounce 0 "
+        f"{traces[0]}, all {len(traces)} bounces {per_trace}; mean colour "
+        f"{img.mean().item():.6f}")
+    if sorted_diff or any(flags.values()) or counts.get("cast_primary") or \
+            counts.get("closest_hit_packed", 0) != len(rec.calls) or \
+            len(traces[0]) < 2 or not traces[0][0] or \
+            not torch.isfinite(img).all():
+        raise SystemExit("phase scenes: the cutout field's render is off "
+                         "(or bounce 0 cut no ray)")
+    held = held_launches(torch, rec.calls)
+    log(f"phase scenes: all {held['held']} traversal launches of the "
+        f"render equal their plain version bit for bit (t, slots, visits) "
+        f"on every {held['stride']}th block ({held['rays_held']} rays); "
+        f"plain {held['seconds']:.1f} s")
+    # the kernels line's row: the first re-trace past a cutout (bounce 0,
+    # a per-ray t_min)
+    (tt, *args), kw = rec.calls[1]
+    row = traverse_row(torch, "closest_hit_packed[foliage-cutout]", tt,
+                       tuple(args), kw, traverse_kernel_info(RB),
+                       max_sm_clock_hz())
+    row.update(launches=counts["closest_hit_packed"],
+               at=f"foliage field, {tt.n_tris} triangles, "
+               f"{cfg.width}x{cfg.height}: bounce 0's first re-trace past a "
+               f"cutout, a per-ray t_min")
+    rows.append(row)
+    del rec
+    # where the card's time goes
+    stamps = Stamps(torch)
+    stamps.wrap(tri_kernel, "traverse", "traversal")
+    stamps.wrap(tri_kernel, "plan_visits", "plan")
+    stamps.wrap(pt, "_sample_alpha", "cutout")
+    try:
+        stamps.mark("render:start")
+        render()
+        stamps.mark("render:end")
+    finally:
+        stamps.restore()
+    split = {}
+    for label, t in stamps.intervals():
+        stage, edge = label.split(":")
+        key = stage if edge == "end" and stage != "render" else "shading"
+        split[key] = split.get(key, 0.0) + t
+    log("phase scenes: cutout field split (card ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return dict(ms=ms, host_ms=host_ms, peak_mib=peak, unsorted_ms=flat_ms,
+                launches=counts, rays_cut_per_trace=per_trace,
+                bounce0_rays_cut_per_trace=traces[0],
+                held=held, split_ms=split, mean=img.mean().item())
+
+
+def foliage_mips(torch, rows, field, camera, cfg) -> dict:
+    """PT of the field without cutouts, with mips: the binned primary
+    casts bounce 0; the cast (Q2.7) and its binning's copy expand (Q2.1)
+    held to their plain versions bit for bit (rows of the kernels line);
+    the LOD histogram of bounce 0's hits."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import mip, tri_binning
+    scene = pt.with_texture_mips(field._replace(alpha_textures=None))
+    render = lambda: pt.render_path_traced(  # noqa: E731
+        scene, camera, cfg, seed=SEED, return_flags=True)
+    render()
+    lods = []
+    cone = mip.ray_cone_lod
+
+    def kept(*a):
+        lods.append(cone(*a))
+        return lods[-1]
+    _kernels.reset_launch_counts()
+    with Recorder(tri_binning, "cast_primary") as rec_c, \
+            Recorder(tri_binning, "expand_pairs_fused") as rec_x, \
+            Replaced(mip, "ray_cone_lod", kept):
+        (img, flags), ms, host_ms, peak = timed_render(torch, render)
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    lod0 = lods[0][torch.isfinite(lods[0])]
+    hist = torch.histc(lod0, bins=scene.tex_mips.shape[1].bit_length(),
+                       min=0, max=scene.tex_mips.shape[1].bit_length())
+    hist = [int(v) for v in hist.tolist()]
+    log(f"phase scenes: foliage field with mips, no cutouts: {ms:.1f} ms "
+        f"({host_ms:.1f} host), peak {peak:.0f} MiB, launches {counts}, "
+        f"flags {({k: bool(v) for k, v in flags.items()})}; bounce-0 LOD "
+        f"histogram (levels 0, 1, ...): {hist}; mean colour "
+        f"{img.mean().item():.6f}")
+    if counts.get("cast_primary") != 1 or \
+            counts.get("expand_pairs_fused") != 1 or \
+            not counts.get("closest_hit_packed") or \
+            any(bool(v) for v in flags.values()) or \
+            not torch.isfinite(img).all():
+        raise SystemExit("phase scenes: the mips field did not cast its "
+                         "primary through the kernels, or overflowed")
+    (binning, dirs, origin), cast_kw = rec_c.calls[0]
+    at = (f"foliage field, {scene.tri_v0.shape[0]} triangles, "
+          f"{cfg.width}x{cfg.height}, bounce 0")
+    cast = cast_row(torch, "cast_primary[foliage]", binning, dirs, origin,
+                    cast_kw, max_sm_clock_hz(), phase="scenes")
+    expand = tri_expand_rows(torch, rec_x.calls[:1],
+                             ["expand_pairs_fused[foliage]"], at,
+                             phase="scenes")[0]
+    cast.update(launches=rec_c.launched("cast_primary"), at=at)
+    expand["launches"] = rec_x.launched("expand_pairs_fused")
+    rows += [cast, expand]
+    return dict(ms=ms, host_ms=host_ms, peak_mib=peak, launches=counts,
+                lod_histogram=hist, mean=img.mean().item())
+
+
+def foliage_triclusters(torch, field) -> dict:
+    """with_tri_clusters on the field; 480x270 primary rays through
+    closest_hit_tri_clusters against the brute-force sweep: t bit-equal,
+    triangle ids equal where t has no tie (where they differ, both
+    triangles must give that t)."""
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.core.types import look_at, make_camera
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import clusters, primitives
+    scene = pt.with_tri_clusters(field._replace(tri_table=None))
+    tc = scene.tri_clusters
+    cam = make_camera(look_at(FIELD_EYE, FIELD_AT), FIELD_FOV, CLUSTER_W,
+                      CLUSTER_H, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    orig, dirn = pt.generate_camera_rays(
+        gen, cam, RenderConfig(width=CLUSTER_W, height=CLUSTER_H))
+    (t, c, k, hit, aabb_n, leaf_n), ms, _, peak = timed_render(
+        torch, lambda: clusters.closest_hit_tri_clusters(tc, orig, dirn,
+                                                         1e-3, 1e4))
+    bmin = torch.minimum(torch.minimum(field.tri_v0, field.tri_v1),
+                         field.tri_v2)
+    bmax = torch.maximum(torch.maximum(field.tri_v0, field.tri_v1),
+                         field.tri_v2)
+    order = clusters.build_clusters(bmin, bmax, k=tc.clusters.k,
+                                    sup=tc.clusters.sup)[1].long()
+    ids = order[c.long() * tc.clusters.k + k.long()]
+    (i_b, (t_b, _, _)), brute_ms, _, brute_peak = timed_render(
+        torch, lambda: pt._sweep(lambda s, e: primitives.ray_triangle(
+            orig, dirn, field.tri_v0[s:e], field.tri_v1[s:e],
+            field.tri_v2[s:e], 1e-3, 1e4), field.tri_v0.shape[0],
+            orig.shape[0]))
+    differ = hit & (ids != i_b)
+    n_differ = int(differ.sum())
+    ties = True
+    if n_differ:
+        r = differ.nonzero()[:, 0]
+        t_own = primitives.ray_triangle(
+            orig[r], dirn[r], field.tri_v0[ids[r]], field.tri_v1[ids[r]],
+            field.tri_v2[ids[r]], 1e-3, 1e4)[0].diagonal()
+        ties = torch.equal(t_own, t[r])
+    log(f"phase scenes: tri-clusters ({tc.clusters.m} clusters of "
+        f"{tc.clusters.k}, {tc.clusters.sup_min.shape[0]} super-clusters) "
+        f"on {CLUSTER_W}x{CLUSTER_H} primary rays: {ms:.1f} ms (peak "
+        f"{peak:.0f} MiB), {aabb_n} AABB tests, {leaf_n} (ray, cluster) "
+        f"intersections = {leaf_n / orig.shape[0]:.1f} clusters a ray; "
+        f"brute-force sweep {brute_ms:.1f} ms (peak {brute_peak:.0f} MiB); "
+        f"t bit-equal {torch.equal(t, t_b)}, hits {hit.float().mean():.4f}, "
+        f"ids differ at {n_differ} rays, all ties: {ties}")
+    if not torch.equal(t, t_b) or not ties:
+        raise SystemExit("phase scenes: tri-clusters differ from the sweep")
+    return dict(ms=ms, brute_ms=brute_ms, aabb_tests=aabb_n,
+                clusters_tested=leaf_n, clusters=tc.clusters.m,
+                ids_differing=n_differ, hit_fraction=hit.float().mean()
+                .item(), peak_mib=peak, brute_peak_mib=brute_peak)
+
+
+def ply_round_trip(torch, tmpdir: str) -> dict:
+    """The render cell's 1,000,000 splats through save_gaussian_ply and
+    the native decode: means and SH bit-equal, opacity and Σ within 1e-6;
+    one render_tiled frame of each cloud, launches counted around the
+    loaded cloud's, within 2e-2."""
+    from gsrt_torch import _kernels, native
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.scene.ply import load_gaussian_ply, save_gaussian_ply
+    from gsrt_torch.scene.catalog import random_cloud_params
+    cfg, cloud, camera = render_cell(DEVICE)
+    means, quats, scales, opac, sh = random_cloud_params(
+        SPLATS, seed=SEED, scale_range=(0.004, 0.03))
+    path = os.path.join(tmpdir, "cell.ply")
+    t0 = time.perf_counter()
+    save_gaussian_ply(path, means, quats, scales, opac, sh)
+    save_s = time.perf_counter() - t0
+    if not native.available():
+        raise SystemExit("phase scenes: the host library does not build")
+    t0 = time.perf_counter()
+    loaded = load_gaussian_ply(path, device=DEVICE)
+    torch.cuda.synchronize()
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with Replaced(native, "available", lambda: False):
+        load_gaussian_ply(path, device=DEVICE)
+    torch.cuda.synchronize()
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    errs = dict(opacity=max_abs_err(loaded.opacity - cloud.opacity),
+                cov3d=max_abs_err(loaded.cov3d - cloud.cov3d))
+    same = torch.equal(loaded.means, cloud.means) and \
+        torch.equal(loaded.sh, cloud.sh)
+    tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+    tracer.calibrate(loaded, camera)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    got = tracer(loaded, camera)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    ref = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+    ref.calibrate(cloud, camera)
+    want = ref(cloud, camera)
+    d = (got.color - want.color).abs().max().item()
+    size = os.path.getsize(path)
+    log(f"phase scenes: PLY of {SPLATS} splats, SH 3, {size} bytes: "
+        f"written in {save_s:.2f} s, parsed natively in {parse_ms:.1f} ms "
+        f"(NumPy {numpy_ms:.1f} ms); means and SH bit-equal {same}, "
+        f"opacity {errs['opacity']:.2e}, cov3d {errs['cov3d']:.2e} (1e-6); "
+        f"a render_tiled frame of it: launches {counts}, max |colour - the "
+        f"original cloud's| {d:.3e} (2e-2)")
+    path_kernels = ("expand_pairs_fused", "expand_pairs_binned",
+                    "partition_group_stream", "blend_packed_group")
+    if not same or max(errs.values()) > 1e-6 or d > 2e-2 or \
+            bool(got.overflow) or any(not counts.get(k) for k in
+                                      path_kernels):
+        raise SystemExit("phase scenes: the PLY round trip is off")
+    return dict(bytes=size, parse_ms=parse_ms, numpy_parse_ms=numpy_ms,
+                save_s=save_s, launches=counts, frame_diff=d, **errs)
+
+
+def scenes_phase(torch, rows, card: str) -> dict:
+    """scenes: the catalog's scenes, foveated PT, the foliage field (with
+    cutouts through the traversal kernel, opaque with mips through the
+    binned cast, through tri-clusters) and a 1M-splat PLY round trip."""
+    import tempfile
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.core.types import look_at, make_camera
+    t0 = time.perf_counter()
+    out = dict(catalog=catalog_renders(torch), foveated=foveated(torch))
+    camera = make_camera(look_at(FIELD_EYE, FIELD_AT), FIELD_FOV, WIDTH,
+                         HEIGHT, device=DEVICE)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=PT_SAMPLES,
+                       bounces=PT_BOUNCES)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        field, build_s, clear = foliage_field(torch, tmpdir)
+        tt = field.tri_table
+        log(f"phase scenes: foliage field: {field.tri_v0.shape[0]} "
+            f"triangles ({FIELD_N}x{FIELD_N} instances of a grass card, "
+            f"{clear:.3f} of its texels clear), {tt.cl_min.shape[0]} "
+            f"clusters, {tt.sup_min.shape[0]} super-clusters, built in "
+            f"{build_s:.1f} s")
+        out["foliage"] = dict(
+            triangles=field.tri_v0.shape[0], build_s=build_s,
+            clear_texels=clear,
+            cutout=foliage_cutout(torch, rows, field, camera, cfg, card),
+            mips=foliage_mips(torch, rows, field, camera, cfg),
+            tri_clusters=foliage_triclusters(torch, field))
+        del field
+        out["ply"] = ply_round_trip(torch, tmpdir)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase scenes: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_run = time.perf_counter()
     card = phase_device()
@@ -3000,6 +3510,7 @@ def main() -> int:
                    ellipse=ellipse_phase(torch, rows, card))
     log(f"phases kbuffer, splat-trace, mixed, ellipse: "
         f"{time.perf_counter() - t0:.1f} s")
+    scenes = scenes_phase(torch, rows, card)
     tri = tri_phases(torch, rows)
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                 for r in rows))
@@ -3011,7 +3522,7 @@ def main() -> int:
                       "pairs": total, "max_pairs": mpairs,
                       "max_rows": mrows, "serving": serving,
                       "train": train, "fit": fit, "kbuffer": kbuffer,
-                      "tri": tri,
+                      "tri": tri, "scenes": scenes,
                       "wall_s": time.perf_counter() - t_run}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

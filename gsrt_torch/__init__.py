@@ -25,7 +25,12 @@ the packed-cluster traversal kernel; and the paper's k-buffer path —
 `GaussianRayTracer` in "reference" mode, free-ray and clustered splat
 tracing (`models.gaussian_rt.trace_gaussian_rays`, `ops.splat_clusters`)
 and splats inside path-traced scenes — with ellipse spans on the tiled
-path. ROADMAP.md lists what remains.
+path; and the rest of the triangle and scene stack — cylinders,
+Mandelbulbs, textures with mip pyramids, alpha cutouts, the tri-cluster
+traversal, foveated PT, the catalog's scenes, OBJ / MTL and splat `.ply`
+loaders (`scene.obj`, `scene.ply`, with the host library `native`),
+instancing (`scene.instancing`), the LBVH (`ops.bvh`) and the reference
+scenes (`scene.reference_scenes`). ROADMAP.md lists what remains.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

@@ -53,7 +53,7 @@ class Materials(NamedTuple):
     """Material table of the path tracer, `gsrt.core.types.Materials`'s
     fields and model constants: model ∈ {0 lambertian, 1 metallic,
     2 dielectric, 3 isotropic, 4 diffuse_light}; texture_id ≥ 0 indexes a
-    texture atlas (-1 = untextured; the port renders no textures yet)."""
+    texture atlas (-1 = untextured)."""
 
     model: torch.Tensor              # [M] int32
     diffuse: torch.Tensor            # [M, 3]

@@ -47,9 +47,9 @@ def scene_from_numpy(fields: dict, device=None) -> PrimitiveScene:
     NumPy: `fields` maps the scene's field names (sph_center, ..., tri_mat,
     and any of tri_uv0/1/2) to arrays and "materials" to a dict of the
     Materials fields. Integer fields stay int32, the rest become f32, so
-    both packages trace bit-identical geometry. Fields the port does not
-    render yet (textures, cylinders, ...) are passed on and make the
-    renders raise."""
+    both packages trace bit-identical geometry. Every field passes through:
+    textures, cutout masks, mip pyramids and texel densities, cylinders
+    and Mandelbulbs."""
     dev = resolve_device(device)
 
     def conv(a):

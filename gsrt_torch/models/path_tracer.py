@@ -1,34 +1,43 @@
-"""Wavefront path tracer over triangle, sphere and box scenes (counterpart
-of `gsrt.models.path_tracer`).
+"""Wavefront path tracer over mixed primitive scenes (counterpart of
+`gsrt.models.path_tracer`).
 
 All rays advance one bounce per step as dense [R] tensors with masked
 lanes; materials are evaluated for every lane and selected by mask. Three
 renders, as `gsrt cli bench` runs them: `render_path_traced` (PT),
-`render_shadow_rays` (SH) and `render_ambient_occlusion` (AO).
+`render_shadow_rays` (SH) and `render_ambient_occlusion` (AO); and
+`render_foveated`, PT with per-pixel sample counts by ring.
 
-Triangles go through the packed-cluster traversal (`ops.tri_kernel`, the
-CUDA kernel `csrc/tri_kernel.cu`) once `with_tri_table` has attached its
-table, else a brute-force Möller–Trumbore sweep. Bounce 0 of a pinhole
-camera over a triangle scene takes the screen-tile binned cast
-(`ops.tri_binning`, the CUDA kernel `csrc/tri_cast.cu`) when
-primary_impl is "auto" or "binned". Occlusion rays run the traversal in
-any-hit mode; bounce waves and AO rays are coherence sorted and retired
-rays parked outside the scene first.
+Spheres, boxes, capped y-axis cylinders and Mandelbulbs are swept brute
+force, in chunks of at most SWEEP_PAIRS (ray, primitive) pairs, so a
+scene of thousands of boxes fits the card; the first nearest primitive
+wins, as one `argmin` over all of them picks it. Triangles go through the
+packed-cluster traversal (`ops.tri_kernel`, the CUDA kernel
+`csrc/tri_kernel.cu`) once `with_tri_table` has attached its table, else
+the Morton-cluster bundle traversal once `with_tri_clusters` has attached
+its clusters (`ops.clusters`), else the chunked Möller–Trumbore sweep.
+Bounce 0 of a pinhole camera over a triangle scene without cutouts takes
+the screen-tile binned cast (`ops.tri_binning`, the CUDA kernel
+`csrc/tri_cast.cu`) when primary_impl is "auto" or "binned". Occlusion
+rays run the traversal in any-hit mode (cutouts ignored, as in the JAX
+package); bounce waves and AO rays are coherence sorted and retired rays
+parked outside the scene first.
+
+Materials may carry a texture (`textures`, sampled bilinearly at the
+hit's triangle texcoords or the sphere UV of its normal, or trilinearly
+by ray-cone LOD once `with_texture_mips` has attached a pyramid) and a
+cutout mask (`alpha_textures`): a PT hit whose alpha is below 0.5 is
+skipped by re-tracing past it, at most `max_skips` times.
 
 Random draws come from a `torch.Generator` seeded with `seed`, through
 `_uniform`, `_random_unit` and `_random_in_unit_disk`; the JAX package
 draws with `jax.random`, so the two packages' noise differs for the same
-seed. The JAX package's `lax.map` over samples and `fori_loop` over
-bounces are Python loops here.
+seed. The JAX package's `lax.map` over samples, `fori_loop` over bounces
+and `while_loop` over cutout skips are Python loops here.
 
 Splats share the scene with the primitives (`render_path_traced`'s
 `gaussians` or `gauss_clusters`): every bounce segment composites
 through them by the k-buffer passes of `models.gaussian_rt` or
 `ops.splat_clusters`.
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-cylinders, Mandelbulbs, textures and mips, alpha cutouts and the
-`tri_clusters` traversal.
 """
 
 from __future__ import annotations
@@ -36,21 +45,27 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, Materials
-from gsrt_torch.ops.primitives import (_dot, box_normal, ray_box,
+from gsrt_torch.ops.primitives import (_dot, _sqrt, box_normal, cylinder_normal,
+                                       mandelbulb_normal, ray_box,
+                                       ray_cylinder, ray_mandelbulb,
                                        ray_sphere, ray_triangle,
                                        sphere_normal, triangle_normal)
 
-_QUEUED = "ROADMAP.md Queue 1 item D"
+SWEEP_PAIRS = 1 << 25   # (ray, primitive) pairs a chunk of a sweep
 
 
 class PrimitiveScene(NamedTuple):
-    """Mixed-primitive scene, the JAX package's fields. The port renders
-    spheres, boxes and triangles (with optional per-corner texcoords);
-    the fields of what it does not render yet must be None."""
+    """Mixed-primitive scene, the JAX package's fields: spheres, boxes,
+    triangles (with optional per-corner texcoords), capped y-axis
+    cylinders and Mandelbulbs (None when absent), the material table, an
+    optional texture atlas [NT, TH, TW, 3] with cutout masks [NT, TH, TW],
+    and the acceleration structures and mip pyramid the `with_*`
+    functions attach."""
 
     sph_center: torch.Tensor   # [S, 3]
     sph_radius: torch.Tensor   # [S]
@@ -63,22 +78,22 @@ class PrimitiveScene(NamedTuple):
     tri_v2: torch.Tensor
     tri_mat: torch.Tensor      # [T]
     materials: Materials
-    textures: Optional[torch.Tensor] = None
-    alpha_textures: Optional[torch.Tensor] = None
+    textures: Optional[torch.Tensor] = None        # [NT, TH, TW, 3]
+    alpha_textures: Optional[torch.Tensor] = None  # [NT, TH, TW]
     tri_uv0: Optional[torch.Tensor] = None         # [T, 2]
     tri_uv1: Optional[torch.Tensor] = None
     tri_uv2: Optional[torch.Tensor] = None
-    tri_clusters: Optional[object] = None
+    tri_clusters: Optional[object] = None          # ops.clusters.TriClusters
     tri_table: Optional[object] = None             # ops.tri_kernel.TriTable
-    cyl_center: Optional[torch.Tensor] = None
-    cyl_radius: Optional[torch.Tensor] = None
-    cyl_half_h: Optional[torch.Tensor] = None
-    cyl_mat: Optional[torch.Tensor] = None
-    mnd_center: Optional[torch.Tensor] = None
-    mnd_radius: Optional[torch.Tensor] = None
-    mnd_mat: Optional[torch.Tensor] = None
-    tex_mips: Optional[torch.Tensor] = None
-    mat_texel: Optional[torch.Tensor] = None
+    cyl_center: Optional[torch.Tensor] = None      # [C, 3]
+    cyl_radius: Optional[torch.Tensor] = None      # [C]
+    cyl_half_h: Optional[torch.Tensor] = None      # [C]
+    cyl_mat: Optional[torch.Tensor] = None         # [C] int32
+    mnd_center: Optional[torch.Tensor] = None      # [M, 3]
+    mnd_radius: Optional[torch.Tensor] = None      # [M]
+    mnd_mat: Optional[torch.Tensor] = None         # [M] int32
+    tex_mips: Optional[torch.Tensor] = None        # [NT, TH, TW + TW//2, 3]
+    mat_texel: Optional[torch.Tensor] = None       # [n_mats] texels/unit
 
     @property
     def counts(self):
@@ -90,24 +105,80 @@ class PrimitiveScene(NamedTuple):
         return self.tri_v0.device
 
 
-def _check_ported(scene: PrimitiveScene) -> None:
-    """Raise for the parts of a scene the port does not render yet."""
-    parts = {"cylinders": scene.cyl_center, "Mandelbulbs": scene.mnd_center,
-             "textures": scene.textures, "texture mips": scene.tex_mips,
-             "alpha cutouts": scene.alpha_textures,
-             "tri_clusters traversal": scene.tri_clusters}
-    for name, field in parts.items():
-        if field is not None and (not isinstance(field, torch.Tensor)
-                                  or field.shape[0] > 0):
-            raise NotImplementedError(
-                f"gsrt_torch does not render {name} yet: see {_QUEUED}")
-
-
 def sphere_uv(normal):
     """Equirectangular UV of a unit surface normal."""
     u = 0.5 + torch.atan2(normal[:, 2], normal[:, 0]) / (2 * math.pi)
     v = 0.5 - torch.asin(torch.clamp(normal[:, 1], -1, 1)) / math.pi
     return torch.stack([u, v], -1)
+
+
+def sample_texture(textures, tex_id, uv):
+    """Bilinear atlas sample with clamp-to-edge addressing: textures [NT,
+    TH, TW, 3], tex_id [R] (-1 → white), uv [R, 2]."""
+    NT, TH, TW, _ = textures.shape
+    t = torch.clamp(tex_id, 0, NT - 1).long()
+    u = torch.clamp(uv[:, 0], 0.0, 1.0) * (TW - 1)
+    v = torch.clamp(uv[:, 1], 0.0, 1.0) * (TH - 1)
+    x0 = torch.floor(u).to(torch.int32).clamp_min(0)
+    y0 = torch.floor(v).to(torch.int32).clamp_min(0)
+    x1 = torch.clamp_max(x0 + 1, TW - 1)
+    y1 = torch.clamp_max(y0 + 1, TH - 1)
+    fx = (u - x0)[:, None]
+    fy = (v - y0)[:, None]
+    x0, y0, x1, y1 = x0.long(), y0.long(), x1.long(), y1.long()
+    c00, c01 = textures[t, y0, x0], textures[t, y0, x1]
+    c10, c11 = textures[t, y1, x0], textures[t, y1, x1]
+    col = ((1 - fy) * ((1 - fx) * c00 + fx * c01)
+           + fy * ((1 - fx) * c10 + fx * c11))
+    return torch.where((tex_id >= 0)[:, None], col, torch.ones_like(col))
+
+
+def with_tri_clusters(scene: PrimitiveScene, k: int = 64,
+                      sup: int = 8) -> PrimitiveScene:
+    """Attach the Morton-cluster bundle traversal's clusters of the
+    scene's triangles (`ops.clusters`); once per scene. Meshes under 2·k
+    triangles keep the brute-force sweep."""
+    from gsrt_torch.ops.clusters import build_tri_clusters
+    if scene.tri_v0.shape[0] < 2 * k:
+        return scene
+    return scene._replace(tri_clusters=build_tri_clusters(
+        scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_mat,
+        scene.tri_uv0, scene.tri_uv1, scene.tri_uv2, k=k, sup=sup))
+
+
+def with_texture_mips(scene: PrimitiveScene) -> PrimitiveScene:
+    """Attach a mip pyramid of the textures and each material's texel
+    density (the mean over its triangles) for ray-cone LOD sampling; once
+    per scene, a no-op without textures, texcoords or texture ids. The
+    densities are summed per material on the host in triangle order (f32,
+    `np.add.at`), as the JAX package's scatter-add sums them."""
+    if scene.textures is None or scene.tri_uv0 is None or \
+            scene.materials.texture_id is None:
+        return scene
+    from gsrt_torch.ops.mip import build_mip_atlas, triangle_texel_density
+    mip = build_mip_atlas(scene.textures)
+    dens = triangle_texel_density(
+        scene.tri_v0, scene.tri_v1, scene.tri_v2, scene.tri_uv0,
+        scene.tri_uv1, scene.tri_uv2, mip.base_w).cpu().numpy()
+    mat = scene.tri_mat.cpu().numpy()
+    n_mats = scene.materials.diffuse.shape[0]
+    cnt = np.zeros(n_mats, np.float32)
+    tot = np.zeros(n_mats, np.float32)
+    np.add.at(cnt, mat, np.float32(1.0))
+    np.add.at(tot, mat, dens)
+    mat_texel = tot / np.maximum(cnt, np.float32(1.0))
+    return scene._replace(tex_mips=mip.data, mat_texel=torch.as_tensor(
+        mat_texel, device=scene.device))
+
+
+def _mip_from_packed(data):
+    """The MipAtlas view of a packed pyramid: its base width is 2/3 of the
+    packed width, and every offset follows."""
+    from gsrt_torch.ops.mip import MipAtlas
+    th = data.shape[1]
+    tw = (data.shape[2] * 2) // 3
+    n_levels = 1 + max(min(th, tw).bit_length() - 1, 0)
+    return MipAtlas(data=data, n_levels=n_levels, base_h=th, base_w=tw)
 
 
 def with_tri_table(scene: PrimitiveScene,
@@ -119,15 +190,6 @@ def with_tri_table(scene: PrimitiveScene,
         return scene
     return scene._replace(tri_table=build_tri_table(
         scene.tri_v0, scene.tri_v1, scene.tri_v2))
-
-
-def _tri_uv(scene, i, u, v):
-    """Per-corner texcoords interpolated at barycentric (u, v), or None."""
-    if scene.tri_uv0 is None:
-        return None
-    w = 1.0 - u - v
-    return (w[:, None] * scene.tri_uv0[i] + u[:, None] * scene.tri_uv1[i]
-            + v[:, None] * scene.tri_uv2[i])
 
 
 def _cross(a, b):
@@ -149,15 +211,38 @@ def _barycentric(orig, dirn, v0, v1, v2):
     return u, v
 
 
+def _sweep(test, n: int, R: int):
+    """The nearest of n primitives for R rays, in chunks of at most
+    SWEEP_PAIRS (ray, primitive) pairs: test(s, e) → (t [R, e - s],
+    *fields [R, e - s]). Returns (i [R], [t, *fields] at i). Inside a
+    chunk `argmin` takes the first minimum; a later chunk replaces it only
+    where strictly nearer, so i is the unchunked argmin's."""
+    step = max(1, SWEEP_PAIRS // max(R, 1))
+    best = best_i = None
+    for s in range(0, n, step):
+        out = test(s, min(n, s + step))
+        k = out[0].argmin(-1)
+        got = [torch.gather(a, -1, k[:, None])[:, 0] for a in out]
+        if best is None:
+            best, best_i = got, k
+            continue
+        upd = got[0] < best[0]
+        best = [torch.where(upd, g, b) for g, b in zip(got, best)]
+        best_i = torch.where(upd, k + s, best_i)
+    return best_i, best
+
+
 def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
                  tri_override=None, any_hit: bool = False):
     """Nearest hit over every primitive type: (t [R], normal [R, 3],
-    mat_id [R], hit [R], uv [R, 2] or None, ovf [] bool). any_hit relaxes
-    the table traversal to occlusion (consume `hit` alone). ovf is the
-    traversal's visit-list truncation. tri_override = (t [R], tri_id [R])
-    from the binned primary cast replaces the triangle search; misses are
-    (3.4e38-class t, _ID_SENTINEL)."""
-    _check_ported(scene)
+    mat_id [R], hit [R], uv [R, 2] or None, ovf [] bool). uv is the
+    texcoord at the hit when the mesh has texcoords (the sphere UV of the
+    normal off triangles). any_hit relaxes the table traversal to
+    occlusion (consume `hit` alone). ovf is the traversal's visit-list
+    truncation. tri_override = (t [R], tri_id [R]) from the binned primary
+    cast replaces the triangle search; misses are (3.4e38-class t,
+    _ID_SENTINEL). Triangles take the first of tri_override, tri_table,
+    tri_clusters and the sweep that the scene has."""
     R = orig.shape[0]
     dev = orig.device
     best_t = torch.full((R,), float("inf"), device=dev)
@@ -167,43 +252,61 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
         if scene.tri_uv0 is not None else None
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
 
-    def take(ti, n, mat, uv):
+    def take(ti, n, mat, uv=None):
         nonlocal best_t, best_n, best_m, best_uv
         upd = ti < best_t
         best_t = torch.where(upd, ti, best_t)
         best_n = torch.where(upd[:, None], n, best_n)
         best_m = torch.where(upd, mat.to(torch.int32), best_m)
         if best_uv is not None:
-            best_uv = torch.where(upd[:, None], uv, best_uv)
+            best_uv = torch.where(upd[:, None],
+                                  sphere_uv(n) if uv is None else uv,
+                                  best_uv)
 
-    def nearest(t):
-        i = t.argmin(-1)
-        return torch.gather(t, -1, i[:, None])[:, 0], i
+    def nearest(fn, n):
+        i, (ti,) = _sweep(lambda s, e: (fn(slice(s, e)),), n, R)
+        return ti, i, orig + ti[:, None] * dirn
 
     if scene.sph_center.shape[0]:
-        ti, i = nearest(ray_sphere(orig, dirn, scene.sph_center,
-                                   scene.sph_radius, t_min, t_max))
-        n = sphere_normal(orig + ti[:, None] * dirn, scene.sph_center[i])
-        take(ti, n, scene.sph_mat[i], sphere_uv(n))
+        ti, i, hit_p = nearest(lambda c: ray_sphere(
+            orig, dirn, scene.sph_center[c], scene.sph_radius[c], t_min,
+            t_max), scene.sph_center.shape[0])
+        take(ti, sphere_normal(hit_p, scene.sph_center[i]),
+             scene.sph_mat[i])
     if scene.box_min.shape[0]:
-        ti, i = nearest(ray_box(orig, dirn, scene.box_min, scene.box_max,
-                                t_min, t_max))
-        n = box_normal(orig + ti[:, None] * dirn, scene.box_min[i],
-                       scene.box_max[i])
-        take(ti, n, scene.box_mat[i], sphere_uv(n))
+        ti, i, hit_p = nearest(lambda c: ray_box(
+            orig, dirn, scene.box_min[c], scene.box_max[c], t_min, t_max),
+            scene.box_min.shape[0])
+        take(ti, box_normal(hit_p, scene.box_min[i], scene.box_max[i]),
+             scene.box_mat[i])
+    if scene.cyl_center is not None and scene.cyl_center.shape[0]:
+        ti, i, hit_p = nearest(lambda c: ray_cylinder(
+            orig, dirn, scene.cyl_center[c], scene.cyl_radius[c],
+            scene.cyl_half_h[c], t_min, t_max), scene.cyl_center.shape[0])
+        take(ti, cylinder_normal(hit_p, scene.cyl_center[i],
+                                 scene.cyl_radius[i], scene.cyl_half_h[i]),
+             scene.cyl_mat[i])
+    if scene.mnd_center is not None and scene.mnd_center.shape[0]:
+        ti, i, hit_p = nearest(lambda c: ray_mandelbulb(
+            orig, dirn, scene.mnd_center[c], scene.mnd_radius[c], t_min,
+            t_max), scene.mnd_center.shape[0])
+        # the gradient at the centre-relative point, unscaled, as the
+        # march evaluates the estimate
+        take(ti, mandelbulb_normal(hit_p - scene.mnd_center[i]),
+             scene.mnd_mat[i])
 
-    def face_forward(i):
-        v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
-        n = triangle_normal(v0, v1, v2)
-        n = torch.where(_dot(n, dirn)[:, None] > 0, -n, n)
-        return v0, v1, v2, n
-
+    if not scene.tri_v0.shape[0]:
+        return best_t, best_n, best_m, torch.isfinite(best_t), best_uv, ovf
+    u = v = None
     if tri_override is not None:
         from gsrt_torch.ops.tri_binning import _ID_SENTINEL
         ti_raw, i = tri_override
         miss = i == _ID_SENTINEL
         i = torch.clamp_max(i, scene.tri_v0.shape[0] - 1).long()
         ti = torch.where(miss, torch.full_like(ti_raw, float("inf")), ti_raw)
+        v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
+        mat, uvs = scene.tri_mat[i], (scene.tri_uv0, scene.tri_uv1,
+                                      scene.tri_uv2)
     elif scene.tri_table is not None:
         from gsrt_torch.ops.tri_kernel import closest_hit_packed
         tt = scene.tri_table
@@ -211,29 +314,95 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
                                                any_hit=any_hit)
         ovf = ovf | plan.overflow
         i = tt.order[slot.long()].long()
-    elif scene.tri_v0.shape[0]:
-        t, u_all, v_all = ray_triangle(orig, dirn, scene.tri_v0,
-                                       scene.tri_v1, scene.tri_v2, t_min,
-                                       t_max)
-        ti, i = nearest(t)
-    if scene.tri_v0.shape[0]:
-        v0, v1, v2, n = face_forward(i)
-        uv = None
-        if best_uv is not None:
-            if tri_override is None and scene.tri_table is None:
-                u = torch.gather(u_all, -1, i[:, None])[:, 0]
-                v = torch.gather(v_all, -1, i[:, None])[:, 0]
-            else:
-                u, v = _barycentric(orig, dirn, v0, v1, v2)
-            uv = _tri_uv(scene, i, u, v)
-        take(ti, n, scene.tri_mat[i], uv)
+        v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
+        mat, uvs = scene.tri_mat[i], (scene.tri_uv0, scene.tri_uv1,
+                                      scene.tri_uv2)
+    elif scene.tri_clusters is not None:
+        from gsrt_torch.ops.clusters import closest_hit_tri_clusters
+        tc = scene.tri_clusters
+        ti, bc, bk, _, _, _ = closest_hit_tri_clusters(tc, orig, dirn,
+                                                       t_min, t_max)
+        i = (bc.long(), bk.long())
+        v0, v1, v2 = tc.v0[i], tc.v1[i], tc.v2[i]
+        mat, uvs = tc.mat[i], (tc.uv0, tc.uv1, tc.uv2)
+    else:
+        i, (ti, u, v) = _sweep(lambda s, e: ray_triangle(
+            orig, dirn, scene.tri_v0[s:e], scene.tri_v1[s:e],
+            scene.tri_v2[s:e], t_min, t_max), scene.tri_v0.shape[0], R)
+        v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
+        mat, uvs = scene.tri_mat[i], (scene.tri_uv0, scene.tri_uv1,
+                                      scene.tri_uv2)
+    n = triangle_normal(v0, v1, v2)
+    n = torch.where(_dot(n, dirn)[:, None] > 0, -n, n)     # face forward
+    uv = None
+    if best_uv is not None:
+        if u is None:
+            u, v = _barycentric(orig, dirn, v0, v1, v2)
+        w = 1.0 - u - v
+        uv = (w[:, None] * uvs[0][i] + u[:, None] * uvs[1][i]
+              + v[:, None] * uvs[2][i])
+    take(ti, n, mat, uv)
     return best_t, best_n, best_m, torch.isfinite(best_t), best_uv, ovf
 
 
-def _closest_hit_cutout(scene: PrimitiveScene, orig, dirn, t_min, t_max):
-    """Closest hit honouring alpha cutouts. Cutouts are not ported (a scene
-    with them raises in `_closest_hit`), so this is `_closest_hit`."""
-    return _closest_hit(scene, orig, dirn, t_min, t_max)
+def _sample_alpha(scene: PrimitiveScene, mat_id, normal, uv=None):
+    """Cutout alpha at the hit (1 = opaque), the nearest texel of the
+    material's mask at the hit's texcoords (the sphere UV of the normal
+    without them)."""
+    if scene.alpha_textures is None or scene.materials.texture_id is None:
+        return torch.ones(mat_id.shape[0], device=mat_id.device)
+    if uv is None:
+        uv = sphere_uv(normal)
+    NT, TH, TW = scene.alpha_textures.shape
+    tex_id = scene.materials.texture_id[mat_id.long()]
+    t = torch.clamp(tex_id, 0, NT - 1).long()
+    x = torch.clamp(uv[:, 0] * (TW - 1), 0, TW - 1).to(torch.int32)
+    y = torch.clamp(uv[:, 1] * (TH - 1), 0, TH - 1).to(torch.int32)
+    a = scene.alpha_textures[t, y.clamp_min(0).long(), x.clamp_min(0).long()]
+    return torch.where(tex_id >= 0, a, torch.ones_like(a))
+
+
+def _closest_hit_cutout(scene: PrimitiveScene, orig, dirn, t_min, t_max,
+                        max_skips: int = 3, retraced: list | None = None):
+    """Closest hit honouring alpha cutouts: a hit whose alpha is below 0.5
+    is skipped by tracing the ray again from t + 1e-3, every ray of the
+    bundle each time (as the JAX package's `while_loop`), at most
+    max_skips + 1 traces, ending early once every ray has settled. Rays
+    still cut after the last trace report no hit. `retraced`, where given,
+    receives the number of rays cut by each trace."""
+    if scene.alpha_textures is None:
+        return _closest_hit(scene, orig, dirn, t_min, t_max)
+    R = orig.shape[0]
+    dev = orig.device
+    tmin_cur = torch.as_tensor(t_min, dtype=torch.float32,
+                               device=dev).reshape(-1, 1).expand(R, 1)
+    bt = torch.full((R,), float("inf"), device=dev)
+    bn = torch.zeros((R, 3), device=dev)
+    bm = torch.zeros((R,), dtype=torch.int32, device=dev)
+    bhit = torch.zeros((R,), dtype=torch.bool, device=dev)
+    buv = torch.zeros((R, 2), device=dev)
+    done = torch.zeros((R,), dtype=torch.bool, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(max_skips + 1):
+        t, n, m, hit, uv, ovf_i = _closest_hit(scene, orig, dirn, tmin_cur,
+                                               t_max)
+        cut = hit & (_sample_alpha(scene, m, n, uv) < 0.5) & ~done
+        settle = ~done & ~cut
+        bt = torch.where(settle, t, bt)
+        bn = torch.where(settle[:, None], n, bn)
+        bm = torch.where(settle, m, bm)
+        bhit = torch.where(settle, hit, bhit)
+        if uv is not None:
+            buv = torch.where(settle[:, None], uv, buv)
+        done = done | settle
+        tmin_cur = torch.where(cut[:, None], t[:, None] + 1e-3, tmin_cur)
+        ovf = ovf | ovf_i
+        if retraced is not None:
+            retraced.append(int(cut.sum()))
+        if bool(done.all()):
+            break
+    return (bt, bn, bm, bhit & done,
+            buv if scene.tri_uv0 is not None else None, ovf)
 
 
 def _scene_sort_bounds(scene, gauss_clusters=None):
@@ -325,7 +494,7 @@ def _refract(d, n, eta):
     """glsl refract(); 0 on total internal reflection."""
     cos_i = -(d * n).sum(-1, keepdim=True)
     k = 1.0 - eta ** 2 * (1.0 - cos_i ** 2)
-    refr = eta * d + (eta * cos_i - torch.sqrt(torch.clamp_min(k, 0.0))) * n
+    refr = eta * d + (eta * cos_i - _sqrt(torch.clamp_min(k, 0.0))) * n
     return torch.where(k >= 0, refr, torch.zeros_like(refr))
 
 
@@ -344,14 +513,19 @@ def _sky(dirn, has_sky: bool):
     return sky if has_sky else torch.zeros_like(sky)
 
 
-def _scatter(gen, mats: Materials, mat_id, dirn, normal):
+def _scatter(gen, mats: Materials, mat_id, dirn, normal, hit_p=None,
+             tex_color=None):
     """All four scatter models evaluated dense and selected by material.
+    tex_color [R, 3] scales the diffuse albedo and tints glass; hit_p, the
+    hit points, is taken as the JAX package takes it (no model reads it).
     Returns (attenuation [R, 3], new_dir [R, 3], scattered [R],
     emitted [R])."""
     R = dirn.shape[0]
     mat_id = mat_id.long()
     model = mats.model[mat_id]
     diffuse = mats.diffuse[mat_id]
+    if tex_color is not None:
+        diffuse = diffuse * tex_color
     fuzz = mats.fuzziness[mat_id]
     ref_idx = mats.refraction_index[mat_id]
     # the JAX package's `jnp.linalg.norm(dirn, -1, keepdims=True)` passes
@@ -385,7 +559,8 @@ def _scatter(gen, mats: Materials, mat_id, dirn, normal):
     is_light = model == Materials.DIFFUSE_LIGHT
     new_dir = torch.where(is_lam, lam_dir, torch.where(
         is_met, met_dir, torch.where(is_die, die_dir, rand_unit)))
-    atten = torch.where(is_die, torch.ones_like(diffuse), diffuse)
+    atten = torch.where(is_die, torch.ones_like(diffuse)
+                        if tex_color is None else tex_color, diffuse)
     scattered = torch.where(is_lam[:, 0], lam_scattered, torch.where(
         is_met[:, 0], met_scattered, is_die[:, 0] | is_iso))
     return atten, new_dir, scattered & ~is_light, is_light
@@ -479,13 +654,18 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     gauss_s_max super-clusters a block). Every bounce segment, up to its
     surface hit, composites through them: their in-scatter is added and
     their transmittance scales the path's throughput, so splats are seen
-    by primary, reflected and refracted rays alike."""
+    by primary, reflected and refracted rays alike.
+
+    Textured materials scale their albedo by the texture at the hit:
+    trilinear at the ray-cone LOD of this segment (one pixel, 1/fy, wide)
+    once `with_texture_mips` has run, else bilinear at level 0. Cutouts
+    (`alpha_textures`) are skipped by `_closest_hit_cutout` on every
+    traced bounce; they rule out the binned primary cast."""
     from gsrt_torch.models.gaussian_rt import (unit_dirs,
                                                trace_gaussian_rays)
     from gsrt_torch.ops.sh import eval_sh
     from gsrt_torch.ops.splat_clusters import trace_gaussian_rays_clustered
 
-    _check_ported(scene)
     H, W = camera.height, camera.width
     R = H * W
     dev = scene.device
@@ -500,6 +680,13 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     if primary_impl == "binned" and aperture != 0.0:
         raise ValueError("the binned primary cast needs a shared ray origin "
                          "(aperture 0)")
+    if primary_impl == "binned" and scene.alpha_textures is not None:
+        raise ValueError("the binned primary cast runs no cutouts")
+    textured = (scene.textures is not None
+                and scene.materials.texture_id is not None)
+    mip = (_mip_from_packed(scene.tex_mips) if textured
+           and scene.tex_mips is not None and scene.mat_texel is not None
+           else None)
     sort_lo, sort_hi, park_o, park_d = (
         _scene_sort_bounds(scene, gauss_clusters) if sort_bounces
         else (None,) * 4)
@@ -531,7 +718,7 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
         for b in range(cfg.bounces):
             g = None
             if b == 0 and binning is not None:
-                t, n, mat, hit, _, ovf = _closest_hit(
+                t, n, mat, hit, uv, ovf = _closest_hit(
                     scene, orig, dirn, cfg.t_min, cfg.t_max,
                     tri_override=_cast(binning, camera, cfg, dirn))
                 if has_gauss:
@@ -542,14 +729,16 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
                 act_s = active[perm][:, None]
                 o_s = torch.where(act_s, orig[perm], park_o)
                 d_s = torch.where(act_s, dirn[perm], park_d)
-                t, n, mat, hit, _, ovf = _closest_hit_cutout(
+                t, n, mat, hit, uv, ovf = _closest_hit_cutout(
                     scene, o_s, d_s, cfg.t_min, cfg.t_max)
                 if has_gauss:
                     g_trans, g_color, g_ovf = gauss_segment(o_s, d_s, t, hit)
                     g = (g_trans[inv], g_color[inv], g_ovf)
                 t, n, mat, hit = t[inv], n[inv], mat[inv], hit[inv]
+                if uv is not None:
+                    uv = uv[inv]
             else:
-                t, n, mat, hit, _, ovf = _closest_hit_cutout(
+                t, n, mat, hit, uv, ovf = _closest_hit_cutout(
                     scene, orig, dirn, cfg.t_min, cfg.t_max)
                 if has_gauss:
                     g = gauss_segment(orig, dirn, t, hit)
@@ -568,15 +757,28 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
             miss_now = (active & ~hit)[:, None]
             out_color = out_color + torch.where(
                 miss_now, ray_color * _sky(dirn, cfg.has_sky), 0.0)
+            tex_color = None
+            if textured:
+                if uv is None:
+                    uv = sphere_uv(n)
+                tid = scene.materials.texture_id[mat.long()]
+                if mip is not None:
+                    from gsrt_torch.ops.mip import (ray_cone_lod,
+                                                    sample_texture_lod)
+                    lod = ray_cone_lod(t, 1.0 / camera.fy,
+                                       scene.mat_texel[mat.long()])
+                    tex_color = sample_texture_lod(mip, tid, uv, lod)
+                else:
+                    tex_color = sample_texture(scene.textures, tid, uv)
+            hit_p = orig + t[:, None] * dirn
             atten, new_dir, scattered, is_light = _scatter(
-                gen, scene.materials, mat, dirn, n)
+                gen, scene.materials, mat, dirn, n, hit_p, tex_color)
             light_now = (active & hit & is_light)[:, None]
             out_color = out_color + torch.where(
                 light_now, ray_color * scene.materials.diffuse[mat.long()],
                 0.0)
             ray_color = torch.where((active & hit)[:, None],
                                     ray_color * atten, ray_color)
-            hit_p = orig + t[:, None] * dirn
             orig = torch.where(hit[:, None], hit_p, orig)
             dirn = torch.where(hit[:, None], new_dir, dirn)
             active = active & hit & scattered
@@ -623,11 +825,39 @@ def render_path_traced_calibrated(scene: PrimitiveScene, camera: Camera,
         retries += 1
 
 
+def render_foveated(scene: PrimitiveScene, camera: Camera,
+                    cfg: RenderConfig, seed: int = 0, rings=(15, 40),
+                    ring_samples=(16, 8, 1), aperture: float = 0.0,
+                    focus: float = 1.0, **pt_kwargs):
+    """PT with a sample count per pixel by its distance r from the image
+    centre: ring_samples[0] within rings[0] px, [1] within rings[1] px,
+    [2] beyond. Renders max(ring_samples) one-sample images at seeds
+    seed·max_spp + s and averages each pixel's first spp of them; gamma,
+    where configured, applies after the average."""
+    H, W = camera.height, camera.width
+    dev = scene.device
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    r = torch.sqrt((xs - W / 2.0) ** 2 + (ys - H / 2.0) ** 2).to(torch.int32)
+    spp = torch.where(r > rings[1], ring_samples[2], torch.where(
+        r > rings[0], ring_samples[1], ring_samples[0])).reshape(-1)
+    max_spp = max(ring_samples)
+    acc = torch.zeros((H * W, 3), device=dev)
+    cfg1 = cfg.replace(samples=1, gamma_correction=False)
+    for s in range(max_spp):
+        img = render_path_traced(scene, camera, cfg1, seed=seed * max_spp + s,
+                                 aperture=aperture, focus=focus, **pt_kwargs)
+        acc = acc + torch.where((s < spp)[:, None], img.reshape(-1, 3), 0.0)
+    out = (acc / spp[:, None]).reshape(H, W, 3)
+    if cfg.gamma_correction:
+        out = torch.sqrt(torch.clamp(out, 0.0, 1.0))
+    return out
+
+
 def _primary(scene, camera, cfg, gen, primary_impl, tri_max_pairs,
              tri_span_exact):
     """The SH/AO primary segment: camera rays, their hits and the
     offset hit points; returns (dirn, n, mat, hit, hit_p, ovf, pairs_ovf)."""
-    _check_ported(scene)
     orig, dirn = generate_camera_rays(gen, camera, cfg)
     tri_ov = None
     pairs_ovf = torch.zeros((), dtype=torch.bool, device=orig.device)

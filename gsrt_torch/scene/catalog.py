@@ -44,12 +44,10 @@ def demo_gauss_splat(width: int = 16, height: int = 16, device=None):
     return cloud, camera
 
 
-def random_cloud(n: int, seed: int = 0, extent: float = 4.0,
-                 scale_range=(0.02, 0.25), sh_degree: int = 3,
-                 width: int = 800, height: int = 600, device=None):
-    """Synthetic Gaussian cloud in front of a 60° camera — the benchmark
-    workload (1M splats, scale_range (0.004, 0.03), 1920×1080)."""
-    dev = resolve_device(device)
+def random_cloud_params(n: int, seed: int = 0, extent: float = 4.0,
+                        scale_range=(0.02, 0.25), sh_degree: int = 3):
+    """random_cloud's NumPy draws: (centres [n, 3], quats [n, 4], scales
+    [n, 3], opacities [n], SH [n, K, 3]), as a splat file stores them."""
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
     centers[:, 2] += extent * 1.5  # keep in front of the camera
@@ -59,6 +57,17 @@ def random_cloud(n: int, seed: int = 0, extent: float = 4.0,
     K = (sh_degree + 1) ** 2
     sh = rng.normal(0.0, 0.3, (n, K, 3)).astype(np.float32)
     sh[:, 0, :] = rng.uniform(-1.5, 1.5, (n, 3))
+    return centers, quats, scales, opac, sh
+
+
+def random_cloud(n: int, seed: int = 0, extent: float = 4.0,
+                 scale_range=(0.02, 0.25), sh_degree: int = 3,
+                 width: int = 800, height: int = 600, device=None):
+    """Synthetic Gaussian cloud in front of a 60° camera — the benchmark
+    workload (1M splats, scale_range (0.004, 0.03), 1920×1080)."""
+    dev = resolve_device(device)
+    centers, quats, scales, opac, sh = random_cloud_params(
+        n, seed, extent, scale_range, sh_degree)
     t = lambda a: torch.as_tensor(a, device=dev)
     cloud = GaussianCloud(means=t(centers),
                           cov3d=quat_scale_to_cov3d(t(quats), t(scales)),

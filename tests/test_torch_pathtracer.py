@@ -419,27 +419,86 @@ def test_cornell_box_and_scene_from_numpy_match_jax(scenes):
     assert tbox.tri_mat.dtype == torch.int32
 
 
+def _with_part(scene, part, xp):
+    """The Cornell box with one more part, its arrays from NumPy through
+    `xp` (jnp.asarray or torch.as_tensor): a white cylinder on the floor,
+    a Mandelbulb 3 units before the camera (the estimate is unscaled, so
+    it fills the view there), a texture on the white material, the same
+    with a cutout mask (half clear), or tri-clusters."""
+    f32, i32 = (lambda a: xp(np.float32(a))), (lambda a: xp(np.int32(a)))
+    if part == "cyl_center":
+        return scene._replace(cyl_center=f32([[150, 100, -150]]),
+                              cyl_radius=f32([70]), cyl_half_h=f32([100]),
+                              cyl_mat=i32([2]))
+    if part == "mnd_center":
+        return scene._replace(mnd_center=f32([[278, 278, 797]]),
+                              mnd_radius=f32([1.25]), mnd_mat=i32([1]))
+    tex = np.random.default_rng(0).random((1, 8, 8, 3))
+    mats = scene.materials._replace(texture_id=i32([-1, -1, 0, -1]))
+    scene = scene._replace(textures=f32(tex), materials=mats)
+    if part == "alpha_textures":
+        return scene._replace(alpha_textures=f32(np.tri(8)[None]))
+    return scene
+
+
 @pytest.mark.parametrize("part", ["cyl_center", "mnd_center", "textures",
                                   "alpha_textures", "tri_clusters",
                                   "gaussians"])
 def test_unported_parts_raise(scenes, part):
-    """Each part of a scene the port does not render yet raises. Splats
-    ("gaussians") are ported: a cloud of opacity 0 in the Cornell box
-    leaves its path-traced render as it was (the mixed scenes are held
-    against the JAX package in tests/test_torch_splat_clusters.py)."""
-    _, ts, _, tcam = scenes["cornell"]
+    """Each part that once raised here renders as in the JAX package (the
+    name is kept from then): the Cornell box's SH render with a cylinder,
+    a Mandelbulb, a texture, a cutout mask or tri-clusters (k=4, sup=2:
+    the box has 12 triangles) added, pixels within atol 1e-4 outside
+    those whose binned primary triangle differs; with the Mandelbulb,
+    whose march may flip hit and miss at its silhouette, 99% of pixels.
+    Splats: a cloud of opacity 0 in the box's PT render (op by op, one
+    sample, 2 bounces) leaves it as the JAX package renders it, pixels
+    within atol 1e-4."""
+    jbox, tbox, jcam, tcam = scenes["cornell"]
     if part == "gaussians":
+        from gsrt.core.types import GaussianCloud as JCloud
         from gsrt_torch.core.types import GaussianCloud
-        cfg = RenderConfig(**dict(KW, samples=1, bounces=2))
-        cloud = GaussianCloud(means=torch.tensor([[278.0, 278.0, -200.0]]),
-                              cov3d=torch.tensor([[900.0, 0, 0, 900, 0,
-                                                   900]]),
-                              opacity=torch.zeros(1),
-                              sh=torch.ones((1, 1, 3)))
-        base = t_pt.render_path_traced(ts, tcam, cfg)
-        mixed = t_pt.render_path_traced(ts, tcam, cfg, gaussians=cloud)
-        assert torch.allclose(mixed, base, atol=1e-6)
+        kw = dict(KW, samples=1, bounces=2)
+        arrays = (np.float32([[278.0, 278.0, -200.0]]),
+                  np.float32([[900.0, 0, 0, 900, 0, 900]]),
+                  np.zeros(1, np.float32), np.ones((1, 1, 3), np.float32))
+        with jax.disable_jit():
+            want = np.asarray(j_pt.render_path_traced(
+                jbox, jcam, JCfg(**kw), gaussians=JCloud(*map(jnp.asarray,
+                                                              arrays)),
+                primary_impl="block"))
+        d, _ = _pt_draws(0, 1, 2, W * H)
+        with d.patch():
+            got = t_pt.render_path_traced(
+                tbox, tcam, RenderConfig(**kw),
+                gaussians=GaussianCloud(*map(_t, arrays)),
+                primary_impl="block")
+        assert d.done()
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scene = ts._replace(**{part: torch.zeros((1, 3))})
-        t_pt.render_shadow_rays(scene, tcam, RenderConfig(**KW), LIGHT)
+    if part == "tri_clusters":
+        js = j_pt.with_tri_clusters(jbox, k=4, sup=2)
+        ts = t_pt.with_tri_clusters(tbox, k=4, sup=2)
+        assert ts.tri_clusters is not None
+    else:
+        js, ts = _with_part(jbox, part, jnp.asarray), \
+            _with_part(tbox, part, _t)
+    call, draws = RENDERS["SH"]
+    want = np.asarray(call(j_pt, js, jcam, JCfg(**KW), interpret=True))
+    d, jitters = draws(KW)
+    cfg = RenderConfig(**KW)
+    with d.patch():
+        got, flags = call(t_pt, ts, tcam, cfg, return_flags=True)
+    assert d.done() and not any(bool(v) for v in flags.values())
+    got = got.numpy()
+    assert np.isfinite(got).all() and got.std() > 0.05
+    bad = _primary_id_mismatch((js, ts), (jcam, tcam), jitters, cfg)
+    assert bad.mean() <= 0.002
+    near = (np.abs(got - want) <= 1e-4).all(-1)
+    if part == "mnd_center":
+        assert near.mean() >= 0.99
+        # the bulb fills the view's centre
+        assert np.abs(got - np.asarray(call(j_pt, jbox, jcam, JCfg(**KW),
+                                            interpret=True))).max() > 0.1
+    else:
+        assert near[~bad].all()
