@@ -93,7 +93,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              1e-5), launch counts to 0 just before the fit and
              read just after; ms/step at the initial and the final N (CUDA
              events over 10 steps), each densify event's card and host ms
-             and N before and after, the largest live pair count of a step,
+             and N before and after, the largest live pair count of a step
+             (the buffer of 2^20 may not grow, in the fit or the probes),
              train and holdout PSNR; then one tiled step on the final
              cloud (padding rows included) with its kernels held against
              their plain versions (the copy expand bit for bit, the forward
@@ -209,7 +210,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
              against the brute-force sweep (t bit-equal, ids equal but at
              ties); the render cell's 1M splats through save_gaussian_ply
              and the native decode (means, SH bit-equal; opacity, Σ 1e-6)
-             and one render_tiled frame of them within 2e-2.
+             and one render_tiled frame of them within 2e-2;
+24. front-ends — after the triangle phases, each step one in-process
+             gsrt_torch.cli.main(argv) with launch counts set to 0 just
+             before and read just after: render of random1000000 at
+             1080p at the CLI's defaults (f32 payload, --expand-impl
+             pallas, the tile stream; its default scale_range) with
+             --out, --heatmap, --dump-binary and --stats: Q2.2 and the
+             f32 tile blend once a render, the PNG (the port's codec)
+             equal to to_uint8 of a direct GaussianRayTracer frame,
+             image.binary W·H·7 bytes, ms, Mrays/s, pairs, peak memory;
+             compare of that PNG with itself and with a save_png of the
+             direct frame (999 dB, SSIM 1.0); orbit at its defaults (24
+             frames, 90 degrees, serving) with --stats-out: one tile
+             blend a served frame and no group blend, then 2 frames with
+             --out-dir, decoded; pt on RTIOW at 640x480 equal to the
+             scenes phase's render; bench --primary binned (9 records,
+             the cast once a render of the Cornell box) and the lumibench
+             suite on a synthetic Bathroom tree of 20,000 soup
+             triangles (both traversal modes and the cast); fit on the
+             fit phase's capture (its targets written as PNGs) with
+             --iters 100 --densify-every 50 --save-ply: Q2.1, Q2.4 and
+             Q2.5 every step, PSNRs finite, the PLY read back; train
+             (render_fast, no kernel) with a falling loss; the viewer
+             from `view`'s arguments (960x540, random100000, port 0):
+             "tiled" with its first frame equal to a direct frame, w
+             moving the camera, the heatmap, bad input 400, then
+             "serving" under a key held 2 s, launches from the render
+             thread, stop() raising nothing; last python -m
+             gsrt_torch.bench as a subprocess, its one JSON line read,
+             beside gsrt_torch.bench.run() in this process. Each step's
+             own kernel inputs are held against the plain versions as
+             rows of the kernels line (`<kernel>[cli-render]`,
+             `[cli-orbit]`, `[cli-bench]`, `[lumibench]`, `[view]`,
+             `[view-serving]`): the last call of each wrapper from a
+             recorded rerun of the command (from the viewer's own run),
+             the expands bit for bit, the blends on every tile, every
+             traversal launch on every block; launches from the counted
+             run.
 
 The render workload is the JAX package's benchmark: random_cloud(1M, seed=0,
 scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig defaults.
@@ -382,18 +420,23 @@ def serving_orbit(device: str = DEVICE) -> list:
 
 
 class Recorder:
-    """Wraps a module function, keeping the arguments of every call and
-    the kernel launches each call made (`launches`, a dict a call)."""
+    """Wraps a module function, keeping the arguments of every call (of
+    the last only with last_only) and the kernel launches each call made
+    (`launches`, a dict a call)."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, last_only: bool = False):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
         self.calls, self.launches = [], []
+        self.last_only = last_only
 
     def __enter__(self):
         from gsrt_torch import _kernels
 
         def wrapped(*args, **kw):
+            if self.last_only:
+                self.calls.clear()
+                self.launches.clear()
             self.calls.append((args, kw))
             before = _kernels.launch_counts()
             out = self.orig(*args, **kw)
@@ -1327,6 +1370,15 @@ def fit_capture(tmpdir: str, device: str = DEVICE, sh_degree: int = 3):
     return cfg, vs, params, colmap.scene_extent(model), model
 
 
+def write_capture_images(capture_dir: str, model, vs) -> None:
+    """The capture's targets as 8-bit PNGs under capture_dir/images, named
+    as the model's images (the port's encoder)."""
+    from gsrt_torch.utils.image import save_png
+    os.makedirs(os.path.join(capture_dir, "images"), exist_ok=True)
+    for im, target in zip(model.images, vs.images):
+        save_png(os.path.join(capture_dir, "images", im.name), target)
+
+
 def fit_kw(extent: float) -> dict:
     """fit_views's arguments in the fit workload."""
     return dict(iters=FIT_ITERS, holdout=FIT_HOLDOUT,
@@ -1335,10 +1387,11 @@ def fit_kw(extent: float) -> dict:
                 max_splats=FIT_MAX_SPLATS, max_pairs=FIT_MAX_PAIRS, seed=SEED)
 
 
-def fit_phase(torch, rows, card: str) -> dict:
+def fit_phase(torch, rows, card: str, capture_dir: str) -> dict:
     """The fit phase (see the module docstring). Adds the fit's launches
-    to the rows of the kernels it runs; returns the fit figures."""
-    import tempfile
+    to the rows of the kernels it runs; returns the fit figures. The
+    capture (COLMAP model and the targets as PNGs) stays in capture_dir
+    for the front-ends phase's `cli fit`."""
     from gsrt_torch import _kernels
     from gsrt_torch.models import densify as dn
     from gsrt_torch.models import multiview as mv
@@ -1346,8 +1399,7 @@ def fit_phase(torch, rows, card: str) -> dict:
     from gsrt_torch.ops import tile_binning
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmpdir:
-        cfg, vs, params, extent, model = fit_capture(tmpdir, DEVICE)
+    cfg, vs, params, extent, model = fit_capture(capture_dir, DEVICE)
     torch.cuda.synchronize()
     train_idx, test_idx = mv.holdout_split(vs.n_views, FIT_HOLDOUT)
     n0 = params.means.shape[0]
@@ -1356,8 +1408,14 @@ def fit_phase(torch, rows, card: str) -> dict:
         f"holdout) from {FIT_GT} splats, {len(model.points)} SfM points, "
         f"scene extent {extent:.4f}, made in "
         f"{time.perf_counter() - t_phase:.2f} s")
+    t0 = time.perf_counter()
+    write_capture_images(capture_dir, model, vs)
+    log(f"phase fit: the targets written as PNGs for the front-ends phase "
+        f"in {time.perf_counter() - t0:.2f} s")
     psnr0 = mv.eval_psnr(params, vs, test_idx[:8], cfg)
-    step = mv.make_train_step_mv(cfg, 0.2, max_pairs=FIT_MAX_PAIRS)
+    growths = []
+    step = mv.make_train_step_mv(cfg, 0.2, max_pairs=FIT_MAX_PAIRS,
+                                 growths=growths)
 
     def probe(p) -> tuple[float, float]:
         """ms/step on the card's and the host's clocks over
@@ -1430,7 +1488,8 @@ def fit_phase(torch, rows, card: str) -> dict:
             f"{e['host_ms']:.3f} on the host's")
     log(f"phase fit: {card}: {FIT_ITERS} steps in {fit_s:.2f} s (train and "
         f"holdout PSNR included); largest live pair count of a step "
-        f"{max_pairs_seen} of max_pairs {FIT_MAX_PAIRS}; mean loss of the "
+        f"{max_pairs_seen} of max_pairs {FIT_MAX_PAIRS} (the buffer grew "
+        f"{len(rep.pair_growths)} times); mean loss of the "
         f"first {FIT_WINDOW} steps {first:.5f}, of the last {last:.5f}")
     log(f"phase fit: {card}: train PSNR {rep.train_psnr:.4f} dB, holdout "
         f"PSNR {rep.test_psnr:.4f} dB (initial cloud {psnr0:.4f} dB), "
@@ -1441,6 +1500,10 @@ def fit_phase(torch, rows, card: str) -> dict:
     log(f"phase fit: {card}: {ms1[0]:.4f} ms/step on the card's clock, "
         f"{ms1[1]:.4f} on the host's, at the final N {rep.n_splats}")
 
+    if rep.pair_growths or growths:
+        raise SystemExit(f"phase fit: the pair buffer of {FIT_MAX_PAIRS} "
+                         f"grew: {rep.pair_growths} in the fit, {growths} "
+                         f"in the probes")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise SystemExit("phase fit: non-finite loss")
     if not last < first:
@@ -1963,46 +2026,9 @@ def ellipse_phase(torch, rows, card: str) -> dict:
         rows[-1]["at"] = f"{tuple(tab.shape)} -> {n}"
 
     # the tile blend on the ellipse payload
-    ntx, nty = tile_binning.tile_extent(W, H, cfg.tile_w, cfg.tile_h)
-    T, npx = ntx * nty, cfg.tile_w * cfg.tile_h
-    plain_keys = ("width", "height", "sub_w", "sub_h", "bs", "chunk",
-                  "g_cutoff", "alpha_threshold", "alpha_clamp", "term_eps",
-                  "skip_range_check", "use_exp_lut")
-    stats = {}
-    t0 = time.perf_counter()
-    cp, tp, _, _ = splat_packed.blend_packed_tile_plain(
-        binning, stats=stats,
-        **{k: blend_kw[k] for k in plain_keys if k in blend_kw})
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    run = lambda: splat_packed.blend_packed(binning, **blend_kw)
-    ck, tk = run()[:2]
-    torch.cuda.synchronize()
-    berr = max_abs_err(ck - cp, tk - tp)
-    blended = stats["pairs_blended"]
-    if not berr <= 2e-3:
-        raise SystemExit(f"phase ellipse: the tile blend differs from its "
-                         f"plain version by {berr}")
-    t_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * blended / F32_FLOPS
-    t_bytes = (4 * (tile_binning.COMPACT_WIDTH * blended + T + 1)
-               + 16 * W * H) / HBM_BYTES_PER_S
-    info = blend_kernel_info("tile", blend_kw, npx)
-    rows.append(dict(
-        name="blend_packed_tile[ellipse]", route="cuda", source=BLEND_SRC,
-        replaces=BLEND_TPU, launches=counts["blend_packed_tile"],
-        max_abs_err=berr, ms=time_cuda(run, 10), plain_ms=plain_s * 1e3,
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, **blend_floor(stats, info, max_sm_clock_hz()),
-        build=info))
-    row = rows[-1]
-    floor = row["instruction_floor_ms"]
-    log(f"phase ellipse: blend_packed_tile[ellipse]: max |kernel - plain| "
-        f"{berr:.3e} (atol 2e-3), {blended} pairs blended of {pairs}; row "
-        f"cull {row['culled_share']:.4f}; kernel {row['ms']:.4f} ms, plain "
-        f"{plain_s * 1e3:.1f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}), instruction floor "
-        + (f"{floor:.4f} ms" if floor else "not measured"))
+    rows.append(tile_blend_row(torch, "blend_packed_tile[ellipse]", binning,
+                               blend_kw, counts["blend_packed_tile"],
+                               "ellipse"))
     return dict(frame_ms=frame_ms, rect_frame_ms=rect_ms, pairs=pairs,
                 rect_pairs=rpairs, tile_rows=n_rows, max_rows=tracer.max_rows,
                 max_pairs=tracer.max_pairs, max_abs_err_vs_rect=err,
@@ -2812,7 +2838,9 @@ def catalog_renders(torch) -> dict:
     """The catalog's scenes, PT at 1 spp and 16 bounces with each
     factory's aperture, focus, sky and gamma, twice with one seed (bit for
     bit), launch counts read around the first: only `simple` has
-    triangles (its binned cast and the binning's expand, once each)."""
+    triangles (its binned cast and the binning's expand, once each).
+    RTIOW's entry keeps its render on the host ("image") for the
+    front-ends phase."""
     from gsrt_torch import RenderConfig, _kernels
     from gsrt_torch.models import path_tracer as pt
     from gsrt_torch.scene import primitives_catalog as cat
@@ -2849,6 +2877,8 @@ def catalog_renders(torch) -> dict:
         out[name] = dict(width=w, height=h, ms=ms, again_ms=ms2,
                          host_ms=host_ms, peak_mib=peak, launches=counts,
                          mean=img.mean().item(), counts=scene.counts)
+        if name == "rtiow":
+            out[name]["image"] = img.cpu()
         del scene, img, again
     return out
 
@@ -3255,6 +3285,706 @@ def scenes_phase(torch, rows, card: str) -> dict:
     return out
 
 
+# the front-ends phase: the CLI's subcommands in the process, the viewer,
+# and `python -m gsrt_torch.bench` as a subprocess
+FE_SOUP = 20_000        # triangles of the lumibench step's synthetic tree
+FE_FIT_ITERS, FE_FIT_DENSIFY = 100, 50
+FE_TRAIN_ITERS = 50
+FE_HOLD_S = 2.0         # seconds the serving viewer's key is held
+
+
+def run_cli(torch, argv: list) -> tuple:
+    """(stdout, launch counts, wall s, peak MiB) of one in-process
+    `gsrt_torch.cli.main(argv)`, counts set to 0 just before and read just
+    after; fails on a non-zero exit code."""
+    import contextlib
+    import io
+    from gsrt_torch import _kernels, cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if rc != 0:
+        raise SystemExit(f"phase front-ends: cli {' '.join(argv)} exited "
+                         f"with {rc}")
+    return buf.getvalue(), counts, wall, peak
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def fe_check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SystemExit(f"phase front-ends: {msg}")
+
+
+def record_cli(argv: list, wrappers: tuple) -> list:
+    """Runs `gsrt_torch.cli.main(argv)` once more, its output dropped,
+    with a Recorder around each (module, name) of `wrappers` (the last
+    call of each, every call of the traversal): the calls the front-ends
+    rows hold. The counted run stays free of recorders, whose kept
+    arguments would add to its peak memory."""
+    import contextlib
+    import io
+    from gsrt_torch import cli
+    with contextlib.ExitStack() as stack:
+        recs = [stack.enter_context(Recorder(
+            m, n, last_only=n != "closest_hit_packed")) for m, n in wrappers]
+        stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        fe_check(cli.main(argv) == 0, f"cli {' '.join(argv)} failed when "
+                 f"recorded")
+    return recs
+
+
+def keyword_defaults(fn) -> dict:
+    import inspect
+    return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+            if p.kind == p.KEYWORD_ONLY}
+
+
+TILE_PLAIN_KEYS = ("width", "height", "sub_w", "sub_h", "bs", "chunk",
+                   "g_cutoff", "alpha_threshold", "alpha_clamp", "term_eps",
+                   "skip_range_check", "use_exp_lut")
+
+
+def tile_blend_row(torch, name, binning, kw, launches, phase) -> dict:
+    """The tile-stream blend (Q2.3) on one recorded call against its plain
+    version, every tile: color and trans within 2e-3, consumed equal where
+    the call tracks it, hits equal on the f32 payload (at most 1 apart on
+    at most 0.1% of pixels on the compact one); the row with the kernel's
+    time on the call, the plain version's, the bound from the pairs the
+    tiles blend and the instruction floor."""
+    from gsrt_torch.ops import splat_packed, tile_binning
+    kw = {**keyword_defaults(splat_packed.blend_packed), **kw}
+    W, H, npx = kw["width"], kw["height"], kw["sub_w"] * kw["sub_h"]
+    ntx, nty = tile_binning.tile_extent(W, H, kw["sub_w"], kw["sub_h"])
+    T = ntx * nty
+    compact = binning.payload.shape[0] == tile_binning.COMPACT_WIDTH
+    stats = {}
+    t0 = time.perf_counter()
+    cp, tp, consp, hp = splat_packed.blend_packed_tile_plain(
+        binning, stats=stats, **{k: kw[k] for k in TILE_PLAIN_KEYS})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    run = lambda: splat_packed.blend_packed(binning, **kw)
+    out = run()
+    torch.cuda.synchronize()
+    err = max_abs_err(out[0] - cp, out[1] - tp)
+    ok, msg = err <= 2e-3, ""
+    if kw["track_consumed"]:
+        same = torch.equal(out[2], consp)
+        ok, msg = ok and same, f", consumed equal {same}"
+    if kw["track_hits"]:
+        d = (out[-1] - hp).abs()
+        off = int((d != 0).sum())
+        ok = ok and (d.max().item() <= 1 and off <= 1e-3 * d.numel()
+                     if compact else off == 0)
+        msg += f", hits differ at {off} px"
+    blended = stats["pairs_blended"]
+    log(f"phase {phase}: {name}: max |kernel - plain| {err:.3e} (atol "
+        f"2e-3){msg}, {blended} pairs blended of {int(binning.total_pairs)}")
+    if not ok:
+        raise SystemExit(f"phase {phase}: {name} differs from its plain "
+                         f"version")
+    t_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * blended / F32_FLOPS
+    t_bytes = (4 * (binning.payload.shape[0] * blended + T + 1
+                    + (consp.numel() if kw["track_consumed"] else 0))
+               + (20 if kw["track_hits"] else 16) * W * H) / HBM_BYTES_PER_S
+    info = blend_kernel_info("tile" if compact else "tile_f32", kw, npx)
+    row = dict(
+        name=name, route="cuda", source=BLEND_SRC, replaces=BLEND_TPU,
+        launches=launches, max_abs_err=err, ms=time_cuda(run, 10),
+        plain_ms=plain_s * 1e3, bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, **blend_floor(stats, info, max_sm_clock_hz()),
+        build=info)
+    floor = row["instruction_floor_ms"]
+    log(f"phase {phase}: {name}: row cull {row['culled_share']:.4f}; "
+        f"kernel {row['ms']:.4f} ms, plain {plain_s * 1e3:.1f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), instruction floor "
+        + (f"{floor:.4f} ms" if floor else "not measured"))
+    return row
+
+
+def group_blend_rows(torch, tag, binning, kw, counts, phase) -> list:
+    """The group stream's partition (bit for bit) and blend (color and
+    trans within 2e-3, hits at most 1 apart on at most 0.1% of pixels) on
+    one recorded call against their plain versions, every tile: the rows
+    partition_group_stream[tag] and blend_packed_group[tag], the blend
+    timed on the partition's lists as phase blend times it."""
+    from gsrt_torch.ops import splat_packed, tile_binning
+    kw = {**keyword_defaults(splat_packed.blend_packed), **kw}
+    W, H, bs = kw["width"], kw["height"], kw["bs"]
+    ntx, nty = tile_binning.tile_extent(W, H, kw["sub_w"], kw["sub_h"])
+    T, npx = ntx * nty, kw["sub_w"] * kw["sub_h"]
+    t0 = time.perf_counter()
+    order_p, seg_p = splat_packed.partition_group_stream_plain(
+        binning.payload[4], binning.tile_start, T, bs)
+    torch.cuda.synchronize()
+    part_plain_s = time.perf_counter() - t0
+    part = lambda: splat_packed.partition_group_stream(binning, T, bs)
+    order_k, seg_k = part()
+    torch.cuda.synchronize()
+    n_cols = int(seg_p[T])
+    if not (torch.equal(seg_k, seg_p)
+            and torch.equal(order_k[:n_cols], order_p[:n_cols])):
+        raise SystemExit(f"phase {phase}: partition_group_stream[{tag}] "
+                         f"differs from its plain version")
+    rows = [dict(
+        name=f"partition_group_stream[{tag}]", route="cuda",
+        source=BLEND_SRC, replaces=BLEND_TPU,
+        launches=counts.get("partition_group_stream", 0), max_abs_err=0.0,
+        ms=time_cuda(part, 20), plain_ms=part_plain_s * 1e3,
+        bound_ms=4 * (2 * n_cols + 2 * (T + 1)) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=time_cuda(lambda: torch.sort(
+            binning.payload[4, :n_cols], stable=True), 10))]
+    stats = {}
+    plain_kw = {k: kw[k] for k in TILE_PLAIN_KEYS if k != "chunk"}
+    t0 = time.perf_counter()
+    cp, tp, hp = splat_packed.blend_packed_plain(
+        binning, stats=stats, track_hits=True, **plain_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ck, tk, hk = splat_packed.blend_packed(binning,
+                                           **{**kw, "track_hits": True})
+    torch.cuda.synchronize()
+    err = max_abs_err(ck - cp, tk - tp)
+    hd = (hk - hp).abs()
+    hits_off = int((hd != 0).sum())
+    total = int(binning.total_pairs)
+    log(f"phase {phase}: partition_group_stream[{tag}] of {n_cols} columns "
+        f"into {T} tile lists bitwise equal; blend_packed_group[{tag}]: max "
+        f"|kernel - plain| {err:.3e} (atol 2e-3), hits differ at "
+        f"{hits_off} px, {stats['pairs_blended']} pairs blended of {total}")
+    if not (err <= 2e-3 and hd.max().item() <= 1
+            and hits_off <= 1e-3 * hd.numel()):
+        raise SystemExit(f"phase {phase}: blend_packed_group[{tag}] differs "
+                         f"from its plain version")
+    info = blend_kernel_info("group", kw, npx)
+    t_ops = BLEND_FLOPS_PER_PAIR_PIXEL * npx * stats["pairs_blended"] \
+        / F32_FLOPS
+    t_bytes = (4 * (tile_binning.COMPACT_WIDTH * total
+                    + binning.tile_start.numel()) + 16 * W * H) \
+        / HBM_BYTES_PER_S
+    with Replaced(splat_packed, "partition_group_stream",
+                  lambda *a: (order_k, seg_k)):
+        ms = time_cuda(lambda: splat_packed.blend_packed(binning, **kw), 10)
+    rows.append(dict(
+        name=f"blend_packed_group[{tag}]", route="cuda", source=BLEND_SRC,
+        replaces=BLEND_TPU, launches=counts.get("blend_packed_group", 0),
+        max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None, **blend_floor(stats, info, max_sm_clock_hz()),
+        hits_differing=hits_off, build=info))
+    log(f"phase {phase}: partition_group_stream[{tag}] "
+        f"{rows[0]['ms']:.4f} ms (plain {rows[0]['plain_ms']:.1f} ms); "
+        f"blend_packed_group[{tag}] {ms:.4f} ms, plain "
+        f"{plain_s * 1e3:.1f} ms, bound {rows[1]['bound_ms']:.4f} ms "
+        f"({rows[1]['bound_by']})")
+    return rows
+
+
+def fe_held_rows(torch, rows, recs, tag: str, counts: dict, at: str):
+    """Rows `<kernel>[tag]` of the kernels line: the last recorded call of
+    each wrapper held to its plain version (the expands bit for bit, the
+    blends every tile), every recorded traversal launch held bit for bit
+    and its last launch of each mode a row; launches are the step's
+    counted run's."""
+    from gsrt_torch.ops import pair_expand
+    new = []
+    for rec in recs:
+        fe_check(rec.calls, f"{tag}: no call of {rec.name} recorded")
+        args, kw = rec.calls[-1]
+        if rec.name.startswith("expand_pairs"):
+            tab, base, mp = args
+            n, name = tab.shape[1], f"{rec.name}[{tag}]"
+            fn = getattr(pair_expand, rec.name)
+            if rec.name == "expand_pairs_binned":
+                new.append(expand_row(
+                    name, EXPAND_TPU, lambda: fn(tab, base, mp, **kw),
+                    lambda: pair_expand.expand_pairs_binned_plain(
+                        tab, base, mp, **kw), None, counts.get(rec.name, 0),
+                    4 * (pair_expand.EMIT_ROWS * mp
+                         + pair_expand.EMIT_TAB_ROWS * n + n),
+                    phase="front-ends"))
+            else:
+                new.append(expand_row(
+                    name, GATHER_TPU if rec.name == "expand_pairs"
+                    else EXPAND_TPU, lambda: fn(tab, base, mp),
+                    lambda: pair_expand.expand_pairs_plain(tab, base, mp),
+                    lambda: tab.index_select(
+                        1, pair_expand.source_index(base, mp)),
+                    counts.get(rec.name, 0),
+                    4 * (tab.shape[0] * (mp + n) + n), phase="front-ends"))
+        elif rec.name == "blend_packed" and kw.get("group_stream", True):
+            new += group_blend_rows(torch, tag, args[0], kw, counts,
+                                    "front-ends")
+        elif rec.name == "blend_packed":
+            new.append(tile_blend_row(
+                torch, f"blend_packed_tile[{tag}]", args[0], kw,
+                counts.get("blend_packed_tile", 0), "front-ends"))
+        elif rec.name == "cast_primary":
+            new.append(cast_row(torch, f"cast_primary[{tag}]", *args, kw,
+                                max_sm_clock_hz(), phase="front-ends"))
+            new[-1]["launches"] = counts.get("cast_primary", 0)
+        else:                                   # closest_hit_packed
+            held = held_launches(torch, rec.calls, stride=1,
+                                 phase="front-ends")
+            log(f"phase front-ends: {tag}: all {held['held']} traversal "
+                f"launches equal their plain version bit for bit (t, "
+                f"slots, visits) on every block ({held['rays_held']} rays)")
+            for key, any_hit in (("closest_hit_packed", False),
+                                 ("closest_hit_packed_any", True)):
+                calls = [c for c in rec.calls
+                         if c[1].get("any_hit", False) == any_hit]
+                if calls:
+                    (tt, *a), k = calls[-1]
+                    new.append(traverse_row(
+                        torch, f"{key}[{tag}]", tt, tuple(a), k,
+                        traverse_kernel_info(RB), max_sm_clock_hz()))
+                    new[-1].update(launches=counts.get(key, 0), held=held)
+    for row in new:
+        row["at"] = at
+    rows += new
+    return [row["name"] for row in new]
+
+
+def fe_render(torch, rows, tmp: str) -> dict:
+    """cli render of random1000000 at 1080p at the CLI's defaults (f32
+    payload, --expand-impl pallas, the tile stream) with --out, --heatmap,
+    --dump-binary and --stats, then cli compare of its PNG; its expand
+    and tile blend held to their plain versions (rows [cli-render])."""
+    import numpy as np
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import pair_expand, splat_packed
+    from gsrt_torch.scene import random_cloud
+    from gsrt_torch.utils.image import read_png, save_png, to_uint8
+    png, heat, dump = (os.path.join(tmp, f) for f in
+                       ("render.png", "heat.png", "render.bin"))
+    argv = ["render", "--scene", f"random{SPLATS}", "--width", str(WIDTH),
+            "--height", str(HEIGHT), "--out", png, "--heatmap", heat,
+            "--dump-binary", dump, "--stats"]
+    text, counts, wall, peak = run_cli(torch, argv)
+    stats = json_lines(text)[0]
+    # the same frame directly: the CLI's configuration and cloud
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, conic_mode="standard",
+                       expand_impl="pallas", payload="f32", scan_impl="roll")
+    cloud, camera = random_cloud(SPLATS, width=WIDTH, height=HEIGHT,
+                                 device=DEVICE)
+    direct = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)(cloud,
+                                                                camera)
+    pairs = int(grt.count_pairs(cloud, camera, cfg))
+    want = to_uint8(direct.color)
+    got = read_png(png)
+    size = os.path.getsize(dump)
+    log(f"phase front-ends: render {WIDTH}x{HEIGHT} random{SPLATS} (CLI "
+        f"defaults, scale_range (0.02, 0.25)): {pairs} pairs, "
+        f"{stats['frame_time_s'] * 1e3:.3f} ms/frame, "
+        f"{stats['mrays_per_s']:.3f} Mrays/s, peak {peak:.0f} MiB, "
+        f"overflow {stats['overflow']}, command {wall:.2f} s; launches "
+        f"{counts}; PNG equal to a direct frame {np.array_equal(got, want)}"
+        f"; image.binary {size} bytes")
+    fe_check(counts.get("expand_pairs", 0) == 2
+             and counts.get("blend_packed_tile", 0) == 2
+             and not counts.get("blend_packed_group"),
+             f"render launched {counts}: want Q2.2 and the f32 tile blend "
+             f"once a render (warm and timed)")
+    fe_check(np.array_equal(got, want), "the render's PNG differs from a "
+             "direct frame")
+    fe_check(size == WIDTH * HEIGHT * 7, f"image.binary is {size} bytes")
+    fe_check(read_png(heat).shape == (HEIGHT, WIDTH, 3)
+             and not stats["overflow"] and stats["n_splats"] == SPLATS,
+             f"heatmap or stats off: {stats}")
+    direct_png = os.path.join(tmp, "direct.png")
+    save_png(direct_png, direct.color)
+    cmp = {}
+    for name, b in (("self", png), ("direct", direct_png)):
+        text, _, cwall, _ = run_cli(torch, ["compare", png, b])
+        cmp[name] = json_lines(text)[-1]
+        fe_check(cmp[name] == {"psnr_db": 999.0, "ssim": 1.0},
+                 f"compare with {name}: {cmp[name]}")
+    log(f"phase front-ends: compare with itself {cmp['self']}, with a "
+        f"save_png of the direct frame {cmp['direct']} ({cwall:.2f} s)")
+    del cloud, direct
+    held = fe_held_rows(torch, rows, record_cli(argv, (
+        (pair_expand, "expand_pairs"), (splat_packed, "blend_packed"))),
+        "cli-render", counts, f"cli render at its defaults: random{SPLATS}"
+        f" (scale_range (0.02, 0.25)), {WIDTH}x{HEIGHT}, {pairs} pairs")
+    return dict(pairs=pairs, held_rows=held, ms=stats["frame_time_s"] * 1e3,
+                mrays_per_s=stats["mrays_per_s"], peak_mib=peak,
+                launches=counts, wall_s=wall, compare=cmp)
+
+
+def fe_orbit(torch, rows, tmp: str, serving: dict) -> dict:
+    """cli orbit at its defaults (1080p, random1000000 at bench.py's
+    scales, 24 frames over 90 degrees, serving) with --stats-out, its last
+    frame's expand and tile blend held (rows [cli-orbit]); then 2 frames
+    with --out-dir."""
+    from gsrt_torch.ops import pair_expand, splat_packed
+    from gsrt_torch.utils.image import read_png
+    st_path = os.path.join(tmp, "orbit.json")
+    argv = ["orbit", "--stats-out", st_path]
+    text, counts, wall, peak = run_cli(torch, argv)
+    rec = json_lines(text)[-1]
+    with open(st_path) as f:
+        per_frame = json.load(f)
+    served = rec["frames"] + rec["full_renders"]
+    log(f"phase front-ends: orbit {rec['frames']} frames: steady "
+        f"{rec['steady_ms']} ms/frame (the serving phase's served "
+        f"{serving['served_ms']:.3f} ms on the card's clock, "
+        f"{serving['served_host_ms']:.3f} on the host's), "
+        f"{rec['ms_per_frame']} ms/frame over the path, violations "
+        f"{rec['violations']}, re-renders {rec['full_renders']}, pairs "
+        f"{rec['pairs_first']} -> {rec['pairs_last']}, peak {peak:.0f} "
+        f"MiB; launches {counts}")
+    fe_check(len(per_frame) == rec["frames"] == 24 and rec["serving"],
+             f"orbit record {rec}")
+    fe_check(counts.get("blend_packed_tile") == served
+             and not counts.get("blend_packed_group")
+             and not counts.get("partition_group_stream"),
+             f"orbit launched {counts}: want one tile blend a served frame "
+             f"({served}) and no group blend")
+    held = fe_held_rows(torch, rows, record_cli(argv, (
+        (pair_expand, "expand_pairs_fused"), (splat_packed, "blend_packed"))),
+        "cli-orbit", counts, f"cli orbit at its defaults: the last of "
+        f"{rec['frames']} served frames of random{SPLATS} at bench.py's "
+        f"scales, {WIDTH}x{HEIGHT}")
+    out_dir = os.path.join(tmp, "orbit")
+    run_cli(torch, ["orbit", "--frames", "2", "--out-dir", out_dir])
+    shapes = [read_png(os.path.join(out_dir, f"frame_{i:04d}.png")).shape
+              for i in range(2)]
+    fe_check(shapes == [(HEIGHT, WIDTH, 3)] * 2, f"orbit frames {shapes}")
+    return dict(record=rec, launches=counts, wall_s=wall, peak_mib=peak,
+                frames_written=len(shapes), held_rows=held)
+
+
+def fe_pt(torch, tmp: str, rtiow) -> dict:
+    """cli pt --scene rtiow at 640x480 (1 spp, 16 bounces) against the
+    scenes phase's RTIOW render (the same scene, configuration and
+    seed)."""
+    import numpy as np
+    from gsrt_torch.utils.image import read_png, to_uint8
+    png = os.path.join(tmp, "pt.png")
+    text, counts, wall, peak = run_cli(torch, [
+        "pt", "--scene", "rtiow", "--width", "640", "--height", "480",
+        "--out", png])
+    same = np.array_equal(read_png(png), to_uint8(rtiow))
+    log(f"phase front-ends: pt rtiow 640x480: {text.splitlines()[0]}, "
+        f"peak {peak:.0f} MiB, launches {counts}; PNG equal to the scenes "
+        f"phase's render {same}")
+    fe_check(same, "pt's PNG differs from render_path_traced's")
+    return dict(line=text.splitlines()[0], launches=counts, wall_s=wall)
+
+
+def write_soup_tree(root: str) -> None:
+    """A reference tree holding one directory scene, Bathroom: FE_SOUP
+    triangles of tools/tri_bench.py's generator (sd 0.05) as an OBJ file,
+    seen from (0, 0, -7) through a .camera file."""
+    import numpy as np
+    path = os.path.join(root, "Scenes", "Bathroom")
+    os.makedirs(path)
+    v = np.stack(tri_soup(FE_SOUP, SOUP_SD, SEED), 1).reshape(-1, 3)
+    with open(os.path.join(path, "soup.obj"), "w") as f:
+        f.write("".join(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v))
+        f.write("".join(f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}\n"
+                        for i in range(FE_SOUP)))
+    with open(os.path.join(path, "view.camera"), "w") as f:
+        f.write("0 0 -7 0 0 0\n")
+
+
+def fe_bench(torch, rows, tmp: str) -> dict:
+    """cli bench --primary binned: the synthetic suite at the CLI's
+    128x128 (9 records), then the lumibench suite on a synthetic tree
+    (GSRT_REFERENCE_ROOT's layout), whose soup has the traversal table;
+    each suite's last cast and expand and lumibench's traversal held
+    (rows [cli-bench], [lumibench])."""
+    from gsrt_torch.ops import tri_binning, tri_kernel
+    from gsrt_torch.scene import reference_scenes
+    cast = ((tri_binning, "expand_pairs_fused"), (tri_binning, "cast_primary"))
+    argv = ["bench", "--primary", "binned"]
+    text, counts, wall, _ = run_cli(torch, argv)
+    recs = json_lines(text)
+    renders = 2 * sum("binned_pairs" in r for r in recs)  # warm + timed
+    log(f"phase front-ends: bench synthetic --primary binned: "
+        + ", ".join(f"{r['scene']}/{r['workload']} {r['ms']} ms"
+                    for r in recs) + f"; launches {counts}")
+    fe_check(len(recs) == 9 and renders == 6, f"bench records {recs}")
+    fe_check(counts.get("cast_primary") == renders,
+             f"bench launched {counts}: want the binned cast once a render "
+             f"of a triangle scene ({renders})")
+    held = fe_held_rows(torch, rows, record_cli(argv, cast), "cli-bench",
+                        counts, "cli bench --primary binned at 128x128: the "
+                        "Cornell box's last render")
+    write_soup_tree(tmp)
+    argv = ["bench", "--suite", "lumibench", "--scenes", "bathroom",
+            "--primary", "binned"]
+    with Replaced(reference_scenes, "REF_ROOT", tmp):
+        text, lcounts, lwall, _ = run_cli(torch, argv)
+        recorded = record_cli(argv,
+                              cast + ((tri_kernel, "closest_hit_packed"),))
+    lrecs = json_lines(text)
+    log(f"phase front-ends: bench lumibench (synthetic Bathroom, {FE_SOUP} "
+        f"triangles) --primary binned: "
+        + ", ".join(f"{r['workload']} {r['ms']} ms" for r in lrecs)
+        + f"; visits a block {lrecs[0].get('sup_visits_actual_per_block')}"
+        f" of {lrecs[0].get('sup_visits_per_block')} planned; launches "
+        f"{lcounts}")
+    fe_check(len(lrecs) == 3 and lrecs[0].get("tris") == FE_SOUP,
+             f"lumibench records {lrecs}")
+    fe_check(lcounts.get("cast_primary") == 6
+             and lcounts.get("closest_hit_packed", 0) > 0
+             and lcounts.get("closest_hit_packed_any", 0) > 0,
+             f"lumibench launched {lcounts}: want the cast once a render "
+             f"and both traversal modes")
+    held += fe_held_rows(torch, rows, recorded, "lumibench", lcounts,
+                         f"cli bench --suite lumibench at 128x128: a "
+                         f"synthetic Bathroom of {FE_SOUP} soup triangles, "
+                         f"its last render")
+    return dict(synthetic=recs, launches=counts, wall_s=wall, held_rows=held,
+                lumibench=lrecs, lumibench_launches=lcounts,
+                lumibench_wall_s=lwall)
+
+
+def fe_fit(torch, tmp: str, capture_dir: str) -> dict:
+    """cli fit on the fit phase's capture (targets as PNGs) with
+    --iters 100 --densify-every 50 and --save-ply."""
+    from gsrt_torch.scene.ply import load_gaussian_ply
+    ply = os.path.join(tmp, "fit.ply")
+    text, counts, wall, peak = run_cli(torch, [
+        "fit", "--colmap", capture_dir, "--iters", str(FE_FIT_ITERS),
+        "--densify-every", str(FE_FIT_DENSIFY), "--save-ply", ply])
+    done = [ln for ln in text.splitlines() if ln.startswith("fit done")][0]
+    train_psnr = float(done.split("train PSNR ")[1].split()[0])
+    test_psnr = float(done.split("test PSNR ")[1].split()[0])
+    n = load_gaussian_ply(ply, device=DEVICE).n
+    grown = [ln for ln in text.splitlines() if "pair buffer grown" in ln]
+    log(f"phase front-ends: fit {FE_FIT_ITERS} steps: "
+        f"{text.splitlines()[0]}; {done}; {wall:.2f} s, peak {peak:.0f} "
+        f"MiB; PLY read back with {n} splats; the pair buffer grew "
+        f"{len(grown)} times {grown}; launches {counts}")
+    fe_check(all(counts.get(k, 0) >= FE_FIT_ITERS for k in (
+        "expand_pairs_fused", "blend_subtiles", "blend_backward")),
+        f"fit launched {counts}: want Q2.1, Q2.4 and Q2.5 every step")
+    fe_check(all(x == x and abs(x) != float("inf")
+                 for x in (train_psnr, test_psnr)), f"fit PSNR: {done}")
+    return dict(train_psnr=train_psnr, test_psnr=test_psnr, splats=n,
+                pair_buffer_growths=len(grown), launches=counts,
+                wall_s=wall, peak_mib=peak)
+
+
+def fe_train(torch, tmp: str) -> dict:
+    """cli train: the demo on render_fast (no kernel, as in gsrt)."""
+    text, counts, wall, _ = run_cli(torch, [
+        "train", "--iters", str(FE_TRAIN_ITERS),
+        "--save-ply", os.path.join(tmp, "train.ply")])
+    losses = [float(ln.split()[-1]) for ln in text.splitlines()
+              if " loss " in ln]
+    log(f"phase front-ends: train {FE_TRAIN_ITERS} steps: losses "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} ({len(losses)} read), "
+        f"{wall:.2f} s, launches {counts}")
+    fe_check(losses and all(x == x and abs(x) != float("inf")
+                            for x in losses) and losses[-1] < losses[0],
+             f"train losses {losses}")
+    fe_check(not counts, f"train launched {counts}")
+    return dict(losses=losses, wall_s=wall)
+
+
+def http(port: int, path: str, body=None) -> tuple:
+    """(status, bytes) of a GET, or a POST of `body` (bytes)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def wait_for(cond, what: str, timeout_s: float = 60.0):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        val = cond()
+        if val:
+            return val
+        time.sleep(0.02)
+    raise SystemExit(f"phase front-ends: view: no {what} in {timeout_s} s")
+
+
+def fe_view(torch, rows) -> dict:
+    """ViewerServer from `cli view`'s arguments (960x540, random100000,
+    127.0.0.1, port 0): "tiled" frame by frame, then "serving" under a
+    held key; each renderer's last frame's kernels held to their plain
+    versions (rows [view], [view-serving])."""
+    import contextlib
+    import numpy as np
+    from gsrt_torch import _kernels, cli
+    from gsrt_torch.core.types import make_camera
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import pair_expand, splat_packed
+    from gsrt_torch.utils.image import decode_png, to_uint8
+    parser = cli.build_parser()
+
+    def recorded(stack, *names):
+        return [stack.enter_context(Recorder(
+            splat_packed if n == "blend_packed" else pair_expand, n,
+            last_only=True)) for n in names]
+
+    def stats(srv):
+        code, body = http(srv.port, "/stats")
+        fe_check(code == 200, f"view: /stats answered {code}: {body[:400]}")
+        return json.loads(body)
+
+    def key(srv, pressed):
+        body = json.dumps({"type": "key", "key": "w",
+                           "pressed": pressed}).encode()
+        fe_check(http(srv.port, "/input", body)[0] == 200, "view: input")
+
+    srv = cli.viewer_from_args(parser.parse_args(
+        ["view", "--port", "0", "--renderer", "tiled"]))
+    cfg, state = srv.cfg, srv.state
+    cam = make_camera(state.controller.view(), srv.fov, cfg.width,
+                      cfg.height, device=DEVICE)
+    want = to_uint8(grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)(
+        srv.cloud, cam).color)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        recs = recorded(stack, "expand_pairs_fused", "expand_pairs_binned",
+                        "blend_packed")
+        srv.start()
+        try:
+            wait_for(lambda: stats(srv).get("frame_id") == 1,
+                     "first frame")
+            code, png = http(srv.port, "/frame.png")
+            first = {k: v for k, v in _kernels.launch_counts().items()
+                     if v}
+            same = code == 200 and np.array_equal(decode_png(png), want)
+            pos0 = state.controller.position.copy()
+            key(srv, True)
+            wait_for(lambda: stats(srv)["frame_id"] > 1, "new frame")
+            key(srv, False)
+            moved = stats(srv)["frame_id"]
+            fe_check(not np.allclose(state.controller.position, pos0),
+                     "view: w did not move the camera")
+            toggle = json.dumps({"type": "setting",
+                                 "heatmap": "toggle"}).encode()
+            http(srv.port, "/input", toggle)
+            wait_for(lambda: stats(srv)["heatmap"], "heatmap frame")
+            heat_png = decode_png(http(srv.port, "/frame.png")[1])
+            http(srv.port, "/input", toggle)
+            bad = http(srv.port, "/input", b"{not json")[0]
+        finally:
+            srv.stop()
+    tiled = {k: v for k, v in _kernels.launch_counts().items() if v}
+    log(f"phase front-ends: view tiled {cfg.width}x{cfg.height}, "
+        f"{srv.cloud.n} splats: first frame equal to a direct tiled frame "
+        f"{same}, launches from the render thread {first}; w moved the "
+        f"camera (frame_id {moved}), heatmap frame {heat_png.shape}, bad "
+        f"input {bad}")
+    fe_check(same, "view: the first frame differs from a direct frame")
+    fe_check(bad == 400, f"view: bad input answered {bad}")
+    fe_check(first.get("blend_packed_group", 0) > 0,
+             f"view: the render thread launched {first}")
+    at = (f"cli view's viewer: {srv.cloud.n} splats at "
+          f"{cfg.width}x{cfg.height}, the last frame of the ")
+    held = fe_held_rows(torch, rows, recs, "view", tiled,
+                        at + "\"tiled\" renderer")
+
+    srv = cli.viewer_from_args(parser.parse_args(["view", "--port", "0"]))
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        recs = recorded(stack, "expand_pairs_fused", "blend_packed")
+        srv.start()
+        try:
+            wait_for(lambda: stats(srv).get("frame_id") == 1,
+                     "first frame")
+            f0 = stats(srv)["frame_id"]
+            key(srv, True)
+            time.sleep(FE_HOLD_S)
+            last = stats(srv)
+            key(srv, False)
+        finally:
+            srv.stop()
+    counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+    frames = last["frame_id"] - f0
+    log(f"phase front-ends: view serving: {frames} frames in "
+        f"{FE_HOLD_S} s of a held key, last frame {last['ms']} ms "
+        f"({last['fps']} fps, {last['mrays_s']} Mrays/s; render and host "
+        f"read, PNG encoding aside); launches from the render thread "
+        f"{counts}")
+    fe_check(frames > 0 and counts.get("blend_packed_tile", 0) >= frames,
+             f"view serving: {frames} frames, launches {counts}")
+    held += fe_held_rows(torch, rows, recs, "view-serving", counts,
+                         at + "\"serving\" renderer under a held key")
+    return dict(tiled_first_frame_equal=same, tiled_launches=first,
+                serving_frames=frames, serving_last_ms=last["ms"],
+                serving_fps=last["fps"], serving_launches=counts,
+                held_rows=held)
+
+
+def fe_bench_module(main_mrays: float, frame_ms: float) -> dict:
+    """python -m gsrt_torch.bench as a subprocess: its one JSON line;
+    beside it `gsrt_torch.bench.run()` in this process, the same workload
+    and clock, to tell the process's state from the workload."""
+    from gsrt_torch import bench
+    t0 = time.perf_counter()
+    inproc = bench.run()
+    log(f"phase front-ends: gsrt_torch.bench.run() in this process: "
+        f"{inproc['value']} Mrays/s ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gsrt_torch.bench"],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    fe_check(r.returncode == 0, f"gsrt_torch.bench exited "
+             f"{r.returncode}: {r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    rec = json.loads(lines[-1])
+    log(f"phase front-ends: python -m gsrt_torch.bench: {lines[-1]} "
+        f"({wall:.1f} s; the main phase's frame {frame_ms:.4f} ms, "
+        f"{main_mrays:.2f} Mrays/s)")
+    fe_check(len(lines) == 1 and set(rec) == {"metric", "value", "unit",
+                                              "vs_baseline"}
+             and rec["value"] > 0, f"bench line {lines}")
+    return dict(record=rec, wall_s=wall, in_process_mrays_s=inproc["value"])
+
+
+def front_ends_phase(torch, rows, capture_dir: str, rtiow, serving: dict,
+                     main_mrays: float, frame_ms: float) -> dict:
+    """front-ends: the CLI's subcommands (render, compare, orbit, pt,
+    bench, fit, train) through gsrt_torch.cli.main, the viewer, and
+    python -m gsrt_torch.bench (see the module docstring). Appends the
+    rows that hold the steps' kernels on their inputs to `rows`."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = dict(render=fe_render(torch, rows, tmp))
+        out["orbit"] = fe_orbit(torch, rows, tmp, serving)
+        out["pt"] = fe_pt(torch, tmp, rtiow)
+        out["bench"] = fe_bench(torch, rows, tmp)
+        out["fit"] = fe_fit(torch, tmp, capture_dir)
+        out["train"] = fe_train(torch, tmp)
+    out["view"] = fe_view(torch, rows)
+    out["bench_module"] = fe_bench_module(main_mrays, frame_ms)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase front-ends: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_run = time.perf_counter()
     card = phase_device()
@@ -3502,16 +4232,22 @@ def main() -> int:
     del cloud, camera
     train_rows, train = train_phases(torch)
     rows += train_rows
-    fit = fit_phase(torch, rows, card)
-    t0 = time.perf_counter()
-    kbuffer = dict(kbuffer=kbuffer_phase(torch, card),
-                   splat_trace=splat_trace_phase(torch, card),
-                   mixed=mixed_phase(torch, rows, card),
-                   ellipse=ellipse_phase(torch, rows, card))
-    log(f"phases kbuffer, splat-trace, mixed, ellipse: "
-        f"{time.perf_counter() - t0:.1f} s")
-    scenes = scenes_phase(torch, rows, card)
-    tri = tri_phases(torch, rows)
+    import tempfile
+    # the fit's capture (COLMAP model, targets as PNGs) stays for `cli fit`
+    with tempfile.TemporaryDirectory() as capture_dir:
+        fit = fit_phase(torch, rows, card, capture_dir)
+        t0 = time.perf_counter()
+        kbuffer = dict(kbuffer=kbuffer_phase(torch, card),
+                       splat_trace=splat_trace_phase(torch, card),
+                       mixed=mixed_phase(torch, rows, card),
+                       ellipse=ellipse_phase(torch, rows, card))
+        log(f"phases kbuffer, splat-trace, mixed, ellipse: "
+            f"{time.perf_counter() - t0:.1f} s")
+        scenes = scenes_phase(torch, rows, card)
+        tri = tri_phases(torch, rows)
+        front_ends = front_ends_phase(
+            torch, rows, capture_dir, scenes["catalog"]["rtiow"].pop("image"),
+            serving, mrays, frame_ms)
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                 for r in rows))
     log(f"run: {time.perf_counter() - t_run:.1f} s wall")
@@ -3522,7 +4258,7 @@ def main() -> int:
                       "pairs": total, "max_pairs": mpairs,
                       "max_rows": mrows, "serving": serving,
                       "train": train, "fit": fit, "kbuffer": kbuffer,
-                      "tri": tri, "scenes": scenes,
+                      "tri": tri, "scenes": scenes, "front_ends": front_ends,
                       "wall_s": time.perf_counter() - t_run}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,11 @@ Mandelbulbs, textures with mip pyramids, alpha cutouts, the tri-cluster
 traversal, foveated PT, the catalog's scenes, OBJ / MTL and splat `.ply`
 loaders (`scene.obj`, `scene.ply`, with the host library `native`),
 instancing (`scene.instancing`), the LBVH (`ops.bvh`) and the reference
-scenes (`scene.reference_scenes`). ROADMAP.md lists what remains.
+scenes (`scene.reference_scenes`); and the front ends — the command line
+(`python -m gsrt_torch.cli`), the HTTP viewer (`gsrt_torch.viewer`), the
+host helpers with a PNG codec of their own (`gsrt_torch.utils`) and the
+headline benchmark (`python -m gsrt_torch.bench`). ROADMAP.md lists what
+remains.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

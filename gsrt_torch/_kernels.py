@@ -17,6 +17,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()   # the viewer's render thread loads too
 
 
 def _nvcc() -> str:
@@ -88,14 +90,15 @@ build.last_log = ""
 
 
 def _load(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        if not _fresh(name):
-            build((name,))
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        lib.gsrt_error_string.argtypes = [ctypes.c_int]
-        lib.gsrt_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return _LIBS[name]
+    with _LOAD_LOCK:
+        if name not in _LIBS:
+            if not _fresh(name):
+                build((name,))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib.gsrt_error_string.argtypes = [ctypes.c_int]
+            lib.gsrt_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 class CudaKernel:

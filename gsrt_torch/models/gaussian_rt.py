@@ -461,6 +461,26 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
     return out
 
 
+def count_pairs(cloud: GaussianCloud, camera: Camera,
+                cfg: RenderConfig) -> torch.Tensor:
+    """Total (tile, splat) pairs this view generates under rect spans,
+    counted on the cloud's device: a 0-d int64 tensor (read it when the
+    host needs the value)."""
+    from gsrt_torch.ops.gaussian import screen_extents
+    from gsrt_torch.ops.tile_binning import compute_tile_spans
+    _, mean2d, quad, _, in_front = project_gaussians(
+        cloud.means, cloud.cov3d, camera, conic_mode=cfg.conic_mode,
+        cov2d_dilation=cfg.cov2d_dilation)
+    rx, ry = screen_extents(quad, cfg.conic_mode, cfg.g_cutoff,
+                            opacity=cloud.opacity,
+                            alpha_threshold=cfg.alpha_threshold)
+    alive = in_front & (cloud.opacity > cfg.alpha_threshold)
+    *_, touched = compute_tile_spans(
+        mean2d[:, 0], mean2d[:, 1], rx, ry, alive, camera.width,
+        camera.height, cfg.tile_w, cfg.tile_h)
+    return touched.sum(dtype=torch.int64)
+
+
 # --- host-side (NumPy) buffer sizing, copied from the JAX package ---
 
 def _spans_numpy(cloud: GaussianCloud, camera: Camera,

@@ -13,8 +13,8 @@ PyTorch idiom where it differs from the JAX package: parameters and the
 optimiser are updated in place, so a step is
 step(params, optimizer, stats, viewset, i) → (stats, loss), and a densify
 event returns new parameters that the same optimiser then holds. A tiled
-step raises when its view needs more than `max_pairs` pairs: size
-`max_pairs` for the largest cloud the fit can reach.
+step whose view needs more than `max_pairs` pairs grows its buffer and
+takes the step again, so no step trains on a truncated stream.
 
 Evaluation follows the INRIA/LLFF convention: every `holdout`-th view (by
 sorted file name) is left out of training and scored by PSNR.
@@ -32,6 +32,8 @@ from gsrt_torch.core.types import Camera, resolve_device
 from gsrt_torch.models.densify import (DensifyStats, accumulate_stats,
                                        densify_and_prune, init_stats,
                                        reset_opacity)
+from gsrt_torch.models.gaussian_rt import pair_bucket
+from gsrt_torch.models.tiled_diff import PairOverflow
 from gsrt_torch.models.trainer import (GaussianParams, _step,
                                        make_optimizer, render_loss,
                                        render_loss_tiled)
@@ -94,7 +96,7 @@ def viewset_from_colmap(sparse_dir: str, images_dir: str,
                         downscale: int = 1, limit: Optional[int] = None,
                         device=None):
     """COLMAP capture → (ViewSet, initial GaussianParams, scene extent),
-    on `device`. Reads the images with PIL."""
+    on `device`. Reads the images with `scene.colmap.load_image_dir`."""
     from gsrt_torch.scene.colmap import (init_params_from_points,
                                          load_colmap_model, load_image_dir,
                                          scene_extent)
@@ -127,22 +129,34 @@ def holdout_split(n_views: int, holdout: int = 8):
 
 
 def make_train_step_mv(cfg: RenderConfig, lambda_ssim: float = 0.2,
-                       max_pairs: Optional[int] = None):
+                       max_pairs: Optional[int] = None,
+                       growths: Optional[list] = None):
     """A multi-view step: step(params, optimizer, stats, vs, i) →
     (stats, loss) on view i; params and optimizer are updated in place.
-    max_pairs switches to the tiled loss (its kernels; raises when the
-    view needs more pairs)."""
+    max_pairs switches to the tiled loss (its kernels) with a pair buffer
+    of that size; a view that needs more grows the buffer to
+    pair_bucket(1.1 × its pairs) and takes its step again (the failed
+    attempt stops in the forward, before any update), so no step trains
+    on a truncated stream. `growths`, if given, receives (pairs needed,
+    new max_pairs) at each growth."""
 
     def step(params: GaussianParams, optimizer, stats: DensifyStats,
              vs: ViewSet, i: int):
+        nonlocal max_pairs
         camera, target = vs.camera_at(i), vs.images[i]
-        if max_pairs is not None:
-            fn = lambda: render_loss_tiled(params, target, camera, cfg,
-                                           max_pairs, lambda_ssim)
-        else:
-            fn = lambda: render_loss(params, target, camera, cfg,
-                                     lambda_ssim)
-        loss = _step(fn, optimizer)
+        if max_pairs is None:
+            loss = _step(lambda: render_loss(params, target, camera, cfg,
+                                             lambda_ssim), optimizer)
+            return accumulate_stats(stats, params), loss
+        fn = lambda: render_loss_tiled(params, target, camera, cfg,
+                                       max_pairs, lambda_ssim)
+        try:
+            loss = _step(fn, optimizer)
+        except PairOverflow as e:
+            max_pairs = pair_bucket(int(e.needed * 1.1))
+            if growths is not None:
+                growths.append((e.needed, max_pairs))
+            loss = _step(fn, optimizer)
         return accumulate_stats(stats, params), loss
 
     return step
@@ -174,6 +188,7 @@ class FitReport(NamedTuple):
     n_splats: int
     train_psnr: float
     test_psnr: float
+    pair_growths: tuple = ()    # the step's (pairs needed, new max_pairs)
 
 
 def fit_views(
@@ -210,15 +225,21 @@ def fit_views(
     if optimizer is None:
         optimizer = make_optimizer(params, lr_means=1.6e-4 * scene_scale)
     stats = init_stats(params.means.shape[0], params.means.device)
-    step = make_train_step_mv(cfg, lambda_ssim, max_pairs=max_pairs)
+    growths: list = []
+    step = make_train_step_mv(cfg, lambda_ssim, max_pairs=max_pairs,
+                              growths=growths)
     order: list = []
     losses = []
     for it in range(iters):
         if not order:
             order = list(rng.permutation(train_idx))
         v = int(order.pop())
+        grown = len(growths)
         stats, loss = step(params, optimizer, stats, vs, v)
         losses.append(loss)
+        for needed, mp in growths[grown:] if log_every else ():
+            print(f"iter {it:5d}  view {v:3d}  pair buffer grown to {mp} "
+                  f"({needed} pairs needed)")
         if (densify_every and (it + 1) % densify_every == 0
                 and it < iters * densify_until):
             params, optimizer, stats, rep = densify_and_prune(
@@ -237,5 +258,6 @@ def fit_views(
         losses=torch.stack(losses).tolist() if losses else [],
         n_splats=int(params.means.shape[0]),
         train_psnr=eval_psnr(params, vs, train_idx[:8], cfg),
-        test_psnr=eval_psnr(params, vs, test_idx[:8], cfg))
+        test_psnr=eval_psnr(params, vs, test_idx[:8], cfg),
+        pair_growths=tuple(growths))
     return params, report

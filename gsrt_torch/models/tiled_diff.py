@@ -68,6 +68,17 @@ def route_pair_grads(grad: torch.Tensor, pair_index: torch.Tensor,
     return out
 
 
+class PairOverflow(RuntimeError):
+    """The view needs `needed` pairs, more than the step's max_pairs."""
+
+    def __init__(self, needed: int, max_pairs: int):
+        super().__init__(
+            f"the view needs {needed} pairs and max_pairs is {max_pairs}: "
+            f"a step on a truncated stream would train on a wrong image; "
+            f"size max_pairs with pair_bucket(count_pairs_numpy(...))")
+        self.needed, self.max_pairs = needed, max_pairs
+
+
 class _TiledBlend(torch.autograd.Function):
     """(m2x, m2y, qa, qb, qc, opacity, cr, cg, cb) → (color [H, W, 3],
     trans [H, W]), background not applied. depth, rx, ry and alive only
@@ -91,11 +102,7 @@ class _TiledBlend(torch.autograd.Function):
             max_pairs=max_pairs, compact=False,
             expand_impl=cfg.expand_impl, with_ids=True)
         if bool(binning.overflow):
-            raise RuntimeError(
-                f"the view needs {int(binning.total_pairs)} pairs and "
-                f"max_pairs is {max_pairs}: a step on a truncated stream "
-                f"would train on a wrong image; size max_pairs with "
-                f"pair_bucket(count_pairs_numpy(...))")
+            raise PairOverflow(int(binning.total_pairs), max_pairs)
         if (tw, th) == (128, 8):
             color, trans = blend_tiles(binning, width=width, height=height,
                                        chunk=chunk, **blend_params(cfg))

@@ -14,7 +14,8 @@ down), so a pose maps 1:1 into the view matrix with no axis flips.
 Distortion parameters (SIMPLE_RADIAL k, OPENCV k1..p2) are parsed but
 ignored: rendering assumes undistorted images (the Mip-NeRF360 release
 and INRIA's loader use the undistorted `images/` set). `load_image_dir`
-imports PIL inside the function; nothing else needs it.
+reads a PNG of the model's size with the port's own codec; JPEG and
+resizing import PIL inside the function (and raise without it).
 """
 
 from __future__ import annotations
@@ -280,14 +281,39 @@ def init_params_from_points(points: np.ndarray, colors: np.ndarray,
         sh=t(sh), device=device)
 
 
+def _read_rgb(path: str, w: int, h: int) -> np.ndarray:
+    """One capture image as [h, w, 3] f32 in [0, 1]. A PNG of that size is
+    read by the port's codec; JPEG, a PNG variant the codec does not read
+    and resizing (LANCZOS) need PIL, and raise RuntimeError without it."""
+    from gsrt_torch.utils.image import read_png
+    if path.lower().endswith(".png"):
+        try:
+            img = read_png(path)
+        except ValueError as e:
+            why = f"decoding it ({e})"
+        else:
+            if img.shape[:2] == (h, w):
+                return img.astype(np.float32) / 255.0
+            why = f"resizing {img.shape[1]}x{img.shape[0]} to {w}x{h}"
+    else:
+        why = "decoding a non-PNG image"
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(f"{path}: {why} needs PIL, which is not "
+                           f"installed") from None
+    img = Image.open(path).convert("RGB")
+    if img.size != (w, h):
+        img = img.resize((w, h), Image.LANCZOS)
+    return np.asarray(img, np.float32) / 255.0
+
+
 def load_image_dir(model: ColmapModel, images_dir: str,
                    downscale: int = 1,
                    limit: Optional[int] = None):
     """Load the capture's images (resized by 1/downscale) in model.images
     order. Returns (images [V,H,W,3] f32, width, height) — all views must
     share one camera resolution (true for the Mip-NeRF360/INRIA sets)."""
-    from PIL import Image
-
     ims = model.images[:limit] if limit else model.images
     if not ims:
         raise ValueError("COLMAP model contains no images")
@@ -295,11 +321,7 @@ def load_image_dir(model: ColmapModel, images_dir: str,
     w, h = cam.width // downscale, cam.height // downscale
     out = np.zeros((len(ims), h, w, 3), np.float32)
     for i, im in enumerate(ims):
-        path = os.path.join(images_dir, im.name)
-        img = Image.open(path).convert("RGB")
-        if img.size != (w, h):
-            img = img.resize((w, h), Image.LANCZOS)
-        out[i] = np.asarray(img, np.float32) / 255.0
+        out[i] = _read_rgb(os.path.join(images_dir, im.name), w, h)
     return out, w, h
 
 

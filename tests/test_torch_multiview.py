@@ -200,6 +200,35 @@ def test_tiled_mv_step_matches_jax():
     np.testing.assert_array_equal(got[1], np.asarray(jstats.count))
 
 
+def test_tiled_mv_step_grows_its_pair_buffer():
+    """A view that needs more pairs than max_pairs grows the buffer and
+    takes its step: the same loss, parameters and statistics, bit for bit,
+    as a step whose buffer was large enough from the start; the step
+    records the growth."""
+    from gsrt_torch.models.gaussian_rt import count_pairs, pair_bucket
+    _, tvs, start = _capture()
+    n = start[0].shape[0]
+    with torch.no_grad():
+        need = count_pairs(params_from_numpy(*start, device="cpu").to_cloud(),
+                           tvs.camera_at(1), RenderConfig(**TILED))
+    assert 64 < int(need) <= MP
+    outs = []
+    for mp in (64, MP):
+        tp = params_from_numpy(*start, device="cpu")
+        growths = []
+        step = t_mv.make_train_step_mv(RenderConfig(**TILED), max_pairs=mp,
+                                       growths=growths)
+        stats, loss = step(tp, t_tr.make_optimizer(tp),
+                           t_dn.init_stats(n, "cpu"), tvs, 1)
+        outs.append((loss, params_to_numpy(tp), stats_to_numpy(stats)))
+        assert growths == ([(int(need), pair_bucket(int(need * 1.1)))]
+                           if mp == 64 else [])
+    (l0, p0, s0), (l1, p1, s1) = outs
+    assert torch.equal(l0, l1)
+    for a, b in zip(p0 + s0, p1 + s1):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("path", ["fast", "tiled"])
 def test_fit_views_matches_jax(monkeypatch, path):
     """A fit with one densify event (after step 6: clones and splits, the

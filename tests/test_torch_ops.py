@@ -298,10 +298,50 @@ def test_port_imports_neither_jax_nor_gsrt():
             "interop.py", "ops/mip.py", "ops/bvh.py", "scene/obj.py",
             "scene/ply.py", "scene/instancing.py",
             "scene/reference_scenes.py", "native.py"} <= names
+    # the front ends are among them
+    assert set(FRONT_ENDS) <= names
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "optax", "gsrt")]
     assert not bad, bad
+
+
+FRONT_ENDS = ("cli.py", "bench.py", "utils/__init__.py", "utils/image.py",
+              "utils/heatmap.py", "utils/stats.py", "utils/accumulate.py",
+              "utils/debug.py", "utils/profiling.py", "utils/checkpoint.py",
+              "viewer/__init__.py", "viewer/controller.py",
+              "viewer/server.py")
+
+
+def _module_level_imports(path: pathlib.Path):
+    """The imports a module runs when it is imported: none inside a
+    function body."""
+    stack = list(ast.parse(path.read_text(), str(path)).body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def test_port_imports_no_pil_at_module_level():
+    """The card's machine has no PIL: no module of the port imports it
+    when it is imported, and the front ends import it nowhere (their PNG
+    codec is the port's own)."""
+    pkg = REPO / "gsrt_torch"
+    at_import = [(str(f.relative_to(REPO)), m)
+                 for f in sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]
+                 for m in _module_level_imports(f)
+                 if m.split(".")[0] == "PIL"]
+    assert not at_import, at_import
+    anywhere = [(name, m) for name in FRONT_ENDS
+                for m in _imports(pkg / name) if m.split(".")[0] == "PIL"]
+    assert not anywhere, anywhere
 
 
 def test_entry_points_default_to_cuda():
