@@ -247,7 +247,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
              recorded rerun of the command (from the viewer's own run),
              the expands bit for bit, the blends on every tile, every
              traversal launch on every block; launches from the counted
-             run.
+             run;
+25. multi-device — gsrt_torch.parallel on the one card (a mesh of
+             repeated cuda:0), each step with launch counts set to 0 just
+             before and read just after: the render cell (a) through
+             calibrate_sharded and render_data_parallel with
+             tiled_render_fn over 4 row slabs of 270 rows (each path
+             kernel 4 times, every slab's count_pairs within the buffer),
+             (b) through shard_cloud_by_depth and render_splat_sharded on
+             a 2x4 mesh, gather and butterfly composites and the
+             butterfly with a white background (each path kernel 8
+             times), both on the compact payload and on the f32 one (the
+             f32 tile stream); each frame against the single-card
+             GaussianRayTracer frame: every entry within 2e-2 and at most
+             0.1% of the pixels past 2e-3, the worst pixel past it logged
+             with the splats taken there on one side only (a slab's own
+             tile grid and principal point move pairs at the alpha
+             threshold) and the JAX suite's bounds' counts logged beside;
+             gather against butterfly rtol 1e-5 / atol 1e-6; ms a frame
+             beside the single frame's (one card: the cost of slabbing)
+             and peak memory; rows [dp], [sharded] and [dp-f32] hold the
+             last shard's kernel inputs against their plain versions; a
+             333-splat cloud padded to 336 over 2x4 through the kernels
+             (the padding bins no pair); make_train_step_dp over 4 slabs
+             against train_step (loss rtol 1e-5, means and SH rtol 1e-4 /
+             atol 1e-6, no kernel launched); two ranks spawned on the card
+             with backend="gloo" (they load the built kernels and never
+             compile), each rendering its row slab through
+             render_data_parallel on global_render_mesh(), gather_to_hosts
+             and sync_hosts, the frame equal bit for bit to the in-process
+             render over 2 slabs, and render_data_parallel_global at 64x32
+             against render_fast.
 
 The render workload is the JAX package's benchmark: random_cloud(1M, seed=0,
 scale_range=(0.004, 0.03)) at 1920x1080, SH degree 3, RenderConfig defaults.
@@ -3493,7 +3523,8 @@ def group_blend_rows(torch, tag, binning, kw, counts, phase) -> list:
     return rows
 
 
-def fe_held_rows(torch, rows, recs, tag: str, counts: dict, at: str):
+def held_rows(torch, rows, recs, tag: str, counts: dict, at: str,
+              phase: str = "front-ends"):
     """Rows `<kernel>[tag]` of the kernels line: the last recorded call of
     each wrapper held to its plain version (the expands bit for bit, the
     blends every tile), every recorded traversal launch held bit for bit
@@ -3502,7 +3533,9 @@ def fe_held_rows(torch, rows, recs, tag: str, counts: dict, at: str):
     from gsrt_torch.ops import pair_expand
     new = []
     for rec in recs:
-        fe_check(rec.calls, f"{tag}: no call of {rec.name} recorded")
+        if not rec.calls:
+            raise SystemExit(f"phase {phase}: {tag}: no call of {rec.name} "
+                             f"recorded")
         args, kw = rec.calls[-1]
         if rec.name.startswith("expand_pairs"):
             tab, base, mp = args
@@ -3515,7 +3548,7 @@ def fe_held_rows(torch, rows, recs, tag: str, counts: dict, at: str):
                         tab, base, mp, **kw), None, counts.get(rec.name, 0),
                     4 * (pair_expand.EMIT_ROWS * mp
                          + pair_expand.EMIT_TAB_ROWS * n + n),
-                    phase="front-ends"))
+                    phase=phase))
             else:
                 new.append(expand_row(
                     name, GATHER_TPU if rec.name == "expand_pairs"
@@ -3524,22 +3557,22 @@ def fe_held_rows(torch, rows, recs, tag: str, counts: dict, at: str):
                     lambda: tab.index_select(
                         1, pair_expand.source_index(base, mp)),
                     counts.get(rec.name, 0),
-                    4 * (tab.shape[0] * (mp + n) + n), phase="front-ends"))
+                    4 * (tab.shape[0] * (mp + n) + n), phase=phase))
         elif rec.name == "blend_packed" and kw.get("group_stream", True):
             new += group_blend_rows(torch, tag, args[0], kw, counts,
-                                    "front-ends")
+                                    phase)
         elif rec.name == "blend_packed":
             new.append(tile_blend_row(
                 torch, f"blend_packed_tile[{tag}]", args[0], kw,
-                counts.get("blend_packed_tile", 0), "front-ends"))
+                counts.get("blend_packed_tile", 0), phase))
         elif rec.name == "cast_primary":
             new.append(cast_row(torch, f"cast_primary[{tag}]", *args, kw,
-                                max_sm_clock_hz(), phase="front-ends"))
+                                max_sm_clock_hz(), phase=phase))
             new[-1]["launches"] = counts.get("cast_primary", 0)
         else:                                   # closest_hit_packed
             held = held_launches(torch, rec.calls, stride=1,
-                                 phase="front-ends")
-            log(f"phase front-ends: {tag}: all {held['held']} traversal "
+                                 phase=phase)
+            log(f"phase {phase}: {tag}: all {held['held']} traversal "
                 f"launches equal their plain version bit for bit (t, "
                 f"slots, visits) on every block ({held['rays_held']} rays)")
             for key, any_hit in (("closest_hit_packed", False),
@@ -3616,7 +3649,7 @@ def fe_render(torch, rows, tmp: str) -> dict:
     log(f"phase front-ends: compare with itself {cmp['self']}, with a "
         f"save_png of the direct frame {cmp['direct']} ({cwall:.2f} s)")
     del cloud, direct
-    held = fe_held_rows(torch, rows, record_cli(argv, (
+    held = held_rows(torch, rows, record_cli(argv, (
         (pair_expand, "expand_pairs"), (splat_packed, "blend_packed"))),
         "cli-render", counts, f"cli render at its defaults: random{SPLATS}"
         f" (scale_range (0.02, 0.25)), {WIDTH}x{HEIGHT}, {pairs} pairs")
@@ -3654,7 +3687,7 @@ def fe_orbit(torch, rows, tmp: str, serving: dict) -> dict:
              and not counts.get("partition_group_stream"),
              f"orbit launched {counts}: want one tile blend a served frame "
              f"({served}) and no group blend")
-    held = fe_held_rows(torch, rows, record_cli(argv, (
+    held = held_rows(torch, rows, record_cli(argv, (
         (pair_expand, "expand_pairs_fused"), (splat_packed, "blend_packed"))),
         "cli-orbit", counts, f"cli orbit at its defaults: the last of "
         f"{rec['frames']} served frames of random{SPLATS} at bench.py's "
@@ -3722,9 +3755,9 @@ def fe_bench(torch, rows, tmp: str) -> dict:
     fe_check(counts.get("cast_primary") == renders,
              f"bench launched {counts}: want the binned cast once a render "
              f"of a triangle scene ({renders})")
-    held = fe_held_rows(torch, rows, record_cli(argv, cast), "cli-bench",
-                        counts, "cli bench --primary binned at 128x128: the "
-                        "Cornell box's last render")
+    held = held_rows(torch, rows, record_cli(argv, cast), "cli-bench",
+                     counts, "cli bench --primary binned at 128x128: the "
+                     "Cornell box's last render")
     write_soup_tree(tmp)
     argv = ["bench", "--suite", "lumibench", "--scenes", "bathroom",
             "--primary", "binned"]
@@ -3746,10 +3779,10 @@ def fe_bench(torch, rows, tmp: str) -> dict:
              and lcounts.get("closest_hit_packed_any", 0) > 0,
              f"lumibench launched {lcounts}: want the cast once a render "
              f"and both traversal modes")
-    held += fe_held_rows(torch, rows, recorded, "lumibench", lcounts,
-                         f"cli bench --suite lumibench at 128x128: a "
-                         f"synthetic Bathroom of {FE_SOUP} soup triangles, "
-                         f"its last render")
+    held += held_rows(torch, rows, recorded, "lumibench", lcounts,
+                      f"cli bench --suite lumibench at 128x128: a "
+                      f"synthetic Bathroom of {FE_SOUP} soup triangles, "
+                      f"its last render")
     return dict(synthetic=recs, launches=counts, wall_s=wall, held_rows=held,
                 lumibench=lrecs, lumibench_launches=lcounts,
                 lumibench_wall_s=lwall)
@@ -3900,8 +3933,8 @@ def fe_view(torch, rows) -> dict:
              f"view: the render thread launched {first}")
     at = (f"cli view's viewer: {srv.cloud.n} splats at "
           f"{cfg.width}x{cfg.height}, the last frame of the ")
-    held = fe_held_rows(torch, rows, recs, "view", tiled,
-                        at + "\"tiled\" renderer")
+    held = held_rows(torch, rows, recs, "view", tiled,
+                     at + "\"tiled\" renderer")
 
     srv = cli.viewer_from_args(parser.parse_args(["view", "--port", "0"]))
     torch.cuda.synchronize()
@@ -3928,8 +3961,8 @@ def fe_view(torch, rows) -> dict:
         f"{counts}")
     fe_check(frames > 0 and counts.get("blend_packed_tile", 0) >= frames,
              f"view serving: {frames} frames, launches {counts}")
-    held += fe_held_rows(torch, rows, recs, "view-serving", counts,
-                         at + "\"serving\" renderer under a held key")
+    held += held_rows(torch, rows, recs, "view-serving", counts,
+                      at + "\"serving\" renderer under a held key")
     return dict(tiled_first_frame_equal=same, tiled_launches=first,
                 serving_frames=frames, serving_last_ms=last["ms"],
                 serving_fps=last["fps"], serving_launches=counts,
@@ -3982,6 +4015,587 @@ def front_ends_phase(torch, rows, capture_dir: str, rtiow, serving: dict,
     out["bench_module"] = fe_bench_module(main_mrays, frame_ms)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase front-ends: {out['seconds']:.1f} s")
+    return out
+
+
+# --- multi-device: the sharded paths on one card ---
+
+MD_TILES = 4             # row slabs of the data-parallel render (a)
+MD_MESH = (2, 4)         # (tiles, splats) of the splat-sharded render (b)
+MD_TIERS = (("compact", {}), ("f32", dict(payload="f32", blend_math="f32")))
+MD_TERM_EPS = 1e-4       # a blend stops a tile once no pixel of it is above
+# A sharded frame against the single-card frame. A slab renders with its
+# own camera (principal point cy - y0, rounded in f32, and on the compact
+# payload means fixed-point relative to the slab's own tile grid: 1080 rows
+# have no slab height that is a multiple of 16), so a pair whose alpha at
+# a pixel sits at the threshold can be taken in one frame and not in the
+# other, and a tile stops at saturation at another pair. Gate: every entry
+# within MD_FRAME_CAP (render_tiled against render_fast, phase check) and
+# at most MD_FRAME_SHARE of the pixels past MD_FRAME_ATOL (the blends'
+# tolerance; the share is the blend's hits gate); the worst pixel past it
+# is logged with what moves it (`slab_witness`).
+MD_FRAME_ATOL, MD_FRAME_CAP, MD_FRAME_SHARE = 2e-3, 2e-2, 1e-3
+# the JAX suite's bounds (set on 400 splats), logged beside the gate:
+# (a) f32 at tests/test_parallel.py:112-115, (b) at :138-141; gather
+# against butterfly at :84-87, a gate
+MD_BOUNDS = {
+    "dp-f32": dict(rtol=(1e-5, 1e-4), atol=(1e-6, 1e-5)),
+    "sharded": dict(rtol=(1e-4, 1e-3), atol=(1e-5, 1e-4)),
+    "composites": dict(rtol=(1e-5, 1e-5), atol=(1e-6, 1e-6)),
+}
+MD_PATH = {"compact": ("expand_pairs_fused", "expand_pairs_binned",
+                       "partition_group_stream", "blend_packed_group"),
+           "f32": ("expand_pairs_fused", "blend_packed_tile")}
+MD_RANKS = 2
+MD_RANK_TIMEOUT = 180    # seconds the two ranks may take together
+# one rank of the two-rank step: loads the kernels the build phase made
+MD_RANK_CODE = r'''
+import json, sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from gsrt_torch import RenderConfig, _kernels
+from gsrt_torch.parallel import multihost, render_data_parallel, tiled_render_fn
+from gsrt_torch.scene import random_cloud
+
+port, rank, mp, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+stale = [n for n in _kernels.SOURCES if not _kernels._fresh(n)]
+if stale:
+    raise SystemExit(f"rank {rank}: kernels not built: {stale}")
+multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+cfg, cloud, camera = cs.render_cell()
+mesh = multihost.global_render_mesh()
+torch.cuda.synchronize()
+_kernels.reset_launch_counts()
+slabs = render_data_parallel(cloud, camera, cfg, mesh,
+                             render_fn=tiled_render_fn(mp))
+torch.cuda.synchronize()
+counts = {k: v for k, v in _kernels.launch_counts().items() if v}
+trans, color = multihost.gather_to_hosts(slabs)
+multihost.sync_hosts()
+sc, scam = random_cloud(256, seed=3, width=64, height=32, device="cuda")
+scfg = RenderConfig(width=64, height=32, conic_mode="standard",
+                    splat_chunk=64)
+small = multihost.gather_to_hosts(
+    multihost.render_data_parallel_global(sc, scam, scfg, mesh))
+multihost.sync_hosts()
+if rank == 0:
+    np.savez(out, trans=trans, color=color, small_trans=small[0],
+             small_color=small[1])
+print("RANK " + json.dumps({
+    "rank": rank, "y0": list(slabs.y0), "launches": counts,
+    "backend": torch.distributed.get_backend(),
+    "device": str(mesh.devices[rank][0])}), flush=True)
+torch.distributed.destroy_process_group()
+'''
+
+
+def md_diff(torch, got, want, rtol, atol) -> dict:
+    """got, want: (trans [H, W], colour [H, W, 3]). The largest |got -
+    want| of each, the entries past atol + rtol·|want| (`over`, NaN
+    counted), and both again over the pixels whose transmittance stays
+    above the blends' stop threshold in both frames (`_open`): only there
+    does each frame blend every pair of the pixel."""
+    open_px = (got[0] > MD_TERM_EPS) & (want[0] > MD_TERM_EPS)
+    res = dict(saturated_px=int((~open_px).sum()))
+    for name, g, w, r, a, m in zip(
+            ("trans", "color"), got, want, rtol, atol,
+            (open_px, open_px[..., None].expand_as(got[1]))):
+        d = (g - w).abs()
+        over = (d > a + r * w.abs()) | ~torch.isfinite(d)
+        res[f"{name}_max_abs"] = d.max().item()
+        res[f"{name}_over"] = int(over.sum())
+        res[f"{name}_max_abs_open"] = d[m].max().item() if m.any() else 0.0
+        res[f"{name}_over_open"] = int((over & m).sum())
+    res["ok"] = res["trans_over"] == 0 and res["color_over"] == 0
+    return res
+
+
+def describe_diff(d: dict) -> str:
+    return (f"max |d trans| {d['trans_max_abs']:.3e}, |d colour| "
+            f"{d['color_max_abs']:.3e}, entries past the bound {d['trans_over']}"
+            f" / {d['color_over']} (on pixels above {MD_TERM_EPS} in both: "
+            f"{d['trans_max_abs_open']:.3e} / {d['color_max_abs_open']:.3e}, "
+            f"{d['trans_over_open']} / {d['color_over_open']}); "
+            f"{d['saturated_px']} px at or below {MD_TERM_EPS}")
+
+
+def slab_witness(torch, cloud, camera, cfg, slab_h, x, y) -> dict:
+    """What moves pixel (x, y) between the single-card frame and the
+    frame of its row slab, each in its render's math (the camera's
+    projection, the rect spans that bin a splat to the pixel's tile, then
+    the f32 payload's means, conic and 15-bit opacity, or the compact
+    payload's tile-relative fixed-point mean, bf16 Cholesky factor and u8
+    opacity):
+    the splats the pixel takes in one and not in the other (and of these
+    the ones binned to its tile in one only), with the largest such alpha
+    both ways, and the largest alpha difference of a splat taken in
+    both."""
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import splat_packed as sp, tile_binning as tb
+    from gsrt_torch.parallel.tiles import _slab_camera
+    y0 = y // slab_h * slab_h
+    tw, th = cfg.tile_w, cfg.tile_h
+    akw = grt.blend_params(cfg)
+    compact = grt.stream_plan(cfg, camera.width, camera.height).compact
+    at = lambda v: torch.tensor([float(v)], device=DEVICE)
+    takes, alpha, binned = [], [], []
+    for cam, py in ((camera, y), (_slab_camera(camera, y0, slab_h), y - y0)):
+        depth, mean2d, quad, in_front, colors = grt._precompute(cloud, cam,
+                                                                cfg)
+        alive = grt.alive_mask(depth, cloud.opacity, in_front, cfg)
+        op = torch.where(alive, cloud.opacity,
+                         torch.zeros_like(cloud.opacity))
+        mx, my, qa, qb, qc = mean2d[:, 0], mean2d[:, 1], *quad.unbind(1)[:3]
+        rx, ry = grt.screen_extents_abc(
+            qa, qb, qc, cfg.conic_mode, cfg.g_cutoff, opacity=cloud.opacity,
+            alpha_threshold=cfg.alpha_threshold)
+        tx, ty = x // tw, py // th
+        sx0, sx1, sy0, sy1, touched = tb.compute_tile_spans(
+            mx, my, rx, ry, alive, cam.width, cam.height, tw, th)
+        binned.append((touched > 0) & (sx0 <= tx) & (tx <= sx1)
+                      & (sy0 <= ty) & (ty <= sy1))
+        if compact:
+            l11, l21, l22 = tb.conic_cholesky(qa, qb, qc)
+            f = sp.decode_pairs(torch.stack([
+                tb.pack_mean_rel(mx - tx * tw, my - ty * th),
+                tb.pack_bf16_pair(l11, l21), tb.pack_bf16_pair(l22, depth),
+                tb.pack_rgba8(colors[:, 0], colors[:, 1], colors[:, 2],
+                              op)]))
+            g, op = sp.response(f, at(x - tx * tw), at(py - ty * th))[0], \
+                f["op"]
+        else:
+            g = sp.response(dict(mx=mx, my=my, qa=qa, qb=qb, qc=qc), at(x),
+                            at(py))[0]
+            op = tb.unpack15(tb.pack15(colors[:, 2], op))[1]
+        _, take = sp.alphas(g[None], op, **akw)
+        takes.append(take[0] & alive & binned[-1])
+        alpha.append(torch.clamp_max(op * torch.exp(-g), akw["alpha_clamp"]))
+    one_side = takes[0] != takes[1]
+    both = takes[0] & takes[1]
+    res = dict(pixel=[x, y], slab_y0=y0, taken=[int(t.sum()) for t in takes],
+               one_side=int(one_side.sum()),
+               one_side_binned=int((one_side & (binned[0] != binned[1]))
+                                   .sum()), largest=None)
+    step = torch.where(both, (alpha[0] - alpha[1]).abs(),
+                       torch.zeros_like(alpha[0]))
+    res["alpha_max_diff_both"] = step.max().item()
+    if res["one_side"]:
+        i = int(torch.where(one_side, torch.maximum(*alpha),
+                            torch.full_like(alpha[0], -1.0)).argmax())
+        res["largest"] = dict(splat=i, alpha_frame=alpha[0][i].item(),
+                              alpha_slab=alpha[1][i].item(),
+                              threshold=cfg.alpha_threshold)
+    return res
+
+
+def md_frame(torch, got, want, cloud, camera, cfg, slab_h) -> dict:
+    """A sharded frame (trans, colour) against the single-card frame under
+    the gate of MD_FRAME_*: per pixel the largest |difference| of its
+    entries."""
+    d = torch.maximum((got[0] - want[0]).abs(),
+                      (got[1] - want[1]).abs().amax(-1))
+    d = torch.where(torch.isfinite(d), d, torch.full_like(d, float("inf")))
+    over = int((d > MD_FRAME_ATOL).sum())
+    y, x = divmod(int(d.argmax()), d.shape[1])
+    res = dict(max_abs=d.max().item(), px_over=over, worst=[x, y],
+               worst_saturated=bool(min(got[0][y, x], want[0][y, x])
+                                    <= MD_TERM_EPS), witness=None)
+    if over:
+        res["witness"] = slab_witness(torch, cloud, camera, cfg, slab_h, x, y)
+    res["ok"] = (res["max_abs"] <= MD_FRAME_CAP
+                 and over <= MD_FRAME_SHARE * d.numel())
+    return res
+
+
+def describe_frame(f: dict) -> str:
+    w = f["witness"]
+    return (f"max |d| {f['max_abs']:.3e} (cap {MD_FRAME_CAP}), {f['px_over']}"
+            f" px past {MD_FRAME_ATOL} (at most {MD_FRAME_SHARE} of the "
+            f"pixels); worst pixel {f['worst']}"
+            + (" at or below the stop" if f["worst_saturated"] else "")
+            + ("" if w is None else
+               f", {w['one_side']} splats taken there on one side only "
+               f"({w['one_side_binned']} binned to its tile on one side "
+               f"only; frame {w['taken'][0]}, slab {w['taken'][1]}), the "
+               f"largest "
+               f"{w['largest']}; largest alpha difference of a splat taken "
+               f"on both {w['alpha_max_diff_both']:.3e}"))
+
+
+def md_counted(torch, render, wrappers):
+    """One call of `render` with the launch counts set to 0 just before
+    and read just after, the last call of each (module, name) recorded."""
+    import contextlib
+    from gsrt_torch import _kernels
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        recs = [stack.enter_context(Recorder(m, n, last_only=True))
+                for m, n in wrappers]
+        _kernels.reset_launch_counts()
+        got = render()
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+    return got, {k: v for k, v in counts.items() if v}, recs
+
+
+def md_wrappers(tier: str):
+    from gsrt_torch.ops import pair_expand, splat_packed
+    return ((pair_expand, "expand_pairs_fused"),) + (
+        ((pair_expand, "expand_pairs_binned"),) if tier == "compact"
+        else ()) + ((splat_packed, "blend_packed"),)
+
+
+def md_peak_mib(torch, render) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def md_data_parallel(torch, rows, cloud, camera, cfg, tier, ref, fails):
+    """(a): calibrate_sharded, then render_data_parallel over MD_TILES
+    row slabs of the card with the tiled render fn; launches, buffer,
+    frame against the single-card frame, ms; rows from the last slab."""
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.parallel import (calibrate_sharded, make_render_mesh,
+                                     render_data_parallel, tiled_render_fn)
+    from gsrt_torch.parallel.tiles import _slab_camera
+    t0 = time.perf_counter()
+    mp = calibrate_sharded(cloud, camera, cfg, MD_TILES)
+    cal_s = time.perf_counter() - t0
+    slab_h = camera.height // MD_TILES
+    need = [int(grt.count_pairs(cloud, _slab_camera(camera, i * slab_h,
+                                                     slab_h), cfg))
+            for i in range(MD_TILES)]
+    mesh = make_render_mesh(MD_TILES, devices=[DEVICE] * MD_TILES)
+    fn = tiled_render_fn(mp)
+    render = lambda: render_data_parallel(cloud, camera, cfg, mesh,
+                                          render_fn=fn)
+    got, counts, recs = md_counted(torch, render, md_wrappers(tier))
+    want = {k: MD_TILES for k in MD_PATH[tier]}
+    frame = md_frame(torch, got, ref, cloud, camera, cfg, slab_h)
+    res = dict(max_pairs=mp, calibrate_s=cal_s, slab_pairs=need,
+               launches=counts, frame=frame, ms=time_cuda(render, 5),
+               peak_mib=md_peak_mib(torch, render))
+    if tier == "f32":
+        res["jax_bounds"] = md_diff(torch, got, ref, **MD_BOUNDS["dp-f32"])
+    log(f"phase multi-device: (a) {tier}: calibrate_sharded over "
+        f"{MD_TILES} slabs of {slab_h} rows {cal_s:.2f} s on the host, "
+        f"max_pairs {mp}; slab pairs {need}; launches {counts}")
+    log(f"phase multi-device: (a) {tier} against the single-card frame: "
+        f"{describe_frame(frame)}")
+    if "jax_bounds" in res:
+        log(f"phase multi-device: (a) {tier} at tests/test_parallel.py:"
+            f"112-115's bounds: {describe_diff(res['jax_bounds'])}")
+    log(f"phase multi-device: (a) {tier}: {res['ms']:.4f} ms a frame over "
+        f"{MD_TILES} slabs, peak {res['peak_mib']:.0f} MiB (the slabs run "
+        f"one after another on one card: the cost of slabbing, not a "
+        f"speedup)")
+    if counts != want:
+        fails.append(f"(a) {tier} launched {counts}, want {want}")
+    if max(need) > mp:
+        fails.append(f"(a) {tier}: a slab needs {max(need)} pairs > {mp}")
+    if not frame["ok"]:
+        fails.append(f"(a) {tier} differs from the single-card frame")
+    tag = "dp" if tier == "compact" else "dp-f32"
+    res["rows"] = held_rows(
+        torch, rows, recs, tag, counts,
+        f"multi-device (a): the last of {MD_TILES} row slabs ({slab_h} "
+        f"rows) of the render cell, {tier} payload", phase="multi-device")
+    return res
+
+
+def md_splat_sharded(torch, rows, cloud, camera, cfg, tier, ref, fails):
+    """(b): shard_cloud_by_depth, calibrate_sharded and
+    render_splat_sharded on an MD_MESH mesh of the card, both composites
+    (the gather's counted run recorded on the compact payload), and the
+    butterfly with a white background; launches, buffer, frames against
+    the single-card frame and each other, ms, peak memory."""
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.parallel import (calibrate_sharded, make_render_mesh,
+                                     render_splat_sharded, tiled_render_fn)
+    from gsrt_torch.parallel.tiles import (_shard, _slab_camera,
+                                           shard_cloud_by_depth)
+    n_t, n_sh = MD_MESH
+    slab_h = camera.height // n_t
+    sharded = shard_cloud_by_depth(cloud, camera, n_sh)
+    t0 = time.perf_counter()
+    mp = calibrate_sharded(sharded, camera, cfg, n_t, n_sh)
+    cal_s = time.perf_counter() - t0
+    need = [int(grt.count_pairs(_shard(sharded, j, n_sh),
+                                _slab_camera(camera, i * slab_h, slab_h),
+                                cfg))
+            for i in range(n_t) for j in range(n_sh)]
+    mesh = make_render_mesh(n_t, n_sh, [DEVICE] * (n_t * n_sh))
+    fn = tiled_render_fn(mp)
+    want = {k: n_t * n_sh for k in MD_PATH[tier]}
+    log(f"phase multi-device: (b) {tier}: {sharded.n} splats in {n_sh} "
+        f"depth slabs over {n_t} row slabs of {slab_h} rows; "
+        f"calibrate_sharded {cal_s:.2f} s on the host, max_pairs {mp}; "
+        f"shard pairs {need}")
+    if max(need) > mp:
+        fails.append(f"(b) {tier}: a shard needs {max(need)} pairs > {mp}")
+    res = dict(max_pairs=mp, calibrate_s=cal_s, shard_pairs=need)
+    frames = {}
+    for comp in ("gather", "butterfly", "white"):
+        c = cfg.replace(white_background=comp == "white")
+        render = lambda c=c, comp=comp: render_splat_sharded(
+            sharded, camera, c, mesh, render_fn=fn,
+            composite="gather" if comp == "gather" else "butterfly")
+        record = tier == "compact" and comp == "gather"
+        got, counts, recs = md_counted(
+            torch, render, md_wrappers(tier) if record else ())
+        frames[comp] = got
+        target = (ref[0], ref[1] + ref[0][..., None]) if comp == "white" \
+            else ref
+        frame = md_frame(torch, got, target, cloud, camera, cfg, slab_h)
+        r = dict(launches=counts, frame=frame, ms=time_cuda(render, 3),
+                 peak_mib=md_peak_mib(torch, render),
+                 jax_bounds=md_diff(torch, got, target,
+                                    **MD_BOUNDS["sharded"]))
+        log(f"phase multi-device: (b) {tier} {comp}: launches {counts}; "
+            f"against the single-card frame: {describe_frame(frame)}; "
+            f"{r['ms']:.4f} ms a frame, peak {r['peak_mib']:.0f} MiB")
+        log(f"phase multi-device: (b) {tier} {comp} at tests/test_parallel"
+            f".py:138-141's bounds: {describe_diff(r['jax_bounds'])}")
+        if counts != want:
+            fails.append(f"(b) {tier} {comp} launched {counts}, want {want}")
+        if not frame["ok"]:
+            fails.append(f"(b) {tier} {comp} differs from the single-card "
+                         f"frame")
+        if record:
+            r["rows"] = held_rows(
+                torch, rows, recs, "sharded", counts,
+                f"multi-device (b): the last of {n_t}x{n_sh} shards "
+                f"({sharded.n // n_sh} splats, {slab_h} rows) of the render "
+                f"cell, gather composite", phase="multi-device")
+        res[comp] = r
+    comp_diff = md_diff(torch, frames["butterfly"], frames["gather"],
+                        **MD_BOUNDS["composites"])
+    res["butterfly_vs_gather"] = comp_diff
+    log(f"phase multi-device: (b) {tier} butterfly against gather: "
+        f"{describe_diff(comp_diff)}")
+    if not comp_diff["ok"]:
+        fails.append(f"(b) {tier}: butterfly differs from gather")
+    return res
+
+
+def md_padded(torch, fails) -> dict:
+    """333 splats padded to 336 over a 2x4 mesh through the kernels: the
+    padding splats bin no pair, and the frame matches the single-card
+    one."""
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.parallel import (calibrate_sharded, make_render_mesh,
+                                     render_splat_sharded, tiled_render_fn)
+    from gsrt_torch.parallel.tiles import _slab_camera, shard_cloud_by_depth
+    from gsrt_torch.scene import random_cloud
+    n_t, n_sh = MD_MESH
+    cloud, camera = random_cloud(333, seed=6, width=256, height=128,
+                                 device=DEVICE)
+    cfg = RenderConfig(width=256, height=128, conic_mode="standard")
+    sharded = shard_cloud_by_depth(cloud, camera, n_sh)
+    pad = type(sharded)(*(x[cloud.n:] for x in sharded))
+    pad_pairs = [int(grt.count_pairs(pad, _slab_camera(camera, 64 * i, 64),
+                                     cfg)) for i in range(n_t)]
+    mp = calibrate_sharded(sharded, camera, cfg, n_t, n_sh)
+    ref = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)(cloud, camera)
+    got, counts, _ = md_counted(torch, lambda: render_splat_sharded(
+        sharded, camera, cfg, make_render_mesh(n_t, n_sh,
+                                               [DEVICE] * (n_t * n_sh)),
+        render_fn=tiled_render_fn(mp), composite="butterfly"), ())
+    frame = md_frame(torch, got, (ref.trans, ref.color), cloud, camera, cfg,
+                     camera.height // n_t)
+    log(f"phase multi-device: padded: {pad.n} padding splats bin "
+        f"{pad_pairs} pairs in the slabs; launches {counts}; against the "
+        f"single-card frame: {describe_frame(frame)}")
+    if any(pad_pairs) or pad.opacity.any():
+        fails.append(f"padding splats bin {pad_pairs} pairs")
+    if counts != {k: n_t * n_sh for k in MD_PATH["compact"]}:
+        fails.append(f"padded case launched {counts}")
+    if not frame["ok"]:
+        fails.append("padded case differs from the single-card frame")
+    return dict(pad_splats=pad.n, pad_pairs=pad_pairs, launches=counts,
+                frame=frame)
+
+
+def md_train(torch, fails) -> dict:
+    """make_train_step_dp over MD_TILES row slabs of the card against
+    train_step (λ_ssim 0, so the slabs' mean loss and gradients are the
+    whole image's), from the same parameters: no kernel may launch."""
+    import numpy as np
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.interop import params_from_numpy, params_to_numpy
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.models.trainer import (init_params, make_optimizer,
+                                           make_train_step_dp, train_step)
+    from gsrt_torch.parallel import make_render_mesh
+    from gsrt_torch.scene import demo_gauss_splat
+    cloud, camera = demo_gauss_splat(width=64, height=64, device=DEVICE)
+    cfg = RenderConfig(width=64, height=64, conic_mode="standard")
+    target = grt.render_fast(cloud, camera, cfg).color * 0.5
+    arrays = params_to_numpy(init_params(cloud))
+    p1, p2 = (params_from_numpy(*arrays, device=DEVICE) for _ in range(2))
+    loss1 = float(train_step(p1, make_optimizer(p1), target, camera, cfg,
+                             lambda_ssim=0.0))
+    step = make_train_step_dp(
+        cfg, make_optimizer(p2),
+        make_render_mesh(MD_TILES, devices=[DEVICE] * MD_TILES), 0.0)
+    loss2, counts, _ = md_counted(
+        torch, lambda: step(p2, target, camera), ())
+    loss2 = float(loss2)
+    a, b = params_to_numpy(p2), params_to_numpy(p1)
+    same = {name: bool(np.allclose(a[k], b[k], rtol=1e-4, atol=1e-6))
+            for k, name in ((0, "means"), (4, "sh"))}
+    ok = abs(loss2 - loss1) <= 1e-5 * abs(loss1) and all(same.values())
+    step_ms = time_cuda(lambda: step(p2, target, camera), 3)
+    single_ms = time_cuda(lambda: train_step(
+        p1, make_optimizer(p1), target, camera, cfg, lambda_ssim=0.0), 3)
+    log(f"phase multi-device: train: make_train_step_dp over {MD_TILES} "
+        f"slabs loss {loss2:.8f}, train_step {loss1:.8f} (rtol 1e-5); "
+        f"means and SH within rtol 1e-4 / atol 1e-6 {same}; launches "
+        f"{counts}; {step_ms:.3f} ms a DP step, {single_ms:.3f} ms a "
+        f"single step")
+    if not ok:
+        fails.append("the DP train step differs from train_step")
+    if counts:
+        fails.append(f"the DP train step launched {counts}")
+    return dict(loss=loss2, single_loss=loss1, params_close=same,
+                launches=counts, ms=step_ms, single_ms=single_ms)
+
+
+def md_ranks(torch, cloud, camera, cfg, fails) -> dict:
+    """Two ranks on the card, spawned as processes and joined over TCP on
+    localhost with backend="gloo" (NCCL refuses two ranks on one card):
+    each renders its row slab of the render cell through
+    render_data_parallel on global_render_mesh() with the tiled render
+    fn, then gather_to_hosts and sync_hosts, and render_data_parallel_global
+    at tests/test_multihost.py's size. Rank 0's image must equal the
+    in-process render over MD_RANKS slabs bit for bit; the small one
+    render_fast's within test_multihost's bounds."""
+    import socket
+    import tempfile
+    import numpy as np
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.parallel import (calibrate_sharded, make_render_mesh,
+                                     render_data_parallel, tiled_render_fn)
+    from gsrt_torch.scene import random_cloud
+    mp = calibrate_sharded(cloud, camera, cfg, MD_RANKS)
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    log(f"phase multi-device: ranks: {MD_RANKS} processes on the card, "
+        f"backend gloo, localhost:{port}, max_pairs {mp}")
+    reports, logs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.npz")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MD_RANK_CODE, str(port), str(r), str(mp),
+             out], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(MD_RANKS)]
+        try:
+            for r, p in enumerate(procs):
+                left = MD_RANK_TIMEOUT - (time.perf_counter() - t0)
+                try:
+                    so, se = p.communicate(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    fails.append(f"rank {r} did not end within "
+                                 f"{MD_RANK_TIMEOUT} s")
+                    break
+                logs.append(f"rank {r} (exit {p.returncode}): "
+                            f"{se[-2000:]}")
+                if p.returncode != 0:
+                    fails.append(f"rank {r} exited {p.returncode}")
+                reports += [json.loads(line[5:]) for line in so.splitlines()
+                            if line.startswith("RANK ")]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        got = dict(np.load(out)) if os.path.exists(out) else None
+    for line in logs:
+        if "exit 0" not in line:
+            log(f"phase multi-device: {line}")
+    res = dict(wall_s=wall, reports=reports, max_pairs=mp)
+    log(f"phase multi-device: ranks: {wall:.1f} s wall; {reports}")
+    want_y0 = [[r * camera.height // MD_RANKS] for r in range(MD_RANKS)]
+    path = {k: 1 for k in MD_PATH["compact"]}
+    if len(reports) != MD_RANKS or [r["y0"] for r in reports] != want_y0 \
+            or any(r["launches"] != path or r["backend"] != "gloo"
+                   for r in reports):
+        fails.append(f"ranks reported {reports}: want each slab y0 "
+                     f"{want_y0}, launches {path}, backend gloo")
+    if got is None:
+        fails.append("rank 0 wrote no image")
+        return res
+    mesh = make_render_mesh(MD_RANKS, devices=[DEVICE] * MD_RANKS)
+    trans, color = render_data_parallel(cloud, camera, cfg, mesh,
+                                        render_fn=tiled_render_fn(mp))
+    same = bool(np.array_equal(got["trans"], trans.cpu().numpy())
+                and np.array_equal(got["color"], color.cpu().numpy()))
+    sc, scam = random_cloud(256, seed=3, width=64, height=32, device=DEVICE)
+    ref = grt.render_fast(sc, scam, RenderConfig(
+        width=64, height=32, conic_mode="standard", splat_chunk=64))
+    small = bool(np.allclose(got["small_trans"], ref.trans.cpu().numpy(),
+                             rtol=1e-5, atol=1e-6)
+                 and np.allclose(got["small_color"], ref.color.cpu().numpy(),
+                                 rtol=1e-5, atol=1e-5))
+    res.update(image_bitwise_equal=same, small_within_bounds=small)
+    log(f"phase multi-device: ranks: the gathered 1080p frame equals the "
+        f"in-process render over {MD_RANKS} slabs bit for bit: {same}; "
+        f"render_data_parallel_global at 64x32 within rtol 1e-5 of "
+        f"render_fast: {small}")
+    if not same:
+        fails.append("the two ranks' frame differs from the in-process one")
+    if not small:
+        fails.append("render_data_parallel_global differs from render_fast")
+    return res
+
+
+def multi_device_phase(torch, rows) -> dict:
+    """multi-device: the sharded paths of gsrt_torch.parallel on one card
+    (see the module docstring). Appends the rows that hold the path's
+    kernels on the last shard's inputs to `rows`."""
+    from gsrt_torch.models import gaussian_rt as grt
+    t0 = time.perf_counter()
+    fails = []
+    cfg0, cloud, camera = render_cell()
+    out = {}
+    for tier, kw in MD_TIERS:
+        cfg = cfg0.replace(**kw)
+        tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+        frame = tracer(cloud, camera)
+        ref = (frame.trans, frame.color)
+        res = dict(single_ms=time_cuda(lambda: tracer(cloud, camera), 5),
+                   single_peak_mib=md_peak_mib(
+                       torch, lambda: tracer(cloud, camera)),
+                   single_max_pairs=tracer.max_pairs)
+        log(f"phase multi-device: {tier}: the single-card frame "
+            f"{res['single_ms']:.4f} ms, peak {res['single_peak_mib']:.0f} "
+            f"MiB, max_pairs {tracer.max_pairs}; "
+            f"{int((frame.trans <= MD_TERM_EPS).sum())} px at or below "
+            f"{MD_TERM_EPS}")
+        res["dp"] = md_data_parallel(torch, rows, cloud, camera, cfg, tier,
+                                     ref, fails)
+        res["sharded"] = md_splat_sharded(torch, rows, cloud, camera, cfg,
+                                          tier, ref, fails)
+        out[tier] = res
+        del tracer, frame, ref
+    out["padded"] = md_padded(torch, fails)
+    out["train"] = md_train(torch, fails)
+    out["ranks"] = md_ranks(torch, cloud, camera, cfg0, fails)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase multi-device: {out['seconds']:.1f} s")
+    if fails:
+        raise SystemExit("phase multi-device: " + "; ".join(fails))
     return out
 
 
@@ -4248,6 +4862,7 @@ def main() -> int:
         front_ends = front_ends_phase(
             torch, rows, capture_dir, scenes["catalog"]["rtiow"].pop("image"),
             serving, mrays, frame_ms)
+    multi_device = multi_device_phase(torch, rows)
     log("kernels: " + ", ".join(f"{r['name']} x{r['launches']}"
                                 for r in rows))
     log(f"run: {time.perf_counter() - t_run:.1f} s wall")
@@ -4259,6 +4874,7 @@ def main() -> int:
                       "max_rows": mrows, "serving": serving,
                       "train": train, "fit": fit, "kbuffer": kbuffer,
                       "tri": tri, "scenes": scenes, "front_ends": front_ends,
+                      "multi_device": multi_device,
                       "wall_s": time.perf_counter() - t_run}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,13 @@ instancing (`scene.instancing`), the LBVH (`ops.bvh`) and the reference
 scenes (`scene.reference_scenes`); and the front ends — the command line
 (`python -m gsrt_torch.cli`), the HTTP viewer (`gsrt_torch.viewer`), the
 host helpers with a PNG codec of their own (`gsrt_torch.utils`) and the
-headline benchmark (`python -m gsrt_torch.bench`). ROADMAP.md lists what
-remains.
+headline benchmark (`python -m gsrt_torch.bench`); and the multi-device
+paths — row-slab and depth-slab sharded rendering over a mesh of devices
+(`gsrt_torch.parallel`, a device may repeat), multi-process rendering on
+torch.distributed (`parallel.multihost`) and the data-parallel train
+step (`models.trainer.make_train_step_dp`). That is all of `gsrt` but its
+NumPy test oracle, which the port replaces by `render_fast` and each
+kernel's plain version.
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

@@ -12,12 +12,14 @@ from gsrt_torch.models.path_tracer import (
     with_texture_mips, with_tri_clusters, with_tri_table)
 from gsrt_torch.models.tiled_diff import render_tiled_diff
 from gsrt_torch.models.trainer import (GaussianParams, init_params,
-                                       make_optimizer, random_init,
+                                       make_optimizer,
+                                       make_train_step_dp, random_init,
                                        train_step, train_step_tiled)
 
 __all__ = ["GaussianRayTracer", "RenderOutput", "render_fast",
            "render_tiled", "render_tiled_diff", "GaussianParams",
            "init_params", "random_init", "make_optimizer", "train_step",
+           "make_train_step_dp",
            "train_step_tiled", "PrimitiveScene", "with_tri_table",
            "with_tri_clusters", "with_texture_mips", "render_foveated",
            "render_path_traced", "render_path_traced_calibrated",

@@ -9,8 +9,8 @@ indices are constants of a step, as in the standard CUDA trainer.
 PyTorch idiom where it differs from the JAX package: the parameters are
 an `nn.Module`, the optimiser is one `torch.optim.Adam` that owns its
 state, and a training step updates both in place and returns the loss.
-The data-parallel step (`make_train_step_dp`) is not ported yet
-(ROADMAP.md Queue 1 item 13).
+`make_train_step_dp` takes the step over a mesh's row slabs
+(`gsrt_torch.parallel`), averaging the slabs' gradients.
 """
 
 from __future__ import annotations
@@ -171,3 +171,51 @@ def train_step_tiled(params: GaussianParams, optimizer, target,
     return _step(lambda: render_loss_tiled(params, target, camera, cfg,
                                            max_pairs, lambda_ssim),
                  optimizer)
+
+
+def make_train_step_dp(cfg: RenderConfig, optimizer, mesh,
+                       lambda_ssim: float = 0.2):
+    """Data-parallel training step over the mesh's 'tiles' axis
+    (`gsrt_torch.parallel.make_render_mesh`): each row slab renders
+    through `render_fast` on its row's first device with a shifted camera
+    and is differentiated alone (SSIM windows stay inside a slab, and
+    only where the slab is at least 11 pixels each way); the slabs'
+    gradients and losses are averaged, written to the parameters' .grad,
+    and the optimiser steps.
+
+    Returns step(params, target [H, W, 3], camera) → the mean loss before
+    the step; params and the optimiser are updated in place."""
+    from gsrt_torch.parallel.tiles import _slab_camera
+    if mesh.spans_processes:
+        raise ValueError("make_train_step_dp runs on a mesh of this "
+                         "process's devices")
+    n_tiles = mesh.shape["tiles"]
+
+    def step(params: GaussianParams, target, camera: Camera):
+        if camera.height % n_tiles:
+            raise ValueError("the image height must divide the tile axis")
+        slab_h = camera.height // n_tiles
+        slab_cfg = cfg.replace(height=slab_h)
+        leaves = list(params.parameters())
+        home = leaves[0].device
+        loss_sum, grad_sum = None, None
+        for i in range(n_tiles):
+            dev = mesh.devices[i][0]
+            cam = _slab_camera(camera, i * slab_h, slab_h).to(dev)
+            out = render_fast(params.to_cloud().to(dev), cam, slab_cfg)
+            loss = image_loss(out.color,
+                              target[i * slab_h:(i + 1) * slab_h].to(dev),
+                              lambda_ssim)
+            grads = [g.to(home) for g in torch.autograd.grad(loss, leaves)]
+            loss = loss.detach().to(home)
+            if grad_sum is None:
+                loss_sum, grad_sum = loss, grads
+            else:
+                loss_sum = loss_sum + loss
+                grad_sum = [a + b for a, b in zip(grad_sum, grads)]
+        for p, g in zip(leaves, grad_sum):
+            p.grad = g / n_tiles
+        optimizer.step()
+        return loss_sum / n_tiles
+
+    return step
