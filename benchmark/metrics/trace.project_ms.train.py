@@ -1,0 +1,12 @@
+"""Device ms a training step of the program's `render.project` spans:
+`render_tiled_diff`'s `_precompute`, `screen_extents_abc` and
+`alive_mask`, everything before the binning (two CUDA events on the
+current stream). Items are the program's roots, `train.step`
+(`trainer._step`), recorded while the traced stretch's profiler records;
+None where it recorded none."""
+
+from benchmark import program_trace
+
+
+def read(run):
+    return program_trace.span_ms("render.project")

@@ -46,6 +46,7 @@ from gsrt_torch.ops.gaussian import (eval_gaussian_response, invert_cov3d,
 from gsrt_torch.ops.kbuffer import finish_pass, merge_nearest, ray_window
 from gsrt_torch.ops.sh import eval_sh
 from gsrt_torch.ops.tile_binning import group_rows_k, tile_extent
+from gsrt_torch.utils.profiling import TRACER
 
 
 class RenderOutput(NamedTuple):
@@ -400,46 +401,54 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
             pair_depth=torch.zeros(max_pairs, device=camera.device),
             consumed=zi(1, cfg.blend_bs))
 
-    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
-    m2x, m2y = mean2d[:, 0], mean2d[:, 1]
-    qa, qb, qc = quad[:, 0], quad[:, 1], quad[:, 2]
-    rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode, cfg.g_cutoff,
-                                opacity=cloud.opacity,
-                                alpha_threshold=cfg.alpha_threshold)
-    alive = alive_mask(depth, cloud.opacity, in_front, cfg)
-    binning = build_tile_binning(
-        depth, m2x, m2y, qa, qb, qc, cloud.opacity, colors[:, 0],
-        colors[:, 1], colors[:, 2], rx, ry, alive,
-        width=camera.width, height=camera.height, tile_w=tw, tile_h=th,
-        max_pairs=max_pairs, compact=plan.compact, span_mode=plan.span_mode,
-        max_rows=max_rows, stream=plan.stream, expand_impl=cfg.expand_impl,
-        cutoff_map=cutoff_map, carry_depth=serving,
-        cull_super=cfg.serving_super, g_cutoff=cfg.g_cutoff,
-        alpha_threshold=cfg.alpha_threshold)
+    with TRACER.span("render.project"):
+        depth, mean2d, quad, in_front, colors = _precompute(cloud, camera,
+                                                            cfg)
+        m2x, m2y = mean2d[:, 0], mean2d[:, 1]
+        qa, qb, qc = quad[:, 0], quad[:, 1], quad[:, 2]
+        rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode,
+                                    cfg.g_cutoff, opacity=cloud.opacity,
+                                    alpha_threshold=cfg.alpha_threshold)
+        alive = alive_mask(depth, cloud.opacity, in_front, cfg)
+    with TRACER.span("render.binning"):
+        binning = build_tile_binning(
+            depth, m2x, m2y, qa, qb, qc, cloud.opacity, colors[:, 0],
+            colors[:, 1], colors[:, 2], rx, ry, alive,
+            width=camera.width, height=camera.height, tile_w=tw, tile_h=th,
+            max_pairs=max_pairs, compact=plan.compact,
+            span_mode=plan.span_mode, max_rows=max_rows, stream=plan.stream,
+            expand_impl=cfg.expand_impl, cutoff_map=cutoff_map,
+            carry_depth=serving, cull_super=cfg.serving_super,
+            g_cutoff=cfg.g_cutoff, alpha_threshold=cfg.alpha_threshold)
+        TRACER.count(pairs=binning.total_pairs, max_pairs=max_pairs)
     size = dict(width=camera.width, height=camera.height)
     exact_hits = None
     consumed = None
-    if tiles128:
-        # the (128, 8) and subtile blends stage and stop at 128-pair chunks
-        color, trans = blend_tiles(binning, chunk=min(cfg.pair_chunk, 128),
-                                   **size, **blend_params(cfg))
-    elif cfg.blend_impl == "subtile":
-        color, trans = blend_subtiles(
-            binning, sub_w=tw, sub_h=th, chunk=min(cfg.pair_chunk, 128),
-            **size, **blend_params(cfg))
-    else:
-        res = list(blend_packed(
-            binning, sub_w=tw, sub_h=th, bs=bs,
-            group_stream=plan.stream == "group", track_consumed=serving,
-            track_hits=cfg.exact_hits,
-            # serving reads saturation positions at chunk granularity: a
-            # 384-pair chunk rounds them up so far that the cull never
-            # engages (the JAX package clamps the same way)
-            chunk=min(cfg.pair_chunk, 128) if serving else cfg.pair_chunk,
-            **size, **blend_params(cfg)))
-        color, trans = res[0], res[1]
-        consumed = res[2] if serving else None
-        exact_hits = res[-1] if cfg.exact_hits else None
+    with TRACER.span("render.blend"):
+        if tiles128:
+            # the (128, 8) and subtile blends stage and stop at 128-pair
+            # chunks
+            color, trans = blend_tiles(
+                binning, chunk=min(cfg.pair_chunk, 128), **size,
+                **blend_params(cfg))
+        elif cfg.blend_impl == "subtile":
+            color, trans = blend_subtiles(
+                binning, sub_w=tw, sub_h=th, chunk=min(cfg.pair_chunk, 128),
+                **size, **blend_params(cfg))
+        else:
+            res = list(blend_packed(
+                binning, sub_w=tw, sub_h=th, bs=bs,
+                group_stream=plan.stream == "group", track_consumed=serving,
+                track_hits=cfg.exact_hits,
+                # serving reads saturation positions at chunk granularity:
+                # a 384-pair chunk rounds them up so far that the cull
+                # never engages (the JAX package clamps the same way)
+                chunk=min(cfg.pair_chunk, 128) if serving
+                else cfg.pair_chunk,
+                **size, **blend_params(cfg)))
+            color, trans = res[0], res[1]
+            consumed = res[2] if serving else None
+            exact_hits = res[-1] if cfg.exact_hits else None
     if cfg.white_background:
         color = color + trans[..., None]
 
@@ -656,25 +665,32 @@ class GaussianRayTracer:
                             max_pairs=self.max_pairs, max_rows=self.max_rows)
 
     def __call__(self, cloud: GaussianCloud, camera: Camera) -> RenderOutput:
-        cloud, camera = cloud.to(self.device), camera.to(self.device)
-        if self.mode == "fast":
-            return render_fast(cloud, camera, self.cfg)
-        if self.mode == "reference":
-            return render_reference(cloud, camera, self.cfg)
-        if self.max_pairs is None:
-            self.calibrate(cloud, camera)
-        out = self._render(cloud, camera)
-        if self.defer_overflow > 0:
-            self._overflow_pending.append(out.overflow)
-            # read a flag only once it is defer_overflow frames old
-            if len(self._overflow_pending) > self.defer_overflow and \
-                    bool(self._overflow_pending.pop(0)):
+        with TRACER.span("render.frame", root=True):
+            cloud, camera = cloud.to(self.device), camera.to(self.device)
+            if self.mode == "fast":
+                return render_fast(cloud, camera, self.cfg)
+            if self.mode == "reference":
+                return render_reference(cloud, camera, self.cfg)
+            if self.max_pairs is None:
+                self.calibrate(cloud, camera)
+            out = self._render(cloud, camera)
+            if self.defer_overflow > 0:
+                self._overflow_pending.append(out.overflow)
+                # read a flag only once it is defer_overflow frames old
+                if len(self._overflow_pending) <= self.defer_overflow:
+                    return out
+                with TRACER.span("render.sync"):
+                    overflow = bool(self._overflow_pending.pop(0))
+                if overflow:
+                    self.calibrate(cloud, camera)
+                    out = self._render(cloud, camera)
+                    self._overflow_pending.clear()
+                return out
+            with TRACER.span("render.sync"):
+                overflow = bool(out.overflow)
+            if overflow:
+                # the view outgrew the buffers (zoom, scene growth): re-size
+                # and render again rather than serve truncated pairs
                 self.calibrate(cloud, camera)
                 out = self._render(cloud, camera)
-                self._overflow_pending.clear()
-        elif bool(out.overflow):
-            # the view outgrew the buffers (zoom, scene growth): re-size
-            # and render again rather than serve truncated pairs
-            self.calibrate(cloud, camera)
-            out = self._render(cloud, camera)
-        return out
+            return out

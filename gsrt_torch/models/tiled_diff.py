@@ -25,6 +25,7 @@ from gsrt_torch.models.gaussian_rt import (_precompute, alive_mask,
                                            blend_params)
 from gsrt_torch.ops.gaussian import screen_extents_abc
 from gsrt_torch.ops.tile_binning import tile_extent
+from gsrt_torch.utils.profiling import TRACER
 
 
 def tilefy(img: torch.Tensor, tile_w: int, tile_h: int) -> torch.Tensor:
@@ -96,20 +97,26 @@ class _TiledBlend(torch.autograd.Function):
         # at the same boundaries, or pairs the forward blended inside a
         # straddling chunk would get zero gradients
         chunk = min(cfg.pair_chunk, 128)
-        binning = build_tile_binning(
-            depth, m2x, m2y, qa, qb, qc, opacity, cr, cg, cb, rx, ry, alive,
-            width=width, height=height, tile_w=tw, tile_h=th,
-            max_pairs=max_pairs, compact=False,
-            expand_impl=cfg.expand_impl, with_ids=True)
-        if bool(binning.overflow):
+        with TRACER.span("render.binning"):
+            binning = build_tile_binning(
+                depth, m2x, m2y, qa, qb, qc, opacity, cr, cg, cb, rx, ry,
+                alive, width=width, height=height, tile_w=tw, tile_h=th,
+                max_pairs=max_pairs, compact=False,
+                expand_impl=cfg.expand_impl, with_ids=True)
+            TRACER.count(pairs=binning.total_pairs, max_pairs=max_pairs)
+        with TRACER.span("train.sync"):
+            overflow = bool(binning.overflow)
+        if overflow:
             raise PairOverflow(int(binning.total_pairs), max_pairs)
-        if (tw, th) == (128, 8):
-            color, trans = blend_tiles(binning, width=width, height=height,
-                                       chunk=chunk, **blend_params(cfg))
-        else:
-            color, trans = blend_subtiles(
-                binning, width=width, height=height, sub_w=tw, sub_h=th,
-                chunk=chunk, **blend_params(cfg))
+        with TRACER.span("render.blend"):
+            if (tw, th) == (128, 8):
+                color, trans = blend_tiles(
+                    binning, width=width, height=height, chunk=chunk,
+                    **blend_params(cfg))
+            else:
+                color, trans = blend_subtiles(
+                    binning, width=width, height=height, sub_w=tw, sub_h=th,
+                    chunk=chunk, **blend_params(cfg))
         ctx.save_for_backward(binning.payload, binning.tile_start,
                               binning.sorted_base, binning.sorted_touched,
                               binning.sorted_orig, color, trans)
@@ -119,18 +126,19 @@ class _TiledBlend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dcolor, dtrans):
         from gsrt_torch.ops.splat_grad import blend_backward
-        payload, tile_start, sbase, stouched, sorig, color, trans = \
-            ctx.saved_tensors
-        cfg, (width, height) = ctx.cfg, ctx.size
-        tw, th = cfg.tile_w, cfg.tile_h
-        planes = [color[..., 0], color[..., 1], color[..., 2], trans,
-                  dcolor[..., 0], dcolor[..., 1], dcolor[..., 2], dtrans]
-        pixstate = torch.stack([tilefy(p, tw, th) for p in planes])
-        grad = blend_backward(
-            payload, tile_start, pixstate, width=width, height=height,
-            tile_w=tw, tile_h=th, chunk=ctx.chunk, **blend_params(cfg))
-        per_splat = route_pair_grads(grad, payload[7], sbase, stouched,
-                                     sorig)
+        with TRACER.span("train.blend_bwd"):
+            payload, tile_start, sbase, stouched, sorig, color, trans = \
+                ctx.saved_tensors
+            cfg, (width, height) = ctx.cfg, ctx.size
+            tw, th = cfg.tile_w, cfg.tile_h
+            planes = [color[..., 0], color[..., 1], color[..., 2], trans,
+                      dcolor[..., 0], dcolor[..., 1], dcolor[..., 2], dtrans]
+            pixstate = torch.stack([tilefy(p, tw, th) for p in planes])
+            grad = blend_backward(
+                payload, tile_start, pixstate, width=width, height=height,
+                tile_w=tw, tile_h=th, chunk=ctx.chunk, **blend_params(cfg))
+            per_splat = route_pair_grads(grad, payload[7], sbase, stouched,
+                                         sorig)
         return (*per_splat, *([None] * 8))
 
 
@@ -153,13 +161,15 @@ def render_tiled_diff(cloud: GaussianCloud, camera: Camera,
     background if cfg asks) and trans [H, W], trainable with respect to
     every field of the cloud. Raises when the view needs more than
     max_pairs pairs."""
-    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
-    qa, qb, qc = quad.unbind(-1)
-    with torch.no_grad():
-        rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode, cfg.g_cutoff,
-                                    opacity=cloud.opacity,
-                                    alpha_threshold=cfg.alpha_threshold)
-        alive = alive_mask(depth, cloud.opacity, in_front, cfg)
+    with TRACER.span("render.project"):
+        depth, mean2d, quad, in_front, colors = _precompute(cloud, camera,
+                                                            cfg)
+        qa, qb, qc = quad.unbind(-1)
+        with torch.no_grad():
+            rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode,
+                                        cfg.g_cutoff, opacity=cloud.opacity,
+                                        alpha_threshold=cfg.alpha_threshold)
+            alive = alive_mask(depth, cloud.opacity, in_front, cfg)
     core = tiled_blend_diff(cfg, camera, max_pairs, depth.detach(), rx, ry,
                             alive)
     color, trans = core(*mean2d.unbind(-1), qa, qb, qc, cloud.opacity,

@@ -23,6 +23,7 @@ from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
 from gsrt_torch.models.gaussian_rt import render_fast
 from gsrt_torch.models.tiled_diff import render_tiled_diff
 from gsrt_torch.ops.gaussian import quat_scale_to_cov3d
+from gsrt_torch.utils.profiling import TRACER
 
 
 class GaussianParams(nn.Module):
@@ -147,10 +148,13 @@ def make_optimizer(params: GaussianParams, lr_means=1.6e-4, lr_scales=5e-3,
 
 
 def _step(loss_fn, optimizer) -> torch.Tensor:
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn()
-    loss.backward()
-    optimizer.step()
+    with TRACER.span("train.step", root=True):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        with TRACER.span("train.backward"):
+            loss.backward()
+        with TRACER.span("train.optim"):
+            optimizer.step()
     return loss.detach()
 
 

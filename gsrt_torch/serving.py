@@ -29,7 +29,6 @@ the device, so only the host's reactions lag.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -40,6 +39,7 @@ from gsrt_torch.models.gaussian_rt import (RenderOutput, ServingAux,
                                            count_pairs_numpy, pair_bucket,
                                            render_tiled)
 from gsrt_torch.ops.tile_binning import tile_extent
+from gsrt_torch.utils.profiling import TRACER
 
 TERM_EPS = 1e-4
 
@@ -116,7 +116,7 @@ class ServingRenderer:
         for camera in path:
             out = srv(cloud, camera)
         srv.finish()   # read the frames still in flight
-        srv.stats      # per-frame dicts: ms, pairs, violations, ...
+        srv.stats      # per-frame dicts: pairs, violations, ...
 
     Frames are queued on the device and each frame's stats are read
     `pipeline_depth` frames later, so the host does not wait for the card
@@ -166,7 +166,8 @@ class ServingRenderer:
 
     def _drain_one(self) -> dict:
         rec, scalars = self._pending.pop(0)
-        nviol, total, overflow, n_finite = scalars.tolist()   # one read
+        with TRACER.span("serve.sync"):
+            nviol, total, overflow, n_finite = scalars.tolist()  # one read
         rec.update(violations=nviol, pairs=total, overflow=bool(overflow))
         self._use_cull = n_finite > 0
         if overflow:
@@ -191,42 +192,46 @@ class ServingRenderer:
             self._drain_one()
 
     def __call__(self, cloud: GaussianCloud, camera: Camera) -> RenderOutput:
-        if self.max_pairs is None:
-            self.calibrate(cloud, camera)
-        if self._src is not cloud:
-            self._src, self._cloud = cloud, cloud.to(self.device)
-            self.reset()
-        camera = camera.to(self.device)
-        ntx, nty = tile_extent(camera.width, camera.height, self.cfg.tile_w,
-                               self.cfg.tile_h)
-        T = ntx * nty
-        if self.cutoff_map is None or self.cutoff_map.shape[0] != T:
-            self.finish()
-            self.cutoff_map = torch.full((T,), float("inf"),
-                                         device=self.device)
-            self._use_cull = False   # an all-inf map culls nothing
+        with TRACER.span("serve.frame", root=True):
+            if self.max_pairs is None:
+                self.calibrate(cloud, camera)
+            if self._src is not cloud:
+                self._src, self._cloud = cloud, cloud.to(self.device)
+                self.reset()
+            camera = camera.to(self.device)
+            ntx, nty = tile_extent(camera.width, camera.height,
+                                   self.cfg.tile_w, self.cfg.tile_h)
+            T = ntx * nty
+            if self.cutoff_map is None or self.cutoff_map.shape[0] != T:
+                self.finish()
+                self.cutoff_map = torch.full((T,), float("inf"),
+                                             device=self.device)
+                self._use_cull = False   # an all-inf map culls nothing
 
-        t0 = time.perf_counter()
-        used_cull = self._use_cull
-        out, new_map, scalars = self._step(camera, self.cutoff_map,
-                                           used_cull)
-        self.cutoff_map = new_map
-        rec = dict(max_pairs=self.max_pairs, cull=used_cull, full_renders=0)
-        self._pending.append((rec, scalars))
-        self.stats.append(rec)
-        if len(self._pending) >= self.pipeline_depth:
+            used_cull = self._use_cull
+            out, new_map, scalars = self._step(camera, self.cutoff_map,
+                                               used_cull)
+            self.cutoff_map = new_map
+            rec = dict(max_pairs=self.max_pairs, cull=used_cull,
+                       full_renders=0)
+            self._pending.append((rec, scalars))
+            self.stats.append(rec)
+            if len(self._pending) < self.pipeline_depth:
+                return out
             drained = self._drain_one()
             if self.strict and drained is rec and (
                     drained["overflow"]
                     or (used_cull and drained["violations"] > 0)):
                 # serve an exact, cull-free frame at the (possibly
                 # re-bucketed) size; keep the corrected map for the next
-                nocull = torch.full((T,), float("inf"), device=self.device)
-                out, _, s2 = self._step(camera, nocull, False)
-                _, total, overflow, _ = s2.tolist()
-                if overflow:                   # still overflowing
-                    self.max_pairs = pair_bucket(total * 2)
-                    out, _, _ = self._step(camera, nocull, False)
+                with TRACER.span("serve.rerender"):
+                    nocull = torch.full((T,), float("inf"),
+                                        device=self.device)
+                    out, _, s2 = self._step(camera, nocull, False)
+                    with TRACER.span("serve.sync"):
+                        _, total, overflow, _ = s2.tolist()
+                    if overflow:                   # still overflowing
+                        self.max_pairs = pair_bucket(total * 2)
+                        out, _, _ = self._step(camera, nocull, False)
                 rec["full_renders"] += 1
-        rec["ms"] = (time.perf_counter() - t0) * 1e3
-        return out
+            return out

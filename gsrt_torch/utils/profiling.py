@@ -1,76 +1,171 @@
-"""Tracing and stage timers (counterpart of `gsrt.utils.profiling`).
+"""Tracing (counterpart of `gsrt.utils.profiling`).
 
-`StageTimer` times named stages across frames: on the card with CUDA
-events around each stage (read once, in `report`), on the CPU with the
-host clock. `device_sync` waits for the devices of the given tensors.
-`torch_trace` records a `torch.profiler` trace (CPU and, where there is
-one, CUDA activity) and writes it as a Chrome trace, the counterpart of
-`gsrt`'s `xla_trace`.
+`TRACER`, the program's one `StageTimer`, holds the spans and counters
+the port's layers open round their stages (`render.frame`,
+`render.project`, `serve.sync`, `train.step`, ...). A span records only
+while a `torch.profiler` session records, as under `torch_trace` below:
+otherwise it costs one check of the profiler's flag and records
+nothing. On, a span records
+
+- its name, its parent (the innermost span open on its thread, or, on a
+  thread with none open, such as autograd's backward thread, the
+  innermost span open on the thread of the root) and its root item;
+- a `torch.profiler.record_function` range of its name, so the
+  profiler's trace shows it on the clock of the kernels and idle gaps;
+- the host's milliseconds (`time.perf_counter`) and the device's, from
+  two CUDA events on the current stream (the host's where CUDA is not
+  initialised).
+
+A span opened with `root=True` outside every other span is a root: one
+item, a frame or a training step. It also counts `device_allocs`, the
+caching allocator's new device allocations over it. `count` attaches an
+int or a 0-d tensor to the innermost open span; a tensor is read only
+in `report()`, so a counter adds no host synchronisation.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, List
 
 import torch
 
-from gsrt_torch.core.types import resolve_device
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
-def device_sync(*tensors) -> None:
-    """Wait for the work queued on each CUDA tensor's device."""
-    for t in tensors:
-        if isinstance(t, torch.Tensor) and t.is_cuda:
-            torch.cuda.synchronize(t.device)
+def _device_allocs() -> int:
+    return torch.cuda.memory_stats_as_nested_dict().get("num_device_alloc",
+                                                        0)
+
+
+class _Record:
+    __slots__ = ("name", "parent", "root", "t0", "t1", "ev0", "ev1",
+                 "allocs0", "counters")
+
+    def __init__(self, name, parent, root):
+        self.name, self.parent, self.root = name, parent, root
+        self.t1 = self.ev0 = self.ev1 = self.allocs0 = None
+        self.counters = {}
+
+
+class _Span:
+    __slots__ = ("timer", "name", "root", "rec", "stack", "fn")
+
+    def __init__(self, timer, name, root):
+        self.timer, self.name, self.root = timer, name, root
+
+    def __enter__(self):
+        tm = self.timer
+        stack = tm._stack()
+        with tm._lock:
+            up = stack or tm._root_stack
+            parent = up[-1] if up else None
+            idx = len(tm._spans)
+            if parent is not None:
+                root = tm._spans[parent].root
+            elif self.root:
+                root, tm._root_stack = idx, stack
+            else:
+                root = None
+            rec = _Record(self.name, parent, root)
+            tm._spans.append(rec)
+        stack.append(idx)
+        self.rec, self.stack = rec, stack
+        self.fn = torch.profiler.record_function(self.name)
+        self.fn.__enter__()
+        if torch.cuda.is_initialized():
+            if root == idx:
+                rec.allocs0 = _device_allocs()
+            rec.ev0 = torch.cuda.Event(enable_timing=True)
+            rec.ev0.record()
+        rec.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec.ev0 is not None:
+            rec.ev1 = torch.cuda.Event(enable_timing=True)
+            rec.ev1.record()
+        rec.t1 = time.perf_counter()
+        if rec.allocs0 is not None:
+            rec.counters["device_allocs"] = _device_allocs() - rec.allocs0
+        self.stack.pop()
+        self.fn.__exit__(*exc)
+        return False
 
 
 class StageTimer:
-    """Accumulates the time of each named stage across frames, on
-    `device` (CUDA unless named): CUDA events there, the host clock on
-    the CPU."""
+    """Spans and counters of named stages, recorded while a profiler
+    records. `span(name)` is a context manager; `report()` reads what was
+    recorded, `reset()` drops it."""
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
-        self._cuda = self.device.type == "cuda"
-        self.totals: Dict[str, float] = {}     # seconds, host-timed stages
-        self.counts: Dict[str, int] = {}
-        self._events: Dict[str, List[tuple]] = {}
+    def __init__(self):
+        self._spans: list[_Record] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._root_stack: list[int] = []   # the stack of the open root
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        if self._cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            yield
-            end.record()
-            self._events.setdefault(name, []).append((start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self.totals[name] = (self.totals.get(name, 0.0)
-                                 + time.perf_counter() - t0)
-        self.counts[name] = self.counts.get(name, 0) + 1
+    def _stack(self) -> list[int]:
+        s = getattr(self._local, "stack", None)
+        if s is None:
+            s = self._local.stack = []
+        return s
 
-    def report(self) -> Dict[str, float]:
-        """Mean ms a stage, rounded to 0.01 ms."""
-        if self._events:
-            torch.cuda.synchronize(self.device)
-            for name, pairs in self._events.items():
-                self.totals[name] = self.totals.get(name, 0.0) + sum(
-                    s.elapsed_time(e) for s, e in pairs) * 1e-3
-            self._events.clear()
-        return {k: round(self.totals[k] / max(self.counts[k], 1) * 1e3, 2)
-                for k in self.totals}
+    def span(self, name: str, root: bool = False):
+        """A span named `name` round the `with` block; `root=True` makes
+        it an item of its own where no span is open."""
+        if not _profiling():
+            return _OFF
+        return _Span(self, name, root)
+
+    def count(self, **values) -> None:
+        """Add each value (int or 0-d tensor) to the innermost open span's
+        counter of its name; nothing while no profiler records."""
+        if not _profiling():
+            return
+        up = self._stack() or self._root_stack
+        if up:
+            c = self._spans[up[-1]].counters
+            for name, v in values.items():
+                c[name] = c[name] + v if name in c else v
+
+    def report(self) -> list[dict]:
+        """Every span, in the order they opened: `name`, `parent` and
+        `root` (indices into this list; None at the top and outside every
+        root), `host_ms` and `device_ms` (None while it is open) and
+        `counters` (name → int). Waits for the device once; the same
+        records give the same report."""
+        spans = list(self._spans)
+        if any(r.ev1 is not None for r in spans):
+            torch.cuda.synchronize()
+        out = []
+        for r in spans:
+            host = None if r.t1 is None else (r.t1 - r.t0) * 1e3
+            out.append(dict(
+                name=r.name, parent=r.parent, root=r.root, host_ms=host,
+                device_ms=r.ev0.elapsed_time(r.ev1) if r.ev1 is not None
+                else host,
+                counters={k: int(v) for k, v in r.counters.items()}))
+        return out
+
+    def reset(self) -> None:
+        """Drop every record (spans still open are dropped too)."""
+        with self._lock:
+            self._spans = []
+            self._root_stack = []
+        self._local = threading.local()
+
+
+TRACER = StageTimer()
 
 
 @contextlib.contextmanager
 def torch_trace(log_dir: str):
     """torch.profiler trace of the block, written to
-    `log_dir/trace.json` (open in Perfetto or chrome://tracing)."""
+    `log_dir/trace.json` (open in Perfetto or chrome://tracing). The
+    program's spans record while it runs (`TRACER.report()`)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
