@@ -30,7 +30,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              after; each kernel of the path must have launched; then
              per-stage and whole-frame times from CUDA events;
 7. check   — a small scene through render_tiled (kernels) and render_fast
-             (plain PyTorch, the port's oracle), atol 2e-2;
+             (plain PyTorch, the port's oracle), atol 2e-2; then
+             projection: 2.96M splats (the 3DGS paper's Mip-NeRF 360
+             size), SH 3, the first view of a 1080p orbit round (0, 0, 6):
+             the projection kernel against its plain version bit for bit
+             on all twelve columns, its ms beside its byte bound and the
+             plain version's, its registers and spills (ptxas and the
+             runtime), and a tiled frame of that cell launching it once;
 8. tiles128x8 — a 1080p frame of the render cell at 128x8 tiles, counts
              read; blend_tiles against its plain version on its binning,
              atol 1e-4; the share of (warp, pair) steps its warp cull
@@ -326,6 +332,10 @@ FRAMES = 10  # frames per timed run of the whole frame
 BLEND_FLOPS_PER_PAIR_PIXEL = 20  # sub x2, response 5, alpha 2, blend 9,
 #                                  compare 2; the exp counted as one more
 
+# --- the projection layer at m360-view's size ---
+PROJECT_SRC = "gsrt_torch/csrc/project.cu"
+PROJECT_SPLATS = 2_960_000   # the 3DGS paper's Mip-NeRF 360 scene (Table 1)
+
 # --- the training workload and its kernels (the f32 tile stream) ---
 SUBTILE_SRC = "gsrt_torch/csrc/splat_subtile.cu"
 GRAD_SRC = "gsrt_torch/csrc/splat_grad.cu"
@@ -438,6 +448,22 @@ def render_cell(device: str = DEVICE):
     cloud, camera = random_cloud(SPLATS, seed=SEED, width=WIDTH,
                                  height=HEIGHT, scale_range=(0.004, 0.03),
                                  device=device)
+    return cfg, cloud, camera
+
+
+def projection_cell(device: str = DEVICE):
+    """The projection layer's workload at m360-view's size: (cfg, cloud,
+    camera), 2.96M splats of random_cloud's draws at the render cell's
+    scales, SH degree 3, RenderConfig defaults, seen from the first view
+    of a 1080p orbit round (0, 0, 6) at radius 10, 2 above."""
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.scene import orbit_path, random_cloud
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    cloud, _ = random_cloud(PROJECT_SPLATS, seed=SEED, width=WIDTH,
+                            height=HEIGHT, scale_range=(0.004, 0.03),
+                            device=device)
+    camera = orbit_path((0, 0, 6.0), 10.0, 1, height=2.0, width=WIDTH,
+                        height_px=HEIGHT, start_deg=200.0, device=device)[0]
     return cfg, cloud, camera
 
 
@@ -1259,6 +1285,99 @@ def serve_phases(torch, cloud, rows):
                 pairs_first=st[0]["pairs"], pairs_last=st[-1]["pairs"],
                 split_ms=serve_split,
                 static_pairs=[x["pairs"] for x in ss])
+
+
+def ptxas_report(log: str, lib: str, entry: str) -> dict:
+    """Registers and spilled bytes (stores + loads) that `nvcc -Xptxas -v`
+    printed for the entry functions of `lib` whose mangled names hold
+    `entry` (`_kernels.build.last_log`): {mangled name: {...}}."""
+    import re
+    out, section, name = {}, None, None
+    for line in log.splitlines():
+        if line.startswith("== ") and line.endswith(" =="):
+            section, name = line.strip("= "), None
+        elif section != lib:
+            continue
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and entry in name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out.setdefault(name, {})["spill_bytes"] = int(m[1]) + int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(name, {})["registers"] = int(m[1])
+    return out
+
+
+def projection_phase(torch, rows) -> dict:
+    """The projection kernel at m360-view's size: its twelve columns
+    against the plain version bit for bit, its ms beside its byte bound
+    and the plain version's, its build (ptxas and the runtime's view),
+    and one tiled frame of the cell that must launch it once."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import project
+    t0 = time.perf_counter()
+    cfg, cloud, camera = projection_cell()
+    torch.cuda.synchronize()
+    n, k = cloud.n, cloud.sh.shape[1]
+    log(f"phase projection: {n} splats, SH degree {cloud.sh_degree} ({k} "
+        f"rows), {WIDTH}x{HEIGHT}, made in {time.perf_counter() - t0:.1f} s")
+    kernel = lambda: project.project_splats(cloud, camera, cfg)  # noqa: E731
+    plain = lambda: project.project_splats_plain(cloud, camera, cfg)  # noqa
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t  # noqa
+    differ = {f: int((bits(g) != bits(w)).sum())
+              for f, g, w in zip(project.SplatColumns._fields, got, want)}
+    if any(differ.values()):
+        raise SystemExit(f"phase projection: the kernel differs from its "
+                         f"plain version: {differ}")
+    alive = int(got.alive.sum())
+    del got, want
+    # each input byte read once, each output byte written once
+    bytes_moved = n * (4 * (3 + 6 + 1 + 3 * k) + 4 * 11 + 1)
+    ms = time_cuda(kernel, 20)
+    plain_ms = time_cuda(plain, 3)
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    deg = min(cfg.sh_degree, cloud.sh_degree)
+    std = int(cfg.conic_mode == "standard")
+    info = build_info("project", "gsrt_project_info", deg, std, k)
+    info.update(threads=128)
+    staged = int(deg == 3 and k == 16)
+    ptxas = ptxas_report(_kernels.build.last_log, "project",
+                         f"project_kernelILi{deg}ELb{std}ELi{staged}EE")
+    tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+    tracer.calibrate(cloud, camera)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    out = tracer(cloud, camera)
+    torch.cuda.synchronize()
+    counts = {c: v for c, v in _kernels.launch_counts().items() if v}
+    if counts.get("project_splats") != 1 or bool(out.overflow):
+        raise SystemExit(f"phase projection: a tiled frame launched "
+                         f"{counts} (want project_splats once), overflow "
+                         f"{bool(out.overflow)}")
+    frame_ms = time_cuda(lambda: tracer(cloud, camera), FRAMES)
+    rows.append(dict(
+        name="project_splats", route="cuda", source=PROJECT_SRC,
+        replaces=None, launches=counts["project_splats"], max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        library_ms=None, bytes=bytes_moved, splats=n, alive=alive,
+        build=info, ptxas=ptxas))
+    log(f"phase projection: twelve columns bitwise equal to the plain "
+        f"version ({alive} alive); kernel {ms:.4f} ms, bound {bound_ms:.4f}"
+        f" ms ({bytes_moved / n:.0f} B a splat, {bound_ms / ms:.1%} of "
+        f"it), plain {plain_ms:.3f} ms; build {info['registers']} registers, "
+        f"{info['spill_bytes']} B local a thread, "
+        f"{info['static_smem_bytes']} B shared, {info['blocks_per_sm']} "
+        f"blocks of 128 an SM; "
+        f"ptxas {ptxas or 'not in the build log'}; a tiled frame launches "
+        f"{counts}, {frame_ms:.3f} ms")
+    return dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                frame_ms=frame_ms, launches=counts, ptxas=ptxas)
 
 
 def tiles128_render(torch, cloud, camera, rows):
@@ -4043,9 +4162,11 @@ MD_BOUNDS = {
     "sharded": dict(rtol=(1e-4, 1e-3), atol=(1e-5, 1e-4)),
     "composites": dict(rtol=(1e-5, 1e-5), atol=(1e-6, 1e-6)),
 }
-MD_PATH = {"compact": ("expand_pairs_fused", "expand_pairs_binned",
-                       "partition_group_stream", "blend_packed_group"),
-           "f32": ("expand_pairs_fused", "blend_packed_tile")}
+MD_PATH = {"compact": ("project_splats", "expand_pairs_fused",
+                       "expand_pairs_binned", "partition_group_stream",
+                       "blend_packed_group"),
+           "f32": ("project_splats", "expand_pairs_fused",
+                   "blend_packed_tile")}
 MD_RANKS = 2
 MD_RANK_TIMEOUT = 180    # seconds the two ranks may take together
 # one rank of the two-rank step: loads the kernels the build phase made
@@ -4141,8 +4262,8 @@ def slab_witness(torch, cloud, camera, cfg, slab_h, x, y) -> dict:
     at = lambda v: torch.tensor([float(v)], device=DEVICE)
     takes, alpha, binned = [], [], []
     for cam, py in ((camera, y), (_slab_camera(camera, y0, slab_h), y - y0)):
-        depth, mean2d, quad, in_front, colors = grt._precompute(cloud, cam,
-                                                                cfg)
+        depth, mean2d, quad, in_front, colors = grt._project_sh(
+            cloud, cam, cfg)
         alive = grt.alive_mask(depth, cloud.opacity, in_front, cfg)
         op = torch.where(alive, cloud.opacity,
                          torch.zeros_like(cloud.opacity))
@@ -4788,18 +4909,10 @@ def main() -> int:
     state = {}
 
     def stage_project():
-        depth, mean2d, quad, in_front, colors = grt._precompute(
-            cloud, camera, cfg)
-        rx, ry = grt.screen_extents_abc(
-            quad[:, 0], quad[:, 1], quad[:, 2], cfg.conic_mode,
-            cfg.g_cutoff, opacity=cloud.opacity,
-            alpha_threshold=cfg.alpha_threshold)
-        alive = (in_front & (cloud.opacity > cfg.alpha_threshold)
-                 & (depth > cfg.t_min)
-                 & (depth < min(cfg.t_max, cfg.init_depth)))
-        state["cols"] = (depth, mean2d[:, 0], mean2d[:, 1], quad[:, 0],
-                         quad[:, 1], quad[:, 2], cloud.opacity, colors[:, 0],
-                         colors[:, 1], colors[:, 2], rx, ry, alive)
+        c = grt._precompute(cloud, camera, cfg)
+        state["cols"] = (c.depth, c.m2x, c.m2y, c.qa, c.qb, c.qc,
+                         cloud.opacity, c.cr, c.cg, c.cb, c.rx, c.ry,
+                         c.alive)
 
     def stage_binning():
         state["binning"] = tile_binning.build_tile_binning(
@@ -4838,8 +4951,9 @@ def main() -> int:
     if not d <= 2e-2:
         raise SystemExit(f"phase check: render_tiled differs by {d}")
 
-    tiles128_render(torch, cloud, camera, rows)
     del main_tracer, tracer, out, state
+    projection = projection_phase(torch, rows)
+    tiles128_render(torch, cloud, camera, rows)
     # the serving workload's cloud is this one (extent 4.0), seen from an
     # orbit
     serving = serve_phases(torch, cloud, rows)
@@ -4871,7 +4985,8 @@ def main() -> int:
                       "mrays_per_s": mrays, "stages_ms": stages,
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
-                      "max_rows": mrows, "serving": serving,
+                      "max_rows": mrows, "projection": projection,
+                      "serving": serving,
                       "train": train, "fit": fit, "kbuffer": kbuffer,
                       "tri": tri, "scenes": scenes, "front_ends": front_ends,
                       "multi_device": multi_device,

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
-           "splat_grad", "tri_cast", "tri_kernel")
+           "splat_grad", "tri_cast", "tri_kernel", "project")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -175,9 +175,13 @@ TRI_ANY_HIT = CudaKernel(
     "closest_hit_packed_any", "tri_kernel", "gsrt_tri_traverse",
     _TRAVERSE_ARGS)
 
+PROJECT = CudaKernel(
+    "project_splats", "project", "gsrt_project",
+    [P, P, P, P, I, I, I, I, P, P, P, P, P, P, F, F, F, F, F, F, P, P, P])
+
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_PAIRS, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
-           TRI_CLOSEST_HIT, TRI_ANY_HIT)
+           TRI_CLOSEST_HIT, TRI_ANY_HIT, PROJECT)
 
 
 def launch_counts() -> dict[str, int]:

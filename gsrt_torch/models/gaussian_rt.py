@@ -10,7 +10,8 @@
   it computes what the k-buffer passes compute. The port's semantic
   oracle.
 * `render_tiled`: the performance path. Projection and SH, footprint
-  extents, binning, then a blend kernel, by the JAX package's gating:
+  extents and the alive mask (`_precompute`: one kernel launch on CUDA),
+  binning, then a blend kernel, by the JAX package's gating:
   the group stream through the packed group kernel (the defaults), the
   tile stream with either payload through the packed tile kernel, the f32
   stream through the subtile kernel (blend_impl="subtile") or, at 128×8
@@ -41,9 +42,11 @@ from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
 from gsrt_torch.ops import explut
 from gsrt_torch.ops.gaussian import (eval_gaussian_response, invert_cov3d,
                                      project_gaussians,
-                                     ray_gaussian_response,
-                                     screen_extents_abc)
+                                     ray_gaussian_response)
+from gsrt_torch.ops.gaussian import screen_extents_abc  # noqa: F401 re-export
 from gsrt_torch.ops.kbuffer import finish_pass, merge_nearest, ray_window
+from gsrt_torch.ops.project import alive_mask  # noqa: F401 re-export
+from gsrt_torch.ops.project import SplatColumns, project_splats, unit_dirs
 from gsrt_torch.ops.sh import eval_sh
 from gsrt_torch.ops.tile_binning import group_rows_k, tile_extent
 from gsrt_torch.utils.profiling import TRACER
@@ -67,7 +70,7 @@ def _pixel_grid(width: int, height: int, device) -> torch.Tensor:
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).float()
 
 
-def _precompute(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig):
+def _project_sh(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig):
     """Project all splats and evaluate per-splat SH color (view direction
     from the camera origin to the splat center)."""
     depth, mean2d, quad, det, in_front = project_gaussians(
@@ -78,22 +81,14 @@ def _precompute(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig):
     return depth, mean2d, quad, in_front, colors
 
 
-def unit_dirs(means: torch.Tensor, origin) -> torch.Tensor:
-    """Unit directions from `origin` ([3]) to each mean: the view
-    directions SH colours are evaluated at."""
-    d = means - torch.as_tensor(origin, dtype=means.dtype,
-                                device=means.device)
-    inv_n = 1.0 / torch.clamp_min(
-        torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]),
-        1e-9)
-    return d * inv_n[:, None]
-
-
-def alive_mask(depth, opacity, in_front, cfg: RenderConfig) -> torch.Tensor:
-    """Splats the tiled path bins: in front, above the alpha threshold and
-    inside the ray's depth window."""
-    return (in_front & (opacity > cfg.alpha_threshold) & (depth > cfg.t_min)
-            & (depth < min(cfg.t_max, cfg.init_depth)))
+def _precompute(cloud: GaussianCloud, camera: Camera,
+                cfg: RenderConfig) -> SplatColumns:
+    """The tiled forward's projection layer: projection, SH colour,
+    extents and the alive mask in one kernel launch on CUDA, as plain ops
+    on the CPU (`ops.project.project_splats`). No gradients: the
+    differentiable paths call `_project_sh`. `render_tiled` reaches the
+    layer through this name, which benchmark/frames.py times."""
+    return project_splats(cloud, camera, cfg)
 
 
 def blend_params(cfg: RenderConfig) -> dict:
@@ -145,7 +140,7 @@ def render_fast(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
     if cloud.n == 0:
         return _empty_output(camera, cfg)
     dev = cloud.device
-    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
+    depth, mean2d, quad, in_front, colors = _project_sh(cloud, camera, cfg)
     lut = explut.build_exp_lut(device=dev) if cfg.use_exp_lut else None
     order = torch.argsort(torch.where(in_front, depth,
                                       torch.full_like(depth, float("inf"))))
@@ -213,7 +208,7 @@ def render_reference(cloud: GaussianCloud, camera: Camera,
     if cloud.n == 0:
         return _empty_output(camera, cfg)
     dev = cloud.device
-    depth, mean2d, quad, in_front, colors = _precompute(cloud, camera, cfg)
+    depth, mean2d, quad, in_front, colors = _project_sh(cloud, camera, cfg)
     lut = explut.build_exp_lut(device=dev) if cfg.use_exp_lut else None
     pix = _pixel_grid(camera.width, camera.height, dev)
     P = pix.shape[0]
@@ -402,18 +397,12 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
             consumed=zi(1, cfg.blend_bs))
 
     with TRACER.span("render.project"):
-        depth, mean2d, quad, in_front, colors = _precompute(cloud, camera,
-                                                            cfg)
-        m2x, m2y = mean2d[:, 0], mean2d[:, 1]
-        qa, qb, qc = quad[:, 0], quad[:, 1], quad[:, 2]
-        rx, ry = screen_extents_abc(qa, qb, qc, cfg.conic_mode,
-                                    cfg.g_cutoff, opacity=cloud.opacity,
-                                    alpha_threshold=cfg.alpha_threshold)
-        alive = alive_mask(depth, cloud.opacity, in_front, cfg)
+        cols = _precompute(cloud, camera, cfg)
     with TRACER.span("render.binning"):
         binning = build_tile_binning(
-            depth, m2x, m2y, qa, qb, qc, cloud.opacity, colors[:, 0],
-            colors[:, 1], colors[:, 2], rx, ry, alive,
+            cols.depth, cols.m2x, cols.m2y, cols.qa, cols.qb, cols.qc,
+            cloud.opacity, cols.cr, cols.cg, cols.cb, cols.rx, cols.ry,
+            cols.alive,
             width=camera.width, height=camera.height, tile_w=tw, tile_h=th,
             max_pairs=max_pairs, compact=plan.compact,
             span_mode=plan.span_mode, max_rows=max_rows, stream=plan.stream,
@@ -495,7 +484,7 @@ def count_pairs(cloud: GaussianCloud, camera: Camera,
 def _spans_numpy(cloud: GaussianCloud, camera: Camera,
                  cfg: RenderConfig) -> dict:
     """NumPy projection + rect tile spans for the host-side pair counters
-    (mirrors _precompute + screen_extents + compute_tile_spans)."""
+    (mirrors _precompute + compute_tile_spans)."""
     TILE_W, TILE_H = cfg.tile_w, cfg.tile_h
     means = cloud.means.detach().cpu().numpy()
     cov = cloud.cov3d.detach().cpu().numpy()

@@ -21,7 +21,7 @@ import torch
 
 from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, GaussianCloud
-from gsrt_torch.models.gaussian_rt import (_precompute, alive_mask,
+from gsrt_torch.models.gaussian_rt import (_project_sh, alive_mask,
                                            blend_params)
 from gsrt_torch.ops.gaussian import screen_extents_abc
 from gsrt_torch.ops.tile_binning import tile_extent
@@ -162,7 +162,7 @@ def render_tiled_diff(cloud: GaussianCloud, camera: Camera,
     every field of the cloud. Raises when the view needs more than
     max_pairs pairs."""
     with TRACER.span("render.project"):
-        depth, mean2d, quad, in_front, colors = _precompute(cloud, camera,
+        depth, mean2d, quad, in_front, colors = _project_sh(cloud, camera,
                                                             cfg)
         qa, qb, qc = quad.unbind(-1)
         with torch.no_grad():

@@ -243,7 +243,7 @@ def _port_binning(scene, tile, compact):
                            tile_h=tile[1])
         cloud, cam = t_random_cloud(n, seed=seed, width=W, height=H,
                                     scale_range=scales, device="cpu")
-        d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+        d, m2, q, inf, col = t_rt._project_sh(cloud, cam, cfg)
         rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2],
                                          "standard", 5.6,
                                          opacity=cloud.opacity)

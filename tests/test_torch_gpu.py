@@ -18,7 +18,8 @@ on a second run; gradients of the autograd function on the card
 against the plain versions on the CPU, normalised, at 1e-3; the triangle
 kernels bit for bit (the binned cast's t and ids; the traversal's t, slots,
 hits and executed visits in both modes: both round Möller–Trumbore as
-written).
+written); the projection kernel bit for bit on all twelve columns (it
+rounds each op as PyTorch's CUDA ops do, see csrc/project.cu).
 """
 
 from __future__ import annotations
@@ -36,12 +37,14 @@ from gsrt_torch.models import gaussian_rt as t_rt
 from gsrt_torch.models import tiled_diff as t_td
 from gsrt_torch.models import trainer as t_tr
 from gsrt_torch.ops import pair_expand as t_pe
+from gsrt_torch.ops import project as t_proj
 from gsrt_torch.ops import splat_grad as t_grad
 from gsrt_torch.ops import splat_packed as t_sp
 from gsrt_torch.ops import splat_pallas as t_pallas
 from gsrt_torch.ops import splat_subtile as t_sub
 from gsrt_torch.ops import tile_binning as t_tb
 from gsrt_torch.scene import random_cloud
+from test_torch_project import SH_CASES, edge_cloud, edge_config
 
 pytestmark = pytest.mark.gpu
 DEAD = t_pe._DEAD_BASE
@@ -214,7 +217,7 @@ def _group_binning(cuda, tile=(32, 16), W=320, H=256):
                               device=cuda)
     tr = t_rt.GaussianRayTracer(cfg, "tiled", device=cuda)
     tr.calibrate(cloud, cam)
-    d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+    d, m2, q, inf, col = t_rt._project_sh(cloud, cam, cfg)
     rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
                                      5.6, opacity=cloud.opacity)
     alive = inf & (cloud.opacity > 1 / 255) & (d > 1e-3) & (d < 1e4)
@@ -316,7 +319,7 @@ def test_tile_blend_kernel_matches_plain(cuda, compact, chunk, use_exp_lut):
     cfg = RenderConfig(width=W, height=H, tile_w=16, tile_h=16)
     cloud, cam = random_cloud(20_000, seed=1, width=W, height=H,
                               device=cuda)
-    d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+    d, m2, q, inf, col = t_rt._project_sh(cloud, cam, cfg)
     rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
                                      5.6, opacity=cloud.opacity)
     alive = t_rt.alive_mask(d, cloud.opacity, inf, cfg)
@@ -369,7 +372,7 @@ def _f32_binning(cuda, tile, wall: bool):
     W, H = 160, 96
     cfg = RenderConfig(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
     cloud, cam = random_cloud(3000, seed=2, width=W, height=H, device=cuda)
-    d, m2, q, inf, col = t_rt._precompute(cloud, cam, cfg)
+    d, m2, q, inf, col = t_rt._project_sh(cloud, cam, cfg)
     rx, ry = t_rt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
                                      5.6, opacity=cloud.opacity)
     alive = t_rt.alive_mask(d, cloud.opacity, inf, cfg)
@@ -886,3 +889,114 @@ def test_sorted_bounce_waves_match_unsorted(cuda):
     assert torch.equal(srt, flat)
     np.testing.assert_allclose(srt.cpu().numpy(), brute.cpu().numpy(),
                                rtol=5e-3, atol=1e-3)
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> str:
+    """Where two float columns differ in their bits: the count and the
+    largest gap in units of the last place, for an assertion's message."""
+    bad = got.view(torch.int32) != want.view(torch.int32)
+    gi = got[bad].view(torch.int32).long()
+    wi = want[bad].view(torch.int32).long()
+    return (f"{int(bad.sum())} differ, at most {int((gi - wi).abs().max())}"
+            f" ulp, first at {int(bad.nonzero()[0])}")
+
+
+@pytest.mark.parametrize("dilation", [0.0, 0.3])
+@pytest.mark.parametrize("k,degree", SH_CASES)
+@pytest.mark.parametrize("conic_mode", ["standard", "reference"])
+def test_project_kernel_bitwise(cuda, conic_mode, k, degree, dilation):
+    """The projection kernel against its plain version on the card, bit
+    for bit on all twelve columns, with tests/test_torch_project.py's
+    edge cases; 3001 splats are 23 blocks of 128 and a partial one."""
+    cloud, camera = edge_cloud(3001, k, seed=k + degree, device=cuda)
+    cfg = edge_config(conic_mode, degree, dilation)
+    before = _kernels.PROJECT.launches
+    got = t_proj.project_splats(cloud, camera, cfg)
+    assert _kernels.PROJECT.launches == before + 1
+    want = t_proj.project_splats_plain(cloud, camera, cfg)
+    for name, g, w in zip(t_proj.SplatColumns._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "alive":
+            assert torch.equal(g, w), (name, int((g != w).sum()))
+        else:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+                (name, _ulps(g, w))
+    assert got.alive.any() and not got.alive.all()
+
+
+@pytest.mark.parametrize("alpha_threshold", [0.3, 1 / 7])
+def test_project_kernel_other_alpha_thresholds(cuda, alpha_threshold):
+    """PyTorch divides opacity by the threshold as the product with the
+    threshold's reciprocal rounded from double: at 1/7 that is not the
+    float32 reciprocal of float32(1/7). The kernel's extents and alive
+    mask follow it bit for bit."""
+    cloud, camera = edge_cloud(3001, 16, seed=5, device=cuda)
+    cfg = edge_config("standard", 3, 0.0).replace(
+        alpha_threshold=alpha_threshold)
+    got = t_proj.project_splats(cloud, camera, cfg)
+    want = t_proj.project_splats_plain(cloud, camera, cfg)
+    for name in ("rx", "ry"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+            (name, _ulps(g, w))
+    assert torch.equal(got.alive, want.alive)
+
+
+def test_project_kernel_unaligned_sh(cuda):
+    """SH rows that do not start on 16 bytes (a view one float into its
+    storage) give the same columns as aligned ones."""
+    cloud, camera = edge_cloud(700, 16, device=cuda)
+    store = torch.empty(cloud.sh.numel() + 1, device=cuda)
+    sh = store[1:].view(cloud.sh.shape)
+    sh.copy_(cloud.sh)
+    assert sh.data_ptr() % 16 != 0
+    cfg = edge_config("standard", 3, 0.0)
+    got = t_proj.project_splats(cloud._replace(sh=sh), camera, cfg)
+    for g, w in zip(got, t_proj.project_splats(cloud, camera, cfg)):
+        assert torch.equal(g, w)
+
+
+def test_project_kernel_launches_once_a_render(cuda):
+    """A tiled frame and every render of a served frame launch the
+    projection kernel once; a tiled training step never does (it projects
+    under autograd)."""
+    from gsrt_torch.scene import orbit_path
+    from gsrt_torch.serving import ServingRenderer
+    W, H = 320, 256
+    cfg = RenderConfig(width=W, height=H)
+    cloud, cam = random_cloud(20_000, seed=1, width=W, height=H,
+                              device=cuda)
+
+    def launched(fn):
+        before = _kernels.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in
+                     _kernels.launch_counts().items() if v != before[k]}
+
+    tracer = t_rt.GaussianRayTracer(cfg, "tiled", device=cuda)
+    tracer.calibrate(cloud, cam)
+    out, counts = launched(lambda: tracer(cloud, cam))
+    assert not bool(out.overflow)
+    assert counts["project_splats"] == 1
+    assert counts["blend_packed_group"] == 1
+
+    path = orbit_path((0, 0, 6.0), 10.0, 6, height=2.0, width=W,
+                      height_px=H, degrees=30, start_deg=200.0, device=cuda)
+    srv = ServingRenderer(cfg, strict=True, device=cuda)
+
+    def serve():
+        for c in path:
+            srv(cloud, c)
+        srv.finish()
+    _, counts = launched(serve)
+    assert counts["project_splats"] == counts["blend_packed_tile"]
+    assert counts["project_splats"] >= len(path)
+
+    params = t_tr.init_params(cloud)
+    opt = t_tr.make_optimizer(params)
+    mp = t_rt.pair_bucket(int(t_rt.count_pairs_numpy(cloud, cam, cfg) * 1.1))
+    _, counts = launched(lambda: t_tr.train_step_tiled(
+        params, opt, out.color.detach(), cam, cfg, mp))
+    assert "project_splats" not in counts
+    assert counts["blend_backward"] == 1

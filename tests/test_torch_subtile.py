@@ -296,7 +296,7 @@ def test_warp_cull_is_exact(tile):
     cfg = RenderConfig(width=w, height=h, tile_w=tw, tile_h=th)
     cloud, cam = t_random_cloud(1500, seed=4, width=w, height=h,
                                 scale_range=(0.01, 0.3), device="cpu")
-    d, m2, q, inf, col = t_grt._precompute(cloud, cam, cfg)
+    d, m2, q, inf, col = t_grt._project_sh(cloud, cam, cfg)
     rx, ry = t_grt.screen_extents_abc(q[:, 0], q[:, 1], q[:, 2], "standard",
                                       5.6, opacity=cloud.opacity)
     b = t_tb.build_tile_binning(
