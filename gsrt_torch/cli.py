@@ -190,23 +190,43 @@ def cmd_pt(args) -> int:
         print("note: binned primary unavailable for this scene "
               "(no triangles, alpha cutouts, or aperture > 0) — "
               "using the block path", file=sys.stderr)
+    tri = {}
+    if int(scene.tri_v0.shape[0]) > 0:
+        # the binned primary's pair buffer (the "auto" primary bins too):
+        # the port's count × 1.1, the slack `calibrate` gives splat pairs
+        from gsrt_torch.models.gaussian_rt import pair_bucket
+        from gsrt_torch.ops.tri_binning import count_tri_pairs_numpy
+        need = count_tri_pairs_numpy(scene.tri_v0, scene.tri_v1,
+                                     scene.tri_v2, camera, tile_w=cfg.tile_w,
+                                     tile_h=cfg.tile_h)
+        tri["tri_max_pairs"] = pair_bucket(int(need * 1.1))
+    flags = {}
+
+    def flagged(img, f):
+        flags.update({k: bool(v) for k, v in f.items()})
+        return img
     if args.shader_type == "path":
-        fn = lambda: pt.render_path_traced(  # noqa: E731
-            scene, camera, cfg, aperture=extra["aperture"],
-            focus=extra["focus"], **pk)
+        def fn():
+            img, info = pt.render_path_traced_calibrated(
+                scene, camera, cfg, aperture=extra["aperture"],
+                focus=extra["focus"], **pk, **tri)
+            return flagged(img, info["flags"])
     elif args.shader_type == "shadow":
-        fn = lambda: pt.render_shadow_rays(  # noqa: E731
-            scene, camera, cfg, light_pos=_light(args.scene), **pk)
+        fn = lambda: flagged(*pt.render_shadow_rays(  # noqa: E731
+            scene, camera, cfg, light_pos=_light(args.scene),
+            return_flags=True, **pk, **tri))
     elif args.shader_type == "ao":
-        fn = lambda: pt.render_ambient_occlusion(  # noqa: E731
-            scene, camera, cfg, **pk)
+        fn = lambda: flagged(*pt.render_ambient_occlusion(  # noqa: E731
+            scene, camera, cfg, return_flags=True, **pk, **tri))
     else:   # "foveated"
         fn = lambda: pt.render_foveated(  # noqa: E731
             scene, camera, cfg, aperture=extra["aperture"],
-            focus=extra["focus"])
+            focus=extra["focus"], **tri)
     img, dt = _timed(fn, dev)
     rays = args.width * args.height * args.samples
     print(f"{dt * 1e3:.1f} ms  {rays / dt / 1e6:.2f} Mrays/s")
+    if flags:
+        print("overflow flags: " + json.dumps(flags))
     if args.out:
         save_png(args.out, img)
         print(f"wrote {args.out}")

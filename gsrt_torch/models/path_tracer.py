@@ -50,11 +50,12 @@ import torch
 
 from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, Materials
-from gsrt_torch.ops.primitives import (_dot, _sqrt, box_normal, cylinder_normal,
-                                       mandelbulb_normal, ray_box,
-                                       ray_cylinder, ray_mandelbulb,
+from gsrt_torch.ops.primitives import (_dot, _norm, _sqrt, box_normal,
+                                       cylinder_normal, mandelbulb_normal,
+                                       ray_box, ray_cylinder, ray_mandelbulb,
                                        ray_sphere, ray_triangle,
                                        sphere_normal, triangle_normal)
+from gsrt_torch.utils.profiling import TRACER
 
 SWEEP_PAIRS = 1 << 25   # (ray, primitive) pairs a chunk of a sweep
 
@@ -233,7 +234,8 @@ def _sweep(test, n: int, R: int):
 
 
 def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
-                 tri_override=None, any_hit: bool = False):
+                 tri_override=None, any_hit: bool = False,
+                 tri_id: bool = False):
     """Nearest hit over every primitive type: (t [R], normal [R, 3],
     mat_id [R], hit [R], uv [R, 2] or None, ovf [] bool). uv is the
     texcoord at the hit when the mesh has texcoords (the sphere UV of the
@@ -242,7 +244,10 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
     truncation. tri_override = (t [R], tri_id [R]) from the binned primary
     cast replaces the triangle search; misses are (3.4e38-class t,
     _ID_SENTINEL). Triangles take the first of tri_override, tri_table,
-    tri_clusters and the sweep that the scene has."""
+    tri_clusters and the sweep that the scene has. tri_id appends [R]
+    int64: the scene index of the triangle that is the nearest hit, -1
+    where the nearest hit is no triangle or there is none (not with
+    tri_clusters, which keep no index)."""
     R = orig.shape[0]
     dev = orig.device
     best_t = torch.full((R,), float("inf"), device=dev)
@@ -262,6 +267,7 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
             best_uv = torch.where(upd[:, None],
                                   sphere_uv(n) if uv is None else uv,
                                   best_uv)
+        return upd
 
     def nearest(fn, n):
         i, (ti,) = _sweep(lambda s, e: (fn(slice(s, e)),), n, R)
@@ -296,7 +302,12 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
              scene.mnd_mat[i])
 
     if not scene.tri_v0.shape[0]:
-        return best_t, best_n, best_m, torch.isfinite(best_t), best_uv, ovf
+        out = best_t, best_n, best_m, torch.isfinite(best_t), best_uv, ovf
+        return out + (torch.full((R,), -1, dtype=torch.int64, device=dev),) \
+            if tri_id else out
+    if tri_id and tri_override is None and scene.tri_table is None and \
+            scene.tri_clusters is not None:
+        raise ValueError("tri_clusters keep no triangle index")
     u = v = None
     if tri_override is not None:
         from gsrt_torch.ops.tri_binning import _ID_SENTINEL
@@ -313,6 +324,8 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
         ti, slot, _, plan = closest_hit_packed(tt, orig, dirn, t_min, t_max,
                                                any_hit=any_hit)
         ovf = ovf | plan.overflow
+        TRACER.count(tri_visits=plan.total,
+                     tri_blocks=plan.block_start.shape[0] - 1)
         i = tt.order[slot.long()].long()
         v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
         mat, uvs = scene.tri_mat[i], (scene.tri_uv0, scene.tri_uv1,
@@ -341,8 +354,9 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
         w = 1.0 - u - v
         uv = (w[:, None] * uvs[0][i] + u[:, None] * uvs[1][i]
               + v[:, None] * uvs[2][i])
-    take(ti, n, mat, uv)
-    return best_t, best_n, best_m, torch.isfinite(best_t), best_uv, ovf
+    upd = take(ti, n, mat, uv)
+    out = best_t, best_n, best_m, torch.isfinite(best_t), best_uv, ovf
+    return out + (torch.where(upd, i, -1),) if tri_id else out
 
 
 def _sample_alpha(scene: PrimitiveScene, mat_id, normal, uv=None):
@@ -487,12 +501,12 @@ def _random_in_unit_disk(gen, n):
 
 
 def _reflect(d, n):
-    return d - 2.0 * (d * n).sum(-1, keepdim=True) * n
+    return d - 2.0 * _dot(d, n)[:, None] * n
 
 
 def _refract(d, n, eta):
     """glsl refract(); 0 on total internal reflection."""
-    cos_i = -(d * n).sum(-1, keepdim=True)
+    cos_i = -_dot(d, n)[:, None]
     k = 1.0 - eta ** 2 * (1.0 - cos_i ** 2)
     refr = eta * d + (eta * cos_i - _sqrt(torch.clamp_min(k, 0.0))) * n
     return torch.where(k >= 0, refr, torch.zeros_like(refr))
@@ -513,13 +527,22 @@ def _sky(dirn, has_sky: bool):
     return sky if has_sky else torch.zeros_like(sky)
 
 
+def _unit_rays(dirn):
+    """Each ray's direction over its own length."""
+    return dirn / torch.clamp_min(_norm(dirn, keepdim=True), 1e-9)
+
+
 def _scatter(gen, mats: Materials, mat_id, dirn, normal, hit_p=None,
              tex_color=None):
-    """All four scatter models evaluated dense and selected by material.
-    tex_color [R, 3] scales the diffuse albedo and tints glass; hit_p, the
-    hit points, is taken as the JAX package takes it (no model reads it).
-    Returns (attenuation [R, 3], new_dir [R, 3], scattered [R],
-    emitted [R])."""
+    """All four scatter models evaluated dense and selected by material,
+    on each ray's direction over its own length, as RayTracingInVulkan's
+    scatter shaders normalise it (the JAX package divides every direction
+    by one norm of the whole batch: ROADMAP.md Queue 3). Every dot product
+    is summed left to right per ray, so a ray's result does not depend on
+    its batch. tex_color [R, 3] scales the diffuse albedo and tints glass;
+    hit_p, the hit points, is taken as the JAX package takes it (no model
+    reads it). Returns (attenuation [R, 3], new_dir [R, 3], scattered
+    [R], emitted [R])."""
     R = dirn.shape[0]
     mat_id = mat_id.long()
     model = mats.model[mat_id]
@@ -528,25 +551,21 @@ def _scatter(gen, mats: Materials, mat_id, dirn, normal, hit_p=None,
         diffuse = diffuse * tex_color
     fuzz = mats.fuzziness[mat_id]
     ref_idx = mats.refraction_index[mat_id]
-    # the JAX package's `jnp.linalg.norm(dirn, -1, keepdims=True)` passes
-    # -1 as `ord`: the batch's matrix norm of order -1 (its smallest column
-    # sum of |d|), one scalar for all rays, not each ray's length. Kept, so
-    # that metal and glass scatter as there (ROADMAP.md Queue 3).
-    d = dirn / torch.clamp_min(dirn.abs().sum(0).amin(), 1e-9)
+    d = _unit_rays(dirn)
     rand_unit = _random_unit(gen, (R, 3))
 
     lam_dir = normal + rand_unit
-    lam_scattered = (d * normal).sum(-1) < 0
+    lam_scattered = _dot(d, normal) < 0
     refl = _reflect(d, normal)
     met_dir = refl + fuzz[:, None] * rand_unit
-    met_scattered = (refl * normal).sum(-1) > 0
-    dn = (d * normal).sum(-1, keepdim=True)
+    met_scattered = _dot(refl, normal) > 0
+    dn = _dot(d, normal)[:, None]
     outward = torch.where(dn > 0, -normal, normal)
     front = dn[:, 0] > 0
     eta = torch.where(front, ref_idx, 1.0 / ref_idx)
     cosine = torch.where(front, ref_idx * dn[:, 0], -dn[:, 0])
     refr = _refract(d, outward, eta[:, None])
-    tir = (refr * refr).sum(-1) == 0
+    tir = _dot(refr, refr) == 0
     reflect_prob = torch.where(tir, torch.ones_like(cosine),
                                _schlick(cosine, ref_idx))
     die_reflects = _uniform(gen, (R,)) < reflect_prob
@@ -635,7 +654,8 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
                        tri_max_pairs: int = 1 << 20,
                        tri_span_exact: bool = False,
                        sort_bounces: bool = True,
-                       return_flags: bool = False):
+                       return_flags: bool = False,
+                       primary_ids: list | None = None):
     """Full path trace: [H, W, 3] linear colour, square-rooted under
     cfg.gamma_correction. return_flags adds {"tri_visits_overflow",
     "gauss_visits_overflow", "binned_pairs_overflow"}: a True flag means
@@ -645,7 +665,9 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     primary_impl "binned" (the "auto" choice for a pinhole camera over
     triangles) casts bounce 0 through the screen-tile binning, its pair
     buffer sized by tri_max_pairs; "block" traces it through the
-    traversal.
+    traversal. `primary_ids`, where given, receives each sample's [H, W]
+    int64 scene index of the triangle bounce 0 hits (-1 where it hits
+    none); it takes no cutouts and no tri_clusters.
 
     Splats in the scene: `gaussians` (a GaussianCloud, traced brute force
     by `trace_gaussian_rays`, colours from SH seen from the camera) or
@@ -660,7 +682,27 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     trilinear at the ray-cone LOD of this segment (one pixel, 1/fy, wide)
     once `with_texture_mips` has run, else bilinear at level 0. Cutouts
     (`alpha_textures`) are skipped by `_closest_hit_cutout` on every
-    traced bounce; they rule out the binned primary cast."""
+    traced bounce; they rule out the binned primary cast.
+
+    Spans (`TRACER`): `pt.frame`, a root, round the call; `pt.primary`
+    round bounce 0's hit search (the binning and the binned cast, or the
+    traversal); `pt.traverse` round each later bounce's; `pt.sort` round
+    a wave's coherence permutation, parking and un-permute; `pt.shade`
+    round the rest of a bounce. Counters: `live_rays` and `rays`, the
+    rays active on entering each wave and all of them; `tri_visits` and
+    `tri_blocks`, each traversal's planned (block, super-cluster) visits
+    and its blocks."""
+    with TRACER.span("pt.frame", root=True):
+        return _path_trace(scene, camera, cfg, seed, aperture, focus,
+                           gaussians, gauss_clusters, gauss_s_max, gauss_rb,
+                           primary_impl, tri_max_pairs, tri_span_exact,
+                           sort_bounces, return_flags, primary_ids)
+
+
+def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
+                gauss_clusters, gauss_s_max, gauss_rb, primary_impl,
+                tri_max_pairs, tri_span_exact, sort_bounces, return_flags,
+                primary_ids):
     from gsrt_torch.models.gaussian_rt import (unit_dirs,
                                                trace_gaussian_rays)
     from gsrt_torch.ops.sh import eval_sh
@@ -682,6 +724,8 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
                          "(aperture 0)")
     if primary_impl == "binned" and scene.alpha_textures is not None:
         raise ValueError("the binned primary cast runs no cutouts")
+    if primary_ids is not None and scene.alpha_textures is not None:
+        raise ValueError("primary_ids takes no cutouts")
     textured = (scene.textures is not None
                 and scene.materials.texture_id is not None)
     mip = (_mip_from_packed(scene.tex_mips) if textured
@@ -691,9 +735,6 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
         _scene_sort_bounds(scene, gauss_clusters) if sort_bounces
         else (None,) * 4)
     binning = None
-    if primary_impl == "binned":
-        binning = _tri_binning(scene, camera, cfg, tri_max_pairs,
-                               tri_span_exact)
     ovf_tri = torch.zeros((), dtype=torch.bool, device=dev)
     ovf_gauss = torch.zeros((), dtype=torch.bool, device=dev)
     acc = torch.zeros((R, 3), device=dev)
@@ -710,78 +751,103 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
             gaussians, o, d, cfg, colors=gauss_colors, t_max=seg_tmax)
         return g_trans, g_color, torch.zeros_like(ovf_gauss)
 
+    def hits(o, d, b, tri_override=None):
+        """A wave's (t, n, mat, hit, uv, ovf) and, on bounce 0 where
+        primary_ids asks, the triangle index (else None)."""
+        if b == 0 and primary_ids is not None:
+            *out, tri = _closest_hit(scene, o, d, cfg.t_min, cfg.t_max,
+                                     tri_override=tri_override, tri_id=True)
+            return out, tri
+        if tri_override is not None:
+            return _closest_hit(scene, o, d, cfg.t_min, cfg.t_max,
+                                tri_override=tri_override), None
+        return _closest_hit_cutout(scene, o, d, cfg.t_min, cfg.t_max), None
+
     for _ in range(cfg.samples):
         orig, dirn = generate_camera_rays(gen, camera, cfg, aperture, focus)
         ray_color = torch.ones((R, 3), device=dev)
         out_color = torch.zeros((R, 3), device=dev)
         active = torch.ones((R,), dtype=torch.bool, device=dev)
         for b in range(cfg.bounces):
+            if TRACER.recording():
+                TRACER.count(live_rays=active.sum(), rays=R)
+            search = "pt.primary" if b == 0 else "pt.traverse"
             g = None
-            if b == 0 and binning is not None:
-                t, n, mat, hit, uv, ovf = _closest_hit(
-                    scene, orig, dirn, cfg.t_min, cfg.t_max,
-                    tri_override=_cast(binning, camera, cfg, dirn))
-                if has_gauss:
-                    g = gauss_segment(orig, dirn, t, hit)
+            if b == 0 and primary_impl == "binned":
+                with TRACER.span(search):
+                    if binning is None:
+                        binning = _tri_binning(scene, camera, cfg,
+                                               tri_max_pairs, tri_span_exact)
+                    (t, n, mat, hit, uv, ovf), tri = hits(
+                        orig, dirn, b, _cast(binning, camera, cfg, dirn))
+                    if has_gauss:
+                        g = gauss_segment(orig, dirn, t, hit)
             elif sort_lo is not None:
-                perm, inv = _coherence_perm(orig, dirn, active, sort_lo,
-                                            sort_hi)
-                act_s = active[perm][:, None]
-                o_s = torch.where(act_s, orig[perm], park_o)
-                d_s = torch.where(act_s, dirn[perm], park_d)
-                t, n, mat, hit, uv, ovf = _closest_hit_cutout(
-                    scene, o_s, d_s, cfg.t_min, cfg.t_max)
-                if has_gauss:
-                    g_trans, g_color, g_ovf = gauss_segment(o_s, d_s, t, hit)
-                    g = (g_trans[inv], g_color[inv], g_ovf)
-                t, n, mat, hit = t[inv], n[inv], mat[inv], hit[inv]
-                if uv is not None:
-                    uv = uv[inv]
+                with TRACER.span("pt.sort"):
+                    perm, inv = _coherence_perm(orig, dirn, active, sort_lo,
+                                                sort_hi)
+                    act_s = active[perm][:, None]
+                    o_s = torch.where(act_s, orig[perm], park_o)
+                    d_s = torch.where(act_s, dirn[perm], park_d)
+                with TRACER.span(search):
+                    (t, n, mat, hit, uv, ovf), tri = hits(o_s, d_s, b)
+                    if has_gauss:
+                        g = gauss_segment(o_s, d_s, t, hit)
+                with TRACER.span("pt.sort"):
+                    if g is not None:
+                        g = (g[0][inv], g[1][inv], g[2])
+                    t, n, mat, hit = t[inv], n[inv], mat[inv], hit[inv]
+                    if uv is not None:
+                        uv = uv[inv]
+                    if tri is not None:
+                        tri = tri[inv]
             else:
-                t, n, mat, hit, uv, ovf = _closest_hit_cutout(
-                    scene, orig, dirn, cfg.t_min, cfg.t_max)
-                if has_gauss:
-                    g = gauss_segment(orig, dirn, t, hit)
+                with TRACER.span(search):
+                    (t, n, mat, hit, uv, ovf), tri = hits(orig, dirn, b)
+                    if has_gauss:
+                        g = gauss_segment(orig, dirn, t, hit)
+            if tri is not None:
+                primary_ids.append(tri.reshape(H, W))
             ovf_tri = ovf_tri | ovf
-
-            if g is not None:
-                # the segment through the splats: their in-scatter, then
-                # T_gauss times what lies beyond
-                g_trans, g_color, g_ovf = g
-                ovf_gauss = ovf_gauss | g_ovf
-                act = active[:, None]
-                out_color = out_color + torch.where(act, ray_color * g_color,
-                                                    0.0)
-                ray_color = torch.where(act, ray_color * g_trans[:, None],
-                                        ray_color)
-            miss_now = (active & ~hit)[:, None]
-            out_color = out_color + torch.where(
-                miss_now, ray_color * _sky(dirn, cfg.has_sky), 0.0)
-            tex_color = None
-            if textured:
-                if uv is None:
-                    uv = sphere_uv(n)
-                tid = scene.materials.texture_id[mat.long()]
-                if mip is not None:
-                    from gsrt_torch.ops.mip import (ray_cone_lod,
-                                                    sample_texture_lod)
-                    lod = ray_cone_lod(t, 1.0 / camera.fy,
-                                       scene.mat_texel[mat.long()])
-                    tex_color = sample_texture_lod(mip, tid, uv, lod)
-                else:
-                    tex_color = sample_texture(scene.textures, tid, uv)
-            hit_p = orig + t[:, None] * dirn
-            atten, new_dir, scattered, is_light = _scatter(
-                gen, scene.materials, mat, dirn, n, hit_p, tex_color)
-            light_now = (active & hit & is_light)[:, None]
-            out_color = out_color + torch.where(
-                light_now, ray_color * scene.materials.diffuse[mat.long()],
-                0.0)
-            ray_color = torch.where((active & hit)[:, None],
-                                    ray_color * atten, ray_color)
-            orig = torch.where(hit[:, None], hit_p, orig)
-            dirn = torch.where(hit[:, None], new_dir, dirn)
-            active = active & hit & scattered
+            with TRACER.span("pt.shade"):
+                if g is not None:
+                    # the segment through the splats: their in-scatter,
+                    # then T_gauss times what lies beyond
+                    g_trans, g_color, g_ovf = g
+                    ovf_gauss = ovf_gauss | g_ovf
+                    act = active[:, None]
+                    out_color = out_color + torch.where(
+                        act, ray_color * g_color, 0.0)
+                    ray_color = torch.where(
+                        act, ray_color * g_trans[:, None], ray_color)
+                miss_now = (active & ~hit)[:, None]
+                out_color = out_color + torch.where(
+                    miss_now, ray_color * _sky(dirn, cfg.has_sky), 0.0)
+                tex_color = None
+                if textured:
+                    if uv is None:
+                        uv = sphere_uv(n)
+                    tid = scene.materials.texture_id[mat.long()]
+                    if mip is not None:
+                        from gsrt_torch.ops.mip import (ray_cone_lod,
+                                                        sample_texture_lod)
+                        lod = ray_cone_lod(t, 1.0 / camera.fy,
+                                           scene.mat_texel[mat.long()])
+                        tex_color = sample_texture_lod(mip, tid, uv, lod)
+                    else:
+                        tex_color = sample_texture(scene.textures, tid, uv)
+                hit_p = orig + t[:, None] * dirn
+                atten, new_dir, scattered, is_light = _scatter(
+                    gen, scene.materials, mat, dirn, n, hit_p, tex_color)
+                light_now = (active & hit & is_light)[:, None]
+                out_color = out_color + torch.where(
+                    light_now,
+                    ray_color * scene.materials.diffuse[mat.long()], 0.0)
+                ray_color = torch.where((active & hit)[:, None],
+                                        ray_color * atten, ray_color)
+                orig = torch.where(hit[:, None], hit_p, orig)
+                dirn = torch.where(hit[:, None], new_dir, dirn)
+                active = active & hit & scattered
         acc = acc + out_color
     color = acc / cfg.samples
     if cfg.gamma_correction:
@@ -806,23 +872,27 @@ def render_path_traced_calibrated(scene: PrimitiveScene, camera: Camera,
     buffer) times growth, and gauss_s_max (the clustered splats' visits)
     to max(gauss_s_max·growth, gauss_s_max + 8). Returns (img, info) with
     the final sizes, the retries and the last flags as Python values; it
-    reads the flags from the device."""
+    reads the flags from the device, in `pt.sync` spans under its own
+    `pt.frame` root (each render's `pt.frame` nests in it)."""
     retries = 0
-    while True:
-        img, flags = render_path_traced(
-            scene, camera, cfg, gauss_s_max=gauss_s_max,
-            tri_max_pairs=tri_max_pairs, return_flags=True, **kw)
-        concrete = {k: bool(v) for k, v in flags.items()}
-        grow_pairs = concrete["binned_pairs_overflow"]
-        grow_smax = concrete["gauss_visits_overflow"]
-        if not (grow_pairs or grow_smax) or retries >= max_retries:
-            return img, {"retries": retries, "gauss_s_max": gauss_s_max,
-                         "tri_max_pairs": tri_max_pairs, "flags": concrete}
-        if grow_pairs:
-            tri_max_pairs = int(tri_max_pairs * growth)
-        if grow_smax:
-            gauss_s_max = max(int(gauss_s_max * growth), gauss_s_max + 8)
-        retries += 1
+    with TRACER.span("pt.frame", root=True):
+        while True:
+            img, flags = render_path_traced(
+                scene, camera, cfg, gauss_s_max=gauss_s_max,
+                tri_max_pairs=tri_max_pairs, return_flags=True, **kw)
+            with TRACER.span("pt.sync"):
+                concrete = {k: bool(v) for k, v in flags.items()}
+            grow_pairs = concrete["binned_pairs_overflow"]
+            grow_smax = concrete["gauss_visits_overflow"]
+            if not (grow_pairs or grow_smax) or retries >= max_retries:
+                return img, {"retries": retries, "gauss_s_max": gauss_s_max,
+                             "tri_max_pairs": tri_max_pairs,
+                             "flags": concrete}
+            if grow_pairs:
+                tri_max_pairs = int(tri_max_pairs * growth)
+            if grow_smax:
+                gauss_s_max = max(int(gauss_s_max * growth), gauss_s_max + 8)
+            retries += 1
 
 
 def render_foveated(scene: PrimitiveScene, camera: Camera,

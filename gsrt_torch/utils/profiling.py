@@ -120,6 +120,11 @@ class StageTimer:
             return _OFF
         return _Span(self, name, root)
 
+    def recording(self) -> bool:
+        """Whether spans and counters record now: a caller whose counter
+        needs work of its own (a reduction) asks first."""
+        return _profiling()
+
     def count(self, **values) -> None:
         """Add each value (int or 0-d tensor) to the innermost open span's
         counter of its name; nothing while no profiler records."""

@@ -130,6 +130,19 @@ def test_pt_equals_direct_render(tmp_path, capsys):
     np.testing.assert_array_equal(read_png(out), to_uint8(img))
 
 
+@pytest.mark.parametrize("shader", ["path", "shadow", "ao"])
+def test_pt_sizes_the_pair_buffer_and_prints_the_flags(capsys, shader):
+    """A triangle scene's binned primary gets a buffer sized from the
+    port's count, and the render's overflow flags are printed."""
+    assert t_cli.main(["pt", "--scene", "cornell", "--width", "32",
+                       "--height", "32", "--shader-type", shader,
+                       "--primary", "binned", *CPU]) == 0
+    out = capsys.readouterr().out
+    flags = json.loads(out.split("overflow flags: ")[1].splitlines()[0])
+    assert flags["binned_pairs_overflow"] is False
+    assert flags["tri_visits_overflow"] is False
+
+
 def _soup_tree(root, n=300):
     """A reference tree with one directory scene (Bathroom): an OBJ soup
     of n triangles, enough for the traversal table, and a .camera file."""

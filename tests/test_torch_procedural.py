@@ -14,8 +14,9 @@ hit; rays that start inside a bulb's bound, where the march is chaotic,
 hold t to atol 1e-5 on 99% of them. The catalog's scenes are bit-equal (the same NumPy draws). A sweep in
 chunks equals the unchunked one bit for bit, ties included. The PT
 renders (48×32, one sample, 3 bounces) run the JAX package op by op with
-its draws and camera rays patched in (tests/test_torch_pathtracer.py,
-`jax_camera_rays`) and hold the soup rule: at least 99.5% of pixels within atol 1e-4, the mean colour within
+its draws, camera rays and scatter norm patched in
+(tests/test_torch_pathtracer.py, `jax_camera_rays`, `jax_batch_norm`: the
+common grid holds fuzzy metal and glass) and hold the soup rule: at least 99.5% of pixels within atol 1e-4, the mean colour within
 2e-3.
 """
 
@@ -41,7 +42,8 @@ from gsrt_torch.models import path_tracer as t_pt
 from gsrt_torch.ops import primitives as t_prim
 from gsrt_torch.scene import primitives_catalog as t_cat
 
-from test_torch_pathtracer import _camera, _fields, _pt_draws
+from test_torch_pathtracer import (_camera, _fields, _pt_draws,
+                                   jax_batch_norm)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 J, T = jnp.asarray, torch.as_tensor
@@ -258,7 +260,8 @@ def _render_pair(name, kw):
         want = np.asarray(j_pt.render_path_traced(js, jcam, JCfg(**cfg),
                                                   seed=0, interpret=True))
     draws, _ = _pt_draws(0, 1, 3, 48 * 32)
-    with draws.patch(), jax_camera_rays(jcam, JCfg(**cfg), 0, 1):
+    with draws.patch(), jax_camera_rays(jcam, JCfg(**cfg), 0, 1), \
+            jax_batch_norm():
         got = t_pt.render_path_traced(ts, _camera(jcam), RenderConfig(**cfg),
                                       seed=0)
     assert draws.done()

@@ -8,8 +8,9 @@ atlas and each material's texel density bit-equal (both built in NumPy,
 the densities summed in triangle order). Cutout hits: hit, material and
 t equal. The PT renders (48×32, one sample, 3 bounces; the planets'
 sphere-UV textures, a textured OBJ mesh with mips, an alpha-cutout OBJ
-mesh) run the JAX package op by op with its draws and camera rays patched
-in and hold the soup rule: at least 99.5% of pixels within atol 1e-4, the
+mesh) run the JAX package op by op with its draws, camera rays and
+scatter norm (`jax_batch_norm`: the planets are fuzzy metal) patched in
+and hold the soup rule: at least 99.5% of pixels within atol 1e-4, the
 mean colour within 2e-3. `render_foveated`'s rings equal the averages of
 the one-sample renders they are made of, bit for bit.
 """
@@ -37,7 +38,8 @@ from gsrt_torch.models import path_tracer as t_pt
 from gsrt_torch.ops import mip as t_mip
 from gsrt_torch.scene import primitives_catalog as t_cat
 
-from test_torch_pathtracer import _camera, _fields, _pt_draws
+from test_torch_pathtracer import (_camera, _fields, _pt_draws,
+                                   jax_batch_norm)
 from test_torch_procedural import jax_camera_rays
 
 J, T = jnp.asarray, torch.as_tensor
@@ -214,7 +216,8 @@ def _render(js, jcam, **kw):
         want = np.asarray(j_pt.render_path_traced(
             js, jcam, JCfg(**cfg), seed=0, interpret=True, **kw))
     draws, _ = _pt_draws(0, 1, 3, W * H)
-    with draws.patch(), jax_camera_rays(jcam, JCfg(**cfg), 0, 1):
+    with draws.patch(), jax_camera_rays(jcam, JCfg(**cfg), 0, 1), \
+            jax_batch_norm():
         got = t_pt.render_path_traced(ts, _camera(jcam), RenderConfig(**cfg),
                                       seed=0, **kw).numpy()
     assert draws.done()
