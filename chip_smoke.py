@@ -174,7 +174,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              instructions of its per-triangle loop where cuobjdump exists),
              then the kernel against its plain version on soup359k:
              closest hit (t, slots and executed visits equal) on the PT
-             render's first bounce wave, as the path hands it over, and on
+             render's first bounce wave, as the path hands it over (to the
+             per-ray kernel), and on
              the 1080p primary bundle; any hit on the SH render's first
              shadow bundle (hit mask equal, every t a hit of its
              triangle); visits a block executed and planned; the cull
@@ -189,11 +190,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
              just before each and read just after (one cast a render but
              none in "block", the any-hit traversal in SH and AO, the
              closest-hit one in PT and in "block", one expand a rect
-             binning and two an exact one), no overflow flag, ms
+             binning and two an exact one; PT's later waves the per-ray
+             kernel's), no overflow flag, ms
              per render on the card's and the host's clocks, the mean
              colour; then for SH, AO and PT the split by stage, every
              traversal launch's card ms and visits a block, and the
              profiler's device-busy share;
+22b. tri-bvh — bathroom-pt's scene (benchmark/tri_scene.py at its
+             configuration's 359,309 triangles, 1920x1080, 16 bounces):
+             the table and the per-ray tree built and timed, one frame
+             with the per-ray kernel launched once a wave after bounce 0
+             and no flag; on the waves of bounces 1 and 8 as the path
+             hands them over, the kernel's build (registers, local bytes,
+             spills, resident blocks), its ms, nodes and tests a ray (its
+             counters), its ms on the wave shuffled, the block walk's ms
+             on the same wave (no hit of the tree's farther than its), and
+             the plain version (brute force) bit-equal on every 64th ray
+             and timed on those rays;
 23. scenes — after ellipse: the path tracer's catalog at its factories'
              sizes (RTIOW, planets, the 30-grid cube and cylinder fields
              and the Mandelbulb at 640x480, cube and spheres at 256x256,
@@ -415,6 +428,11 @@ MT_FLOPS = 53
 # Per (ray, cluster) of an executed visit, the slab test: 6 sub, 6 mul,
 # 12 min/max, 1 compare.
 SLAB_FLOPS = 25
+# --- the per-ray tree at bathroom-pt's size (the PT's later waves) ---
+BVH_SRC = "gsrt_torch/csrc/tri_bvh.cu"
+BVH_CONFIG = "benchmark/configs/bathroom-pt-1080p.json"
+BVH_WAVES = (1, 8)        # the bounces whose waves the rows time
+BVH_PLAIN_STRIDE = 64     # the plain version holds every 64th ray
 # Mean colours of SH, AO and PT on soup359k as the traversal kernel with the
 # block cull (commit 8f9a83f) renders them on this card, from
 # tools/traverse_ab.py; the warp cull leaves every pixel as it was there.
@@ -2658,7 +2676,7 @@ def tri_phases(torch, rows):
     from gsrt_torch import RenderConfig, _kernels
     from gsrt_torch.core.types import look_at, make_camera
     from gsrt_torch.models import path_tracer as pt
-    from gsrt_torch.ops import tri_binning, tri_kernel
+    from gsrt_torch.ops import tri_binning, tri_bvh, tri_kernel
 
     W, H = WIDTH, HEIGHT
     camera = make_camera(look_at((0, 0, -7.0), (0, 0, 0.0)), 55.0, W, H,
@@ -2765,13 +2783,14 @@ def tri_phases(torch, rows):
     # hands it over: coherence-sorted, retired rays parked) and on the
     # 1080p primary bundle (bounce 0 of primary_impl "block"); any hit on
     # the SH render's first shadow bundle ---
-    with Recorder(tri_kernel, "closest_hit_packed") as rec_pt:
+    with Recorder(tri_bvh, "closest_hit_bvh") as rec_pt:
         pt.render_path_traced(soup, camera, cfg, seed=SEED)
         torch.cuda.synchronize()
     if len(rec_pt.calls) != cfg.bounces - 1:
-        raise SystemExit("phase tri-traverse: expected one traversal per "
+        raise SystemExit("phase tri-traverse: expected one per-ray walk per "
                          "bounce after the first in the PT render")
-    (_, *wave), wave_kw = rec_pt.calls[0]
+    (_, *wave), _ = rec_pt.calls[0]
+    wave_kw = {}
     del rec_pt
     info = traverse_kernel_info(RB)
     sass = info["sass"]
@@ -2789,7 +2808,8 @@ def tri_phases(torch, rows):
         torch, "closest_hit_packed", tt, tuple(wave), wave_kw, info,
         clock_hz)
     tri_rows["closest_hit_packed"]["at"] = \
-        "soup359k, the PT render's first bounce wave"
+        "soup359k, the PT render's first bounce wave (which the per-ray " \
+        "tree now takes)"
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     orig, dirn = pt.generate_camera_rays(gen, camera, cfg)
     tri_rows["closest_hit_packed[primary]"] = traverse_row(
@@ -2818,7 +2838,7 @@ def tri_phases(torch, rows):
         "SH[block]": lambda: sh(primary_impl="block")}
     want = {"SH": ("closest_hit_packed_any",),
             "AO": ("closest_hit_packed_any",),
-            "PT": ("closest_hit_packed",),
+            "PT": ("closest_hit_bvh",),
             "SH[exact]": ("closest_hit_packed_any",),
             "SH[block]": ("closest_hit_packed", "closest_hit_packed_any")}
     figures, launches = {}, {}
@@ -2875,6 +2895,7 @@ def tri_phases(torch, rows):
         stamps.wrap(tri_binning, "cast_primary", "cast")
         stamps.wrap(tri_kernel, "plan_visits", "plan")
         stamps.wrap(tri_kernel, "traverse", "traverse")
+        stamps.wrap(tri_bvh, "closest_hit_bvh", "per-ray")
         try:
             stamps.mark("render:start")
             renders[name]()
@@ -2941,6 +2962,161 @@ def tri_phases(torch, rows):
                 super_clusters=tt.sup_min.shape[0], renders=figures,
                 pt_samples=PT_SAMPLES, pt_bounces=PT_BOUNCES,
                 bigtris=bigtris)
+
+
+def bvh_kernel_info() -> dict:
+    """The per-ray kernel's build (gsrt_tri_bvh_info) and its spills
+    (nvcc -Xptxas -v, where this run built it)."""
+    import ctypes
+    from gsrt_torch import _kernels
+    fn = _kernels._load("tri_bvh").gsrt_tri_bvh_info
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    buf = (ctypes.c_int * 6)()
+    if fn(buf) != 0:
+        raise SystemExit("gsrt_tri_bvh_info failed")
+    info = dict(zip(("registers", "static_smem_bytes", "local_bytes",
+                     "blocks_per_sm", "threads", "grid_blocks"), buf))
+    rep = ptxas_report(_kernels.build.last_log, "tri_bvh", "tri_bvh_kernel")
+    info["spill_bytes"] = next(iter(rep.values())).get("spill_bytes") \
+        if rep else None
+    return info
+
+
+def bathroom_waves(torch) -> dict:
+    """bathroom-pt's scene on the card (its configuration's triangles,
+    frame and bounces), its table and tree built and timed, and one
+    path-traced frame (after a warm-up) with every per-ray call recorded:
+    {"scene", "table", "calls" (one (args, kw) a wave after bounce 0),
+    "launches" (the kernel's, read in that frame), "triangles", "width",
+    "height", "bounces", "table_s", "tree_s", "frame_ms", "flags"}."""
+    import json
+    from benchmark import counts as bench_counts
+    from benchmark import port, tri_scene as bathroom
+    from gsrt_torch import RenderConfig
+    from gsrt_torch.interop import scene_from_numpy
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import tri_binning, tri_bvh
+    with open(BVH_CONFIG) as f:
+        c = json.load(f)
+    W, H = c["frame"]["width"], c["frame"]["height"]
+    s = bathroom.build(c["triangles"], W, H, c["assumed"]["scene_seed"])
+    scene = scene_from_numpy(s.fields(), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = pt.with_tri_table(scene)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tri_bvh.build_tri_bvh(scene.tri_table)
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    cam = port.camera(s.view, DEVICE)
+    cfg = RenderConfig(width=W, height=H, samples=1, bounces=c["bounces"],
+                       t_min=c["t_min"], t_max=c["t_max"], **c["render"])
+    need = tri_binning.count_tri_pairs_numpy(s.v0, s.v1, s.v2, cam,
+                                             tile_w=cfg.tile_w,
+                                             tile_h=cfg.tile_h)
+    kw = dict(seed=SEED, primary_impl="binned", return_flags=True,
+              tri_max_pairs=bench_counts.pair_bucket(int(need * 1.1)))
+    pt.render_path_traced(scene, cam, cfg, **kw)             # warm-up
+    with Recorder(tri_bvh, "closest_hit_bvh") as rec:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, flags = pt.render_path_traced(scene, cam, cfg, **kw)
+        end.record()
+        torch.cuda.synchronize()
+    flags = {k: bool(v) for k, v in flags.items()}
+    launches = rec.launched("closest_hit_bvh")
+    if len(rec.calls) != cfg.bounces - 1 or launches != cfg.bounces - 1 \
+            or any(flags.values()):
+        raise SystemExit(f"phase tri-bvh: want one per-ray launch a wave "
+                         f"after bounce 0, no flag: {len(rec.calls)} calls, "
+                         f"flags {flags}")
+    return dict(scene=scene, table=scene.tri_table, calls=rec.calls,
+                launches=launches, triangles=s.n, width=W, height=H,
+                bounces=cfg.bounces, table_s=table_s, tree_s=tree_s,
+                frame_ms=start.elapsed_time(end), flags=flags)
+
+
+def bvh_phase(torch, rows) -> dict:
+    """tri-bvh (see the module docstring). Appends the per-ray kernel's
+    rows, one a timed wave; returns the figures."""
+    from gsrt_torch.ops import tri_bvh, tri_kernel
+    got = bathroom_waves(torch)
+    tt, W, H = got["table"], got["width"], got["height"]
+    bvh = tt.bvh
+    table_s, tree_s, frame_ms = got["table_s"], got["tree_s"], got["frame_ms"]
+    launches = got["launches"]
+    info = bvh_kernel_info()
+    log(f"phase tri-bvh: {got['triangles']} triangles, {bvh.n_leaves} leaves, "
+        f"{bvh.nodes.shape[0]} nodes ({bvh.nodes.numel() * 4} B), depth "
+        f"{bvh.depth}; table {table_s:.2f} s with the tree, the tree "
+        f"alone {tree_s:.2f} s; a {W}x{H} frame {frame_ms:.1f} ms on the "
+        f"card's clock; build {info}")
+    waves = {}
+    for b in BVH_WAVES:
+        (_, *args), _ = got["calls"][b - 1]
+        R = args[0].shape[0]
+        counts = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+        t_k, s_k, h_k = tri_bvh.closest_hit_bvh(tt, *args, counts=counts)
+        nodes, tests, entered = counts.tolist()
+        ms = time_cuda(lambda: tri_bvh.closest_hit_bvh(tt, *args), 10)
+        perm = torch.randperm(R, device=DEVICE)
+        shuffled = [a[perm] if torch.is_tensor(a) and a.dim() else a
+                    for a in args]
+        shuffled_ms = time_cuda(
+            lambda: tri_bvh.closest_hit_bvh(tt, *shuffled), 5)
+        t_q, s_q, _, _ = tri_kernel.closest_hit_packed(tt, *args)
+        q_ms = time_cuda(lambda: tri_kernel.closest_hit_packed(tt, *args),
+                         3)
+        idx = torch.arange(0, R, BVH_PLAIN_STRIDE, device=DEVICE)
+        sub = [a[idx] if torch.is_tensor(a) and a.dim() else a for a in args]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_p, s_p, _ = tri_bvh.closest_hit_bvh_plain(tt, *sub)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not (torch.equal(t_k[idx].view(torch.int32),
+                            t_p.view(torch.int32))
+                and torch.equal(s_k[idx], s_p)):
+            raise SystemExit(f"phase tri-bvh: bounce {b}: the kernel "
+                             f"differs from its plain version")
+        if bool((t_k > t_q).any()):
+            raise SystemExit(f"phase tri-bvh: bounce {b}: a hit farther "
+                             f"than the block walk's")
+        differ = (t_k != t_q) | (s_k != s_q)
+        name = f"closest_hit_bvh[bounce {b}]"
+        row = dict(
+            name=name, route="cuda", source=BVH_SRC,
+            replaces="none (the block walk, csrc/tri_kernel.cu, on the "
+            "PT's later waves)", launches=launches, max_abs_err=0.0,
+            ms=ms, plain_ms=plain_s * 1e3, plain_rays=idx.numel(),
+            bound_ms=None, library_ms=None,
+            block_walk_ms=q_ms, shuffled_ms=shuffled_ms, rays=R,
+            rays_entered=entered, nodes_per_ray=nodes / max(entered, 1),
+            tests_per_ray=tests / max(entered, 1),
+            rays_differing_from_block_walk=int(differ.sum()),
+            nearer_than_block_walk=int((t_k < t_q).sum()),
+            hit_fraction=h_k.float().mean().item(), build=info,
+            at=f"bathroom-pt's scene, {W}x{H}, the wave of bounce {b} as "
+            f"the path hands it over (coherence-sorted, retired rays "
+            f"parked)")
+        rows.append(row)
+        waves[b] = row
+        log(f"phase tri-bvh: {name}: {R} rays, {entered} entered the tree, "
+            f"{row['nodes_per_ray']:.2f} nodes and {row['tests_per_ray']:.2f}"
+            f" tests a ray; kernel {ms:.3f} ms ({shuffled_ms:.3f} shuffled), "
+            f"the block walk {q_ms:.3f} ms; plain (brute force) on "
+            f"{idx.numel()} rays bit-equal, {row['plain_ms']:.0f} ms on "
+            f"those rays; rays differing from the block walk "
+            f"{row['rays_differing_from_block_walk']} "
+            f"({row['nearer_than_block_walk']} nearer)")
+    return dict(triangles=got["triangles"], leaves=bvh.n_leaves,
+                depth=bvh.depth,
+                node_bytes=bvh.nodes.numel() * 4, table_s=table_s,
+                tree_s=tree_s, frame_ms=frame_ms, build=info,
+                waves={str(b): {k: v for k, v in r.items() if k != "build"}
+                       for b, r in waves.items()})
 
 
 # --- the scenes phase: the catalog, foveated PT, the foliage field ---
@@ -3154,7 +3330,7 @@ def foliage_cutout(torch, rows, field, camera, cfg, card: str) -> dict:
     cutout trace cut, and the card time split."""
     from gsrt_torch import _kernels
     from gsrt_torch.models import path_tracer as pt
-    from gsrt_torch.ops import tri_kernel
+    from gsrt_torch.ops import tri_bvh, tri_kernel
     render = lambda **kw: pt.render_path_traced(  # noqa: E731
         field, camera, cfg, seed=SEED, return_flags=True, **kw)
     cutouts = pt._closest_hit_cutout
@@ -3210,6 +3386,7 @@ def foliage_cutout(torch, rows, field, camera, cfg, card: str) -> dict:
     stamps = Stamps(torch)
     stamps.wrap(tri_kernel, "traverse", "traversal")
     stamps.wrap(tri_kernel, "plan_visits", "plan")
+    stamps.wrap(tri_bvh, "closest_hit_bvh", "per-ray")
     stamps.wrap(pt, "_sample_alpha", "cutout")
     try:
         stamps.mark("render:start")
@@ -3265,7 +3442,7 @@ def foliage_mips(torch, rows, field, camera, cfg) -> dict:
         f"{img.mean().item():.6f}")
     if counts.get("cast_primary") != 1 or \
             counts.get("expand_pairs_fused") != 1 or \
-            not counts.get("closest_hit_packed") or \
+            not counts.get("closest_hit_bvh") or \
             any(bool(v) for v in flags.values()) or \
             not torch.isfinite(img).all():
         raise SystemExit("phase scenes: the mips field did not cast its "
@@ -4973,6 +5150,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         scenes = scenes_phase(torch, rows, card)
         tri = tri_phases(torch, rows)
+        tri["bvh"] = bvh_phase(torch, rows)
         front_ends = front_ends_phase(
             torch, rows, capture_dir, scenes["catalog"]["rtiow"].pop("image"),
             serving, mrays, frame_ms)

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
-           "splat_grad", "tri_cast", "tri_kernel", "project")
+           "splat_grad", "tri_cast", "tri_kernel", "tri_bvh", "project")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -174,6 +174,9 @@ TRI_CLOSEST_HIT = CudaKernel(
 TRI_ANY_HIT = CudaKernel(
     "closest_hit_packed_any", "tri_kernel", "gsrt_tri_traverse",
     _TRAVERSE_ARGS)
+TRI_BVH = CudaKernel(
+    "closest_hit_bvh", "tri_bvh", "gsrt_tri_bvh",
+    [P, P, P, P, P, P, F, P, F, I, P, P, P, P, P])
 
 PROJECT = CudaKernel(
     "project_splats", "project", "gsrt_project",
@@ -181,7 +184,7 @@ PROJECT = CudaKernel(
 
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_PAIRS, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
-           TRI_CLOSEST_HIT, TRI_ANY_HIT, PROJECT)
+           TRI_CLOSEST_HIT, TRI_ANY_HIT, TRI_BVH, PROJECT)
 
 
 def launch_counts() -> dict[str, int]:

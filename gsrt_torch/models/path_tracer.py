@@ -15,6 +15,9 @@ packed-cluster traversal (`ops.tri_kernel`, the CUDA kernel
 `csrc/tri_kernel.cu`) once `with_tri_table` has attached its table, else
 the Morton-cluster bundle traversal once `with_tri_clusters` has attached
 its clusters (`ops.clusters`), else the chunked Möller–Trumbore sweep.
+The path tracer's waves after bounce 0 scatter in every direction: with
+a table they walk its per-ray tree instead (`ops.tri_bvh`, the CUDA
+kernel `csrc/tri_bvh.cu`).
 Bounce 0 of a pinhole camera over a triangle scene without cutouts takes
 the screen-tile binned cast (`ops.tri_binning`, the CUDA kernel
 `csrc/tri_cast.cu`) when primary_impl is "auto" or "binned". Occlusion
@@ -184,13 +187,15 @@ def _mip_from_packed(data):
 
 def with_tri_table(scene: PrimitiveScene,
                    min_tris: int = 256) -> PrimitiveScene:
-    """Attach the packed-cluster table of the traversal kernel; once per
-    scene. Meshes under min_tris triangles keep the brute-force sweep."""
+    """Attach the packed-cluster table of the traversal kernel and the
+    per-ray tree over its slots (`ops.tri_bvh`); once per scene. Meshes
+    under min_tris triangles keep the brute-force sweep."""
+    from gsrt_torch.ops.tri_bvh import build_tri_bvh
     from gsrt_torch.ops.tri_kernel import build_tri_table
     if scene.tri_v0.shape[0] < min_tris:
         return scene
-    return scene._replace(tri_table=build_tri_table(
-        scene.tri_v0, scene.tri_v1, scene.tri_v2))
+    tt = build_tri_table(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    return scene._replace(tri_table=tt._replace(bvh=build_tri_bvh(tt)))
 
 
 def _cross(a, b):
@@ -235,14 +240,17 @@ def _sweep(test, n: int, R: int):
 
 def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
                  tri_override=None, any_hit: bool = False,
-                 tri_id: bool = False):
+                 tri_id: bool = False, per_ray: bool = False):
     """Nearest hit over every primitive type: (t [R], normal [R, 3],
     mat_id [R], hit [R], uv [R, 2] or None, ovf [] bool). uv is the
     texcoord at the hit when the mesh has texcoords (the sphere UV of the
     normal off triangles). any_hit relaxes the table traversal to
     occlusion (consume `hit` alone). ovf is the traversal's visit-list
-    truncation. tri_override = (t [R], tri_id [R]) from the binned primary
-    cast replaces the triangle search; misses are (3.4e38-class t,
+    truncation. per_ray walks the table's per-ray tree (`ops.tri_bvh`,
+    the closest hit, no visit list: ovf stays False) in place of the
+    block traversal: the path tracer's scattered waves take it.
+    tri_override = (t [R], tri_id [R]) from the binned primary cast
+    replaces the triangle search; misses are (3.4e38-class t,
     _ID_SENTINEL). Triangles take the first of tri_override, tri_table,
     tri_clusters and the sweep that the scene has. tri_id appends [R]
     int64: the scene index of the triangle that is the nearest hit, -1
@@ -319,13 +327,25 @@ def _closest_hit(scene: PrimitiveScene, orig, dirn, t_min, t_max,
         mat, uvs = scene.tri_mat[i], (scene.tri_uv0, scene.tri_uv1,
                                       scene.tri_uv2)
     elif scene.tri_table is not None:
-        from gsrt_torch.ops.tri_kernel import closest_hit_packed
         tt = scene.tri_table
-        ti, slot, _, plan = closest_hit_packed(tt, orig, dirn, t_min, t_max,
-                                               any_hit=any_hit)
-        ovf = ovf | plan.overflow
-        TRACER.count(tri_visits=plan.total,
-                     tri_blocks=plan.block_start.shape[0] - 1)
+        if per_ray:
+            from gsrt_torch.ops.tri_bvh import closest_hit_bvh
+            if any_hit:
+                raise ValueError("the per-ray tree takes closest hits only")
+            counts = (torch.zeros(3, dtype=torch.int64, device=dev)
+                      if orig.is_cuda and TRACER.recording() else None)
+            ti, slot, _ = closest_hit_bvh(tt, orig, dirn, t_min, t_max,
+                                          counts=counts)
+            if counts is not None:
+                TRACER.count(tri_nodes=counts[0], tri_tests=counts[1],
+                             tri_rays=counts[2])
+        else:
+            from gsrt_torch.ops.tri_kernel import closest_hit_packed
+            ti, slot, _, plan = closest_hit_packed(tt, orig, dirn, t_min,
+                                                   t_max, any_hit=any_hit)
+            ovf = ovf | plan.overflow
+            TRACER.count(tri_visits=plan.total,
+                         tri_blocks=plan.block_start.shape[0] - 1)
         i = tt.order[slot.long()].long()
         v0, v1, v2 = scene.tri_v0[i], scene.tri_v1[i], scene.tri_v2[i]
         mat, uvs = scene.tri_mat[i], (scene.tri_uv0, scene.tri_uv1,
@@ -377,15 +397,18 @@ def _sample_alpha(scene: PrimitiveScene, mat_id, normal, uv=None):
 
 
 def _closest_hit_cutout(scene: PrimitiveScene, orig, dirn, t_min, t_max,
-                        max_skips: int = 3, retraced: list | None = None):
+                        max_skips: int = 3, retraced: list | None = None,
+                        per_ray: bool = False):
     """Closest hit honouring alpha cutouts: a hit whose alpha is below 0.5
     is skipped by tracing the ray again from t + 1e-3, every ray of the
     bundle each time (as the JAX package's `while_loop`), at most
     max_skips + 1 traces, ending early once every ray has settled. Rays
     still cut after the last trace report no hit. `retraced`, where given,
-    receives the number of rays cut by each trace."""
+    receives the number of rays cut by each trace; per_ray is
+    `_closest_hit`'s."""
     if scene.alpha_textures is None:
-        return _closest_hit(scene, orig, dirn, t_min, t_max)
+        return _closest_hit(scene, orig, dirn, t_min, t_max,
+                            per_ray=per_ray)
     R = orig.shape[0]
     dev = orig.device
     tmin_cur = torch.as_tensor(t_min, dtype=torch.float32,
@@ -399,7 +422,7 @@ def _closest_hit_cutout(scene: PrimitiveScene, orig, dirn, t_min, t_max,
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(max_skips + 1):
         t, n, m, hit, uv, ovf_i = _closest_hit(scene, orig, dirn, tmin_cur,
-                                               t_max)
+                                               t_max, per_ray=per_ray)
         cut = hit & (_sample_alpha(scene, m, n, uv) < 0.5) & ~done
         settle = ~done & ~cut
         bt = torch.where(settle, t, bt)
@@ -665,9 +688,11 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     primary_impl "binned" (the "auto" choice for a pinhole camera over
     triangles) casts bounce 0 through the screen-tile binning, its pair
     buffer sized by tri_max_pairs; "block" traces it through the
-    traversal. `primary_ids`, where given, receives each sample's [H, W]
-    int64 scene index of the triangle bounce 0 hits (-1 where it hits
-    none); it takes no cutouts and no tri_clusters.
+    traversal. Later bounces walk the table's per-ray tree, which plans
+    no visits: "tri_visits_overflow" is then bounce 0's. `primary_ids`,
+    where given, receives each sample's [H, W] int64 scene index of the
+    triangle bounce 0 hits (-1 where it hits none); it takes no cutouts
+    and no tri_clusters.
 
     Splats in the scene: `gaussians` (a GaussianCloud, traced brute force
     by `trace_gaussian_rays`, colours from SH seen from the camera) or
@@ -690,8 +715,10 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     a wave's coherence permutation, parking and un-permute; `pt.shade`
     round the rest of a bounce. Counters: `live_rays` and `rays`, the
     rays active on entering each wave and all of them; `tri_visits` and
-    `tri_blocks`, each traversal's planned (block, super-cluster) visits
-    and its blocks."""
+    `tri_blocks`, each block traversal's planned (block, super-cluster)
+    visits and its blocks; `tri_nodes`, `tri_tests` and `tri_rays`, each
+    per-ray walk's node records fetched, triangle tests and rays that
+    entered the tree (on the card)."""
     with TRACER.span("pt.frame", root=True):
         return _path_trace(scene, camera, cfg, seed, aperture, focus,
                            gaussians, gauss_clusters, gauss_s_max, gauss_rb,
@@ -761,7 +788,8 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
         if tri_override is not None:
             return _closest_hit(scene, o, d, cfg.t_min, cfg.t_max,
                                 tri_override=tri_override), None
-        return _closest_hit_cutout(scene, o, d, cfg.t_min, cfg.t_max), None
+        return _closest_hit_cutout(scene, o, d, cfg.t_min, cfg.t_max,
+                                   per_ray=b > 0), None
 
     for _ in range(cfg.samples):
         orig, dirn = generate_camera_rays(gen, camera, cfg, aperture, focus)

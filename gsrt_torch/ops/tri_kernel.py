@@ -59,6 +59,7 @@ class TriTable(NamedTuple):
     sup_max: torch.Tensor   # [MS, 3]
     order: torch.Tensor     # [M·K] int32 slot → triangle id
     n_tris: int
+    bvh: object | None = None   # ops.tri_bvh.TriBVH over the slots
 
 
 def build_tri_table(v0, v1, v2) -> TriTable:

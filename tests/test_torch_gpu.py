@@ -18,8 +18,11 @@ on a second run; gradients of the autograd function on the card
 against the plain versions on the CPU, normalised, at 1e-3; the triangle
 kernels bit for bit (the binned cast's t and ids; the traversal's t, slots,
 hits and executed visits in both modes: both round Möller–Trumbore as
-written); the projection kernel bit for bit on all twelve columns (it
-rounds each op as PyTorch's CUDA ops do, see csrc/project.cu).
+written; the per-ray tree's t bits, slots and hits against brute force,
+but for rays within 1e-5 of parallel to a small triangle, and against the
+walk in tensor code, with its counters); the projection kernel bit
+for bit on all twelve columns (it rounds each op as PyTorch's CUDA ops
+do, see csrc/project.cu).
 """
 
 from __future__ import annotations
@@ -728,6 +731,98 @@ def test_tri_traverse_any_hit_occluded_warps(cuda, rb):
     front = torch.as_tensor((np.arange(2048) // 32) % 2 == 0, device=cuda)
     assert bool(got[2][front].all())
     assert bool((got[0][front] < 6.0).all())     # the occluder's t
+
+
+@pytest.fixture(scope="module")
+def bvh_scenes():
+    """The 5,000-triangle soup and a room of 20,000 triangles (the
+    path-tracing cell's generator) with their tables and per-ray trees,
+    on the card: {name: (vertices as NumPy, table)}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU "
+                    "mode")
+    from gsrt_torch.ops import tri_bvh as t_bvh
+    from gsrt_torch.ops import tri_kernel as t_tk
+    from test_torch_tri_bvh import room_scene, soup
+    v = soup()
+    tt = t_tk.build_tri_table(*(torch.as_tensor(a, device="cuda")
+                                for a in v))
+    s, ps = room_scene(20_000, device="cuda")
+    return {"soup": (v, tt._replace(bvh=t_bvh.build_tri_bvh(tt))),
+            "room": ((s.v0, s.v1, s.v2), ps.tri_table)}
+
+
+@pytest.mark.parametrize("kind", ["random", "grazing", "edges", "parked",
+                                  "t_min", "axis", "fixtures"])
+@pytest.mark.parametrize("scene", ["soup", "room"])
+def test_tri_bvh_kernel_matches_plain(cuda, bvh_scenes, scene, kind):
+    """The per-ray kernel against its plain version (brute force): t bits,
+    slots and hits equal (rays grazing the smallest triangles: but for
+    at most 0.2% that meet a triangle within 1e-5 of parallel, see
+    test_torch_tri_bvh.py); t bits, slots and counters equal the walk's
+    in tensor code; one launch a call, and the same bits without
+    counters."""
+    from gsrt_torch.ops import tri_bvh as t_bvh
+    from test_torch_tri_bvh import bvh_rays, differ_near_parallel
+    verts, tt = bvh_scenes[scene]
+    R = 4096
+    o, d, t_min, t_max = bvh_rays(kind, verts, R=R, seed=11, device=cuda)
+    counts = torch.zeros(3, dtype=torch.int64, device=cuda)
+    before = _kernels.TRI_BVH.launches
+    t, slot, hit = t_bvh.closest_hit_bvh(tt, o, d, t_min, t_max,
+                                         counts=counts)
+    assert _kernels.TRI_BVH.launches == before + 1
+    want = t_bvh.closest_hit_bvh_plain(tt, o, d, t_min, t_max)
+    n_bad = differ_near_parallel(tt, d, (t, slot), want)
+    assert n_bad <= (2e-3 * R if kind == "fixtures" else 0)
+    if not n_bad:
+        assert torch.equal(hit, want[2])
+    t_w, slot_w, walked = t_bvh.walk_bvh_plain(tt, o, d, t_min, t_max)
+    assert torch.equal(t.view(torch.int32), t_w.view(torch.int32))
+    assert torch.equal(slot, slot_w)
+    assert torch.equal(counts.cpu(), walked)
+    t2, slot2, _ = t_bvh.closest_hit_bvh(tt, o, d, t_min, t_max)
+    assert torch.equal(t2.view(torch.int32), t.view(torch.int32))
+    assert torch.equal(slot2, slot)
+    if (scene, kind) != ("soup", "grazing"):    # the soup's box is empty
+        assert hit.float().mean() > 0.2           # on its faces
+
+
+def test_pt_waves_walk_the_tree_on_the_card(cuda, bvh_scenes):
+    """A path-traced frame of the room: one launch of the per-ray kernel
+    a wave after bounce 0, none of the block walk's closest hit; under a
+    recording profiler `pt.traverse` carries the walk's counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import port
+    from gsrt_torch.models import path_tracer as t_pt
+    from gsrt_torch.utils.profiling import TRACER
+    from test_torch_tri_bvh import room_scene
+    s, ps = room_scene(20_000, device=cuda)
+    cfg = RenderConfig(width=96, height=64, samples=1, bounces=4,
+                       has_sky=False, gamma_correction=False)
+    cam = port.camera(s.view, cuda)
+    _kernels.reset_launch_counts()
+    img, flags = t_pt.render_path_traced(ps, cam, cfg, seed=5,
+                                         primary_impl="binned",
+                                         tri_max_pairs=1 << 16,
+                                         return_flags=True)
+    counts = _kernels.launch_counts()
+    assert counts["closest_hit_bvh"] == cfg.bounces - 1
+    assert counts["closest_hit_packed"] == 0
+    assert not any(bool(v) for v in flags.values())
+    TRACER.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        traced = t_pt.render_path_traced(ps, cam, cfg, seed=5,
+                                         primary_impl="binned",
+                                         tri_max_pairs=1 << 16)
+    rep = TRACER.report()
+    TRACER.reset()
+    assert torch.equal(traced, img)
+    waves = [r["counters"] for r in rep if r["name"] == "pt.traverse"]
+    assert len(waves) == cfg.bounces - 1
+    assert all(w["tri_rays"] > 0 and w["tri_nodes"] >= w["tri_rays"]
+               and w["tri_tests"] > 0 for w in waves)
 
 
 def test_densify_event_on_card_matches_cpu(cuda):
