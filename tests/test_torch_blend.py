@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models.gaussian_rt import _precompute_fm, fm_from_cloud
 from gsrt.ops.gaussian import screen_extents_abc

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt import cli as j_cli
 
 from gsrt_torch import cli as t_cli

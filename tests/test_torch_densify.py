@@ -22,6 +22,7 @@ import optax
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.core.types import look_at as j_look_at, make_camera as j_camera
 from gsrt.models import densify as j_dn

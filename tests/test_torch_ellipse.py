@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import gaussian_rt as j_rt
 from gsrt.ops import tile_binning as j_tb

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.ops import pair_expand as j_pe
 
 from gsrt_torch.ops import pair_expand as t_pe

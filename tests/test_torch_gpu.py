@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt_torch import RenderConfig, _kernels
 from gsrt_torch.interop import (opt_state_from_numpy, opt_state_to_numpy,
                                 params_from_numpy, params_to_numpy,

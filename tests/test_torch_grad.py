@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import tiled_diff as j_td
 from gsrt.ops import splat_grad as j_grad
@@ -63,20 +64,29 @@ def _assert_rows_close(got, want, atol):
                                    atol=atol, err_msg=f"gradient row {r}")
 
 
+@pytest.fixture(scope="module")
+def backward_binnings():
+    """The JAX package's binning of the backward tests' 60 splats, one a
+    tile shape, shared by the cases that differentiate it."""
+    return {tile: jax_binning(make_columns(seed=21, n=60), tile)
+            for tile in ((16, 16), (32, 16), (128, 8))}
+
+
 @pytest.mark.parametrize("skip_range_check", [True, False])
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
-def test_blend_backward_matches_jax(tile, skip_range_check):
-    _blend_backward_matches_jax(tile, skip_range_check, False)
+def test_blend_backward_matches_jax(backward_binnings, tile,
+                                    skip_range_check):
+    _blend_backward_matches_jax(backward_binnings[tile], tile,
+                                skip_range_check, False)
 
 
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16), (128, 8)])
-def test_blend_backward_lut_matches_jax(tile):
+def test_blend_backward_lut_matches_jax(backward_binnings, tile):
     # the LUT's derivative is its segment's slope; the range test stays on
-    _blend_backward_matches_jax(tile, False, True)
+    _blend_backward_matches_jax(backward_binnings[tile], tile, False, True)
 
 
-def _blend_backward_matches_jax(tile, skip_range_check, use_exp_lut):
-    jb = jax_binning(make_columns(seed=21, n=60), tile)
+def _blend_backward_matches_jax(jb, tile, skip_range_check, use_exp_lut):
     tb = carry_over(jb)
     size = dict(width=W, height=H, chunk=128,
                 skip_range_check=skip_range_check, use_exp_lut=use_exp_lut,

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.ops import bvh as j_bvh
 from gsrt.ops.gaussian import quat_scale_to_cov3d as j_cov3d
 from gsrt.ops.primitives import ray_sphere as j_ray_sphere

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.core.types import look_at, make_camera as j_camera
 from gsrt.models import densify as j_dn
@@ -229,21 +230,32 @@ def test_tiled_mv_step_grows_its_pair_buffer():
         np.testing.assert_array_equal(a, b)
 
 
+FIT = dict(iters=12, holdout=3, densify_every=6, densify_grad=1e-3,
+           scene_scale=30.0, opacity_reset_every=8, max_splats=75, bucket=16,
+           seed=4)
+
+
+@pytest.fixture(scope="module")
+def jax_fit():
+    """The capture and the JAX package's fit_views of it on its render_fast
+    loss, the reference of both cases of test_fit_views_matches_jax:
+    (port viewset, start, JAX params, JAX report)."""
+    jvs, tvs, start = _capture()
+    jp, jrep = j_mv.fit_views(
+        jvs, j_tr.GaussianParams(*(jnp.asarray(a) for a in start)),
+        JCfg(**TILED), **FIT)
+    return tvs, start, jp, jrep
+
+
 @pytest.mark.parametrize("path", ["fast", "tiled"])
-def test_fit_views_matches_jax(monkeypatch, path):
+def test_fit_views_matches_jax(monkeypatch, jax_fit, path):
     """A fit with one densify event (after step 6: clones and splits, the
     budget binding) and one opacity reset (after step 8), on the port's
     render_fast loss and on its tiled loss, against the JAX package's
     fit_views on its render_fast loss. (The JAX package's tiled fit stops
     on the CPU at the second step after a densify event: XLA reports
     "Execution supplied 29 buffers but compiled program expected 30".)"""
-    jvs, tvs, start = _capture()
-    kw = dict(iters=12, holdout=3, densify_every=6, densify_grad=1e-3,
-              scene_scale=30.0, opacity_reset_every=8, max_splats=75,
-              bucket=16, seed=4)
-    jp, jrep = j_mv.fit_views(
-        jvs, j_tr.GaussianParams(*(jnp.asarray(a) for a in start)),
-        JCfg(**TILED), **kw)
+    tvs, start, jp, jrep = jax_fit
     seen, events = [], []
     make_step, densify = t_mv.make_train_step_mv, t_mv.densify_and_prune
 
@@ -263,7 +275,7 @@ def test_fit_views_matches_jax(monkeypatch, path):
     monkeypatch.setattr(t_mv, "densify_and_prune", recording_densify)
     tp, trep = t_mv.fit_views(
         tvs, params_from_numpy(*start, device="cpu"), RenderConfig(**TILED),
-        max_pairs=MP if path == "tiled" else None, **kw)
+        max_pairs=MP if path == "tiled" else None, **FIT)
     # the JAX package's epoch-shuffled order over the train split
     rng, order, want = np.random.default_rng(4), [], []
     for _ in range(12):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core import types as j_types
 from gsrt.models import gaussian_rt as j_rt
 from gsrt.ops import explut as j_explut
@@ -344,6 +345,23 @@ def test_port_imports_no_pil_at_module_level():
     anywhere = [(name, m) for name in FRONT_ENDS
                 for m in _imports(pkg / name) if m.split(".")[0] == "PIL"]
     assert not anywhere, anywhere
+
+
+def test_port_tests_run_one_thread():
+    """Every port test file imports `_torch_env`, the one module that sets
+    PyTorch's thread count, so each runs with one intra-op thread, alone
+    or under pytest-xdist."""
+    assert torch.get_num_threads() == 1
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    assert len(files) >= 30
+    missing = [f.name for f in files
+               if "_torch_env" not in set(_module_level_imports(f))]
+    assert not missing, missing
+    setters = [f.name for f in files
+               for node in ast.walk(ast.parse(f.read_text(), str(f)))
+               if isinstance(node, ast.Attribute)
+               and node.attr == "set_num_threads"]
+    assert not setters, setters
 
 
 def test_entry_points_default_to_cuda():

@@ -43,6 +43,7 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import gaussian_rt as j_rt
 from gsrt.models import trainer as j_tr

@@ -51,6 +51,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.core import types as j_types
 from gsrt.models import path_tracer as j_pt
@@ -483,16 +484,15 @@ def _with_part(scene, part, xp):
 @pytest.mark.parametrize("part", ["cyl_center", "mnd_center", "textures",
                                   "alpha_textures", "tri_clusters",
                                   "gaussians"])
-def test_unported_parts_raise(scenes, part):
-    """Each part that once raised here renders as in the JAX package (the
-    name is kept from then): the Cornell box's SH render with a cylinder,
-    a Mandelbulb, a texture, a cutout mask or tri-clusters (k=4, sup=2:
-    the box has 12 triangles) added, pixels within atol 1e-4 outside
-    those whose binned primary triangle differs; with the Mandelbulb,
-    whose march may flip hit and miss at its silhouette, 99% of pixels.
-    Splats: a cloud of opacity 0 in the box's PT render (op by op, one
-    sample, 2 bounces) leaves it as the JAX package renders it, pixels
-    within atol 1e-4."""
+def test_scene_parts_match_jax(scenes, part):
+    """Each part renders as in the JAX package: the Cornell box's SH
+    render with a cylinder, a Mandelbulb, a texture, a cutout mask or
+    tri-clusters (k=4, sup=2: the box has 12 triangles) added, pixels
+    within atol 1e-4 outside those whose binned primary triangle
+    differs; with the Mandelbulb, whose march may flip hit and miss at
+    its silhouette, 99% of pixels. Splats: a cloud of opacity 0 in the
+    box's PT render (op by op, one sample, 2 bounces) leaves it as the
+    JAX package renders it, pixels within atol 1e-4."""
     jbox, tbox, jcam, tcam = scenes["cornell"]
     if part == "gaussians":
         from gsrt.core.types import GaussianCloud as JCloud

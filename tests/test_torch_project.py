@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt_torch import RenderConfig
 from gsrt_torch.core.types import GaussianCloud, look_at, make_camera
 from gsrt_torch.models import gaussian_rt as t_rt

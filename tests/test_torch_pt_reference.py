@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from benchmark import harness, port, tri_scene
 from benchmark.reference import pathtrace as ref
 from gsrt_torch import RenderConfig
@@ -34,16 +35,6 @@ from gsrt_torch.models import path_tracer as t_pt
 
 W, H, BOUNCES, N_TRIS = 64, 48, 4, 3000
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these are thousands of small ops, which a
-    thread pool shared with the suite's other workers only slows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import gaussian_rt as j_rt
 from gsrt.ops.gaussian import screen_extents_abc as j_extents
@@ -194,13 +195,12 @@ def test_calibrate_gates_on_post_fallback_span_mode():
                                 dict(span_mode="ellipse"),
                                 dict(scan_impl="roll"),
                                 dict(tile_w=128, tile_h=8)])
-def test_unported_streams_raise(scene, kw):
+def test_tile_streams_match_jax(scene, kw):
     """Each configuration the JAX package renders on another stream than
     the group stream (the compact or f32 tile stream through the packed
     tile kernel, ellipse spans on the compact tile stream, the (128, 8)
     tiles through blend_tiles) matches the JAX package with its f32
-    blend, atol 1e-4. (None raises any more: ellipse spans were the last
-    stream left to port.)"""
+    blend, atol 1e-4."""
     jc, jcam, c, cam = scene
     plan = t_rt.stream_plan(RenderConfig(width=W, height=H, **kw), W, H)
     assert plan.stream == "tile"

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import path_tracer as j_pt
 from gsrt.ops import splat_clusters as j_sc

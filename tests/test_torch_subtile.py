@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import gaussian_rt as j_rt
 from gsrt.ops import splat_subtile as j_sub
@@ -164,20 +165,28 @@ def test_pack15_matches_jax_bitwise():
     assert float((lo - torch.as_tensor(y)).abs().max()) <= step
 
 
+@pytest.fixture(scope="module")
+def blend_binnings():
+    """The JAX package's binning of the blend tests' 60 splats, one a tile
+    shape, shared by the cases that blend it."""
+    return {tile: jax_binning(make_columns(seed=11, n=60), tile)
+            for tile in ((16, 16), (32, 16))}
+
+
 @pytest.mark.parametrize("skip_range_check", [True, False])
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
-def test_blend_subtiles_matches_jax(tile, skip_range_check):
-    _blend_subtiles_matches_jax(tile, skip_range_check, False)
+def test_blend_subtiles_matches_jax(blend_binnings, tile, skip_range_check):
+    _blend_subtiles_matches_jax(blend_binnings[tile], tile, skip_range_check,
+                                False)
 
 
 @pytest.mark.parametrize("tile", [(16, 16), (32, 16)])
-def test_blend_subtiles_lut_matches_jax(tile):
+def test_blend_subtiles_lut_matches_jax(blend_binnings, tile):
     # the LUT chord sits above exp: with it the range test stays on
-    _blend_subtiles_matches_jax(tile, False, True)
+    _blend_subtiles_matches_jax(blend_binnings[tile], tile, False, True)
 
 
-def _blend_subtiles_matches_jax(tile, skip_range_check, use_exp_lut):
-    jb = jax_binning(make_columns(seed=11, n=60), tile)
+def _blend_subtiles_matches_jax(jb, tile, skip_range_check, use_exp_lut):
     kw = dict(width=W, height=H, sub_w=tile[0], sub_h=tile[1], chunk=128,
               skip_range_check=skip_range_check, use_exp_lut=use_exp_lut,
               **BLEND)

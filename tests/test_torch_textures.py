@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.core import types as j_types
 from gsrt.models import path_tracer as j_pt

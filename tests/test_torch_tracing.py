@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import _torch_env  # noqa: F401
 from gsrt_torch import RenderConfig
 from gsrt_torch.models import trainer
 from gsrt_torch.models.gaussian_rt import GaussianRayTracer

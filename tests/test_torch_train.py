@@ -24,6 +24,7 @@ import optax
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import tiled_diff as j_td
 from gsrt.models import trainer as j_tr
@@ -128,8 +129,10 @@ def test_adam_groups_match_optax():
         np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
 
 
-def _fit_setup():
-    """A target rendered from one parameter set and a start moved off it."""
+@pytest.fixture(scope="module")
+def fit_setup():
+    """A target rendered by the JAX package from one parameter set and a
+    start moved off it, shared by the tests that fit it."""
     jcam, cam = _cameras()
     arrays = _numpy_params(5)
     kw = dict(width=W, height=H, conic_mode="standard", tile_w=16, tile_h=16,
@@ -146,8 +149,8 @@ def _fit_setup():
     return jcam, cam, jcfg, cfg, np.array(target), start
 
 
-def test_render_loss_tiled_matches_jax():
-    jcam, cam, jcfg, cfg, target, start = _fit_setup()
+def test_render_loss_tiled_matches_jax(fit_setup):
+    jcam, cam, jcfg, cfg, target, start = fit_setup
     want = j_tr.render_loss_tiled(
         j_tr.GaussianParams(*(jnp.asarray(a) for a in start)),
         jnp.asarray(target), jcam, jcfg, MP, 0.2, True)
@@ -158,8 +161,8 @@ def test_render_loss_tiled_matches_jax():
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
 
 
-def test_train_step_tiled_losses_match_jax_and_fall():
-    jcam, cam, jcfg, cfg, target, start = _fit_setup()
+def test_train_step_tiled_losses_match_jax_and_fall(fit_setup):
+    jcam, cam, jcfg, cfg, target, start = fit_setup
     jp = j_tr.GaussianParams(*(jnp.asarray(a) for a in start))
     jopt = j_tr.make_optimizer()
     state = jopt.init(jp)
@@ -181,9 +184,9 @@ def test_train_step_tiled_losses_match_jax_and_fall():
         assert torch.isfinite(p).all() and torch.isfinite(p.grad).all()
 
 
-def test_train_step_matches_tiled_step():
+def test_train_step_matches_tiled_step(fit_setup):
     # the render_fast step and the tiled step start from the same loss
-    _, cam, _, cfg, target, start = _fit_setup()
+    _, cam, _, cfg, target, start = fit_setup
     tgt = torch.as_tensor(target)
     losses = []
     for step in (t_tr.train_step,

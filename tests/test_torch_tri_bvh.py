@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from benchmark import port, tri_scene
 from gsrt_torch import RenderConfig
 from gsrt_torch.interop import scene_from_numpy
@@ -37,16 +38,6 @@ RAYS = 2500
 KINDS = ("random", "grazing", "edges", "parked", "t_min", "axis",
          "fixtures")
 NEAR_PARALLEL = 1e-5   # |cos| of a ray to a triangle that rounding rules
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: many small ops, which a pool shared with the
-    suite's other workers only slows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def soup(n=5000, seed=6, spread=3.0, size=0.2):

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core import types as j_types
 from gsrt.ops import tri_binning as j_tbin
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.models import path_tracer as j_pt
 from gsrt.ops import clusters as j_cl
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.ops import clusters as j_cl
 from gsrt.ops import morton as j_morton
 from gsrt.ops import primitives as j_prim

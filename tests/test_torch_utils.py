@@ -26,6 +26,7 @@ import pytest
 import torch
 from PIL import Image
 
+import _torch_env  # noqa: F401
 from gsrt.core.config import RenderConfig as JCfg
 from gsrt.models import gaussian_rt as j_rt
 from gsrt.ops import bvh as j_bvh

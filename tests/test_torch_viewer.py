@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_env  # noqa: F401
 from gsrt.core.types import look_at as j_look_at
 from gsrt.viewer import controller as j_ctl
 
