@@ -207,6 +207,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              on the same wave (no hit of the tree's farther than its), and
              the plain version (brute force) bit-equal on every 64th ray
              and timed on those rays;
+22c. pt-shade — bathroom-pt's scene as in tri-bvh: one frame with the
+             shading kernel launched once a wave and no flag; on the waves
+             of bounces 1 and 8 as the path hands them to the shading,
+             the kernel (csrc/pt_shade.cu) bit-equal to its plain version
+             (path_tracer._shade_plain, the same draws) on every ray, its
+             ms beside its byte bound, with the draws, and the plain
+             version's; its build (registers, spills, resident blocks);
 23. scenes — after ellipse: the path tracer's catalog at its factories'
              sizes (RTIOW, planets, the 30-grid cube and cylinder fields
              and the Mandelbulb at 640x480, cube and spheres at 256x256,
@@ -433,6 +440,14 @@ BVH_SRC = "gsrt_torch/csrc/tri_bvh.cu"
 BVH_CONFIG = "benchmark/configs/bathroom-pt-1080p.json"
 BVH_WAVES = (1, 8)        # the bounces whose waves the rows time
 BVH_PLAIN_STRIDE = 64     # the plain version holds every 64th ray
+# --- the path tracer's wave shading at bathroom-pt's size ---
+PT_SHADE_SRC = "gsrt_torch/csrc/pt_shade.cu"
+PT_SHADE_WAVES = (1, 8)   # the bounces whose waves the rows time
+# a ray's bytes, each read or written once: t, mat, the uniform 4 each,
+# hit and active 1 each, normal, origin, direction, throughput, colour
+# and unit draw 12 each read; origin, direction, throughput, colour 12
+# each and active 1 written
+PT_SHADE_RAY_BYTES = 3 * 4 + 2 + 6 * 12 + 4 * 12 + 1
 # Mean colours of SH, AO and PT on soup359k as the traversal kernel with the
 # block cull (commit 8f9a83f) renders them on this card, from
 # tools/traverse_ab.py; the warp cull leaves every pixel as it was there.
@@ -2982,13 +2997,10 @@ def bvh_kernel_info() -> dict:
     return info
 
 
-def bathroom_waves(torch) -> dict:
-    """bathroom-pt's scene on the card (its configuration's triangles,
-    frame and bounces), its table and tree built and timed, and one
-    path-traced frame (after a warm-up) with every per-ray call recorded:
-    {"scene", "table", "calls" (one (args, kw) a wave after bounce 0),
-    "launches" (the kernel's, read in that frame), "triangles", "width",
-    "height", "bounces", "table_s", "tree_s", "frame_ms", "flags"}."""
+def bathroom_setup(torch) -> dict:
+    """bathroom-pt's scene on the card with its table and tree, timed:
+    {"scene", "cam", "cfg", "kw" (render_path_traced's), "triangles",
+    "table_s", "tree_s"}."""
     import json
     from benchmark import counts as bench_counts
     from benchmark import port, tri_scene as bathroom
@@ -3018,6 +3030,22 @@ def bathroom_waves(torch) -> dict:
                                              tile_h=cfg.tile_h)
     kw = dict(seed=SEED, primary_impl="binned", return_flags=True,
               tri_max_pairs=bench_counts.pair_bucket(int(need * 1.1)))
+    return dict(scene=scene, cam=cam, cfg=cfg, kw=kw, triangles=s.n,
+                table_s=table_s, tree_s=tree_s)
+
+
+def bathroom_waves(torch) -> dict:
+    """bathroom-pt's scene on the card (its configuration's triangles,
+    frame and bounces), its table and tree built and timed, and one
+    path-traced frame (after a warm-up) with every per-ray call recorded:
+    {"scene", "table", "calls" (one (args, kw) a wave after bounce 0),
+    "launches" (the kernel's, read in that frame), "triangles", "width",
+    "height", "bounces", "table_s", "tree_s", "frame_ms", "flags"}."""
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import tri_bvh
+    b = bathroom_setup(torch)
+    scene, cam, cfg, kw = b["scene"], b["cam"], b["cfg"], b["kw"]
+    W, H = cfg.width, cfg.height
     pt.render_path_traced(scene, cam, cfg, **kw)             # warm-up
     with Recorder(tri_bvh, "closest_hit_bvh") as rec:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3033,9 +3061,10 @@ def bathroom_waves(torch) -> dict:
                          f"after bounce 0, no flag: {len(rec.calls)} calls, "
                          f"flags {flags}")
     return dict(scene=scene, table=scene.tri_table, calls=rec.calls,
-                launches=launches, triangles=s.n, width=W, height=H,
-                bounces=cfg.bounces, table_s=table_s, tree_s=tree_s,
-                frame_ms=start.elapsed_time(end), flags=flags)
+                launches=launches, triangles=b["triangles"], width=W,
+                height=H, bounces=cfg.bounces, table_s=b["table_s"],
+                tree_s=b["tree_s"], frame_ms=start.elapsed_time(end),
+                flags=flags)
 
 
 def bvh_phase(torch, rows) -> dict:
@@ -3117,6 +3146,116 @@ def bvh_phase(torch, rows) -> dict:
                 tree_s=tree_s, frame_ms=frame_ms, build=info,
                 waves={str(b): {k: v for k, v in r.items() if k != "build"}
                        for b, r in waves.items()})
+
+
+def pt_shade_info() -> dict:
+    """The shading kernel's build (gsrt_pt_shade_info) and its spills
+    (nvcc -Xptxas -v, where this run built it)."""
+    import ctypes
+    from gsrt_torch import _kernels
+    fn = _kernels._load("pt_shade").gsrt_pt_shade_info
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    buf = (ctypes.c_int * 4)()
+    if fn(buf) != 0:
+        raise SystemExit("gsrt_pt_shade_info failed")
+    info = dict(zip(("registers", "static_smem_bytes", "local_bytes",
+                     "blocks_per_sm"), buf))
+    rep = ptxas_report(_kernels.build.last_log, "pt_shade",
+                       "pt_shade_kernel")
+    info["spill_bytes"] = next(iter(rep.values())).get("spill_bytes") \
+        if rep else None
+    return info
+
+
+def pt_shade_phase(torch, rows) -> dict:
+    """pt-shade (see the module docstring). Appends the shading kernel's
+    rows, one a timed wave; returns the figures."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import path_tracer as pt
+    from gsrt_torch.ops import pt_shade
+    b = bathroom_setup(torch)
+    scene, cam, cfg, kw = b["scene"], b["cam"], b["cfg"], b["kw"]
+    pt.render_path_traced(scene, cam, cfg, **kw)             # warm-up
+    captured, calls = {}, [0]
+    shade_wave = pt.shade_wave
+
+    def capture(gen, mats, *wave):
+        if calls[0] in PT_SHADE_WAVES:
+            captured[calls[0]] = (gen.get_state(), mats, [
+                a.clone() if torch.is_tensor(a) else a for a in wave])
+        calls[0] += 1
+        return shade_wave(gen, mats, *wave)
+    _kernels.reset_launch_counts()
+    with Replaced(pt, "shade_wave", capture):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, flags = pt.render_path_traced(scene, cam, cfg, **kw)
+        end.record()
+        torch.cuda.synchronize()
+    launches = _kernels.launch_counts()["pt_shade"]
+    if launches != cfg.bounces or calls[0] != cfg.bounces \
+            or any(bool(v) for v in flags.values()):
+        raise SystemExit(f"phase pt-shade: want one launch a wave: "
+                         f"{launches} launches, {calls[0]} waves, flags "
+                         f"{flags}")
+    frame_ms = start.elapsed_time(end)
+    info = pt_shade_info()
+    log(f"phase pt-shade: {b['triangles']} triangles, {cfg.width}x"
+        f"{cfg.height}, {cfg.bounces} bounces: a frame {frame_ms:.1f} ms on "
+        f"the card's clock, {launches} launches; build {info}")
+
+    def generator(state):
+        g = torch.Generator(device=DEVICE)
+        g.set_state(state)
+        return g
+
+    def fresh(wave):
+        return [a.clone() if torch.is_tensor(a) else a for a in wave]
+    out = {}
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t  # noqa
+    for bounce in PT_SHADE_WAVES:
+        state, mats, wave = captured[bounce]
+        R = wave[0].shape[0]
+        got = pt_shade.shade_wave(generator(state), mats, *fresh(wave))
+        want = pt._shade_plain(generator(state), mats, *fresh(wave))
+        torch.cuda.synchronize()
+        differ = {k: int((bits(g) != bits(w)).sum()) for k, g, w in zip(
+            ("orig", "dirn", "ray_color", "out_color", "active"), got, want)}
+        if any(differ.values()):
+            raise SystemExit(f"phase pt-shade: bounce {bounce}: the kernel "
+                             f"differs from its plain version: {differ}")
+        g = generator(state)
+        unit, uni = pt._random_unit(g, (R, 3)), pt._uniform(g, (R,))
+        work = fresh(wave)
+
+        def kernel():
+            pt_shade._launch(mats, *work[:9], unit, uni, work[9], work[10])
+        ms = time_cuda(kernel, 20)
+        wave_ms = time_cuda(
+            lambda: pt_shade.shade_wave(generator(state), mats, *work), 10)
+        plain_ms = time_cuda(
+            lambda: pt._shade_plain(generator(state), mats, *wave), 3)
+        bytes_moved = PT_SHADE_RAY_BYTES * R
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        live = int(wave[6].sum())
+        name = f"pt_shade[bounce {bounce}]"
+        row = dict(
+            name=name, route="cuda", source=PT_SHADE_SRC, replaces=None,
+            launches=launches, max_abs_err=0.0, ms=ms, wave_ms=wave_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=None, bytes=bytes_moved, rays=R, live=live,
+            hit=int(wave[3].sum()), build=info,
+            at=f"bathroom-pt's scene, {cfg.width}x{cfg.height}, the wave of "
+            f"bounce {bounce} as the path hands it to the shading")
+        rows.append(row)
+        out[str(bounce)] = {k: v for k, v in row.items() if k != "build"}
+        log(f"phase pt-shade: {name}: {R} rays, {live} live, {row['hit']} "
+            f"hit; bitwise equal to the plain version; kernel {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({PT_SHADE_RAY_BYTES} B a ray, "
+            f"{bound_ms / ms:.1%} of it); with the draws {wave_ms:.4f} ms; "
+            f"plain {plain_ms:.3f} ms")
+    return dict(frame_ms=frame_ms, launches=launches, build=info,
+                waves=out)
 
 
 # --- the scenes phase: the catalog, foveated PT, the foliage field ---
@@ -5151,6 +5290,7 @@ def main() -> int:
         scenes = scenes_phase(torch, rows, card)
         tri = tri_phases(torch, rows)
         tri["bvh"] = bvh_phase(torch, rows)
+        tri["pt_shade"] = pt_shade_phase(torch, rows)
         front_ends = front_ends_phase(
             torch, rows, capture_dir, scenes["catalog"]["rtiow"].pop("image"),
             serving, mrays, frame_ms)

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
-           "splat_grad", "tri_cast", "tri_kernel", "tri_bvh", "project")
+           "splat_grad", "tri_cast", "tri_kernel", "tri_bvh", "project",
+           "pt_shade")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -182,9 +183,13 @@ PROJECT = CudaKernel(
     "project_splats", "project", "gsrt_project",
     [P, P, P, P, I, I, I, I, P, P, P, P, P, P, F, F, F, F, F, F, P, P, P])
 
+PT_SHADE = CudaKernel(
+    "pt_shade", "pt_shade", "gsrt_pt_shade",
+    [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, P])
+
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_PAIRS, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
-           TRI_CLOSEST_HIT, TRI_ANY_HIT, TRI_BVH, PROJECT)
+           TRI_CLOSEST_HIT, TRI_ANY_HIT, TRI_BVH, PROJECT, PT_SHADE)
 
 
 def launch_counts() -> dict[str, int]:

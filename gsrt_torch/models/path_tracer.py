@@ -31,6 +31,12 @@ by ray-cone LOD once `with_texture_mips` has attached a pyramid) and a
 cutout mask (`alpha_textures`): a PT hit whose alpha is below 0.5 is
 skipped by re-tracing past it, at most `max_skips` times.
 
+Each bounce wave is shaded (the sky, the scatter of the four material
+models, the light, the throughput and the next segment) by
+`ops.pt_shade.shade_wave`: one launch of the CUDA kernel
+`csrc/pt_shade.cu` on the card, `_shade_plain` (the same ops in PyTorch,
+through `_sky` and `_scatter`) on the CPU.
+
 Random draws come from a `torch.Generator` seeded with `seed`, through
 `_uniform`, `_random_unit` and `_random_in_unit_disk`; the JAX package
 draws with `jax.random`, so the two packages' noise differs for the same
@@ -58,6 +64,8 @@ from gsrt_torch.ops.primitives import (_dot, _norm, _sqrt, box_normal,
                                        ray_box, ray_cylinder, ray_mandelbulb,
                                        ray_sphere, ray_triangle,
                                        sphere_normal, triangle_normal)
+from gsrt_torch import _kernels
+from gsrt_torch.ops.pt_shade import shade_wave
 from gsrt_torch.utils.profiling import TRACER
 
 SWEEP_PAIRS = 1 << 25   # (ray, primitive) pairs a chunk of a sweep
@@ -608,6 +616,30 @@ def _scatter(gen, mats: Materials, mat_id, dirn, normal, hit_p=None,
     return atten, new_dir, scattered & ~is_light, is_light
 
 
+def _shade_plain(gen, mats: Materials, t, n, mat, hit, orig, dirn, active,
+                 ray_color, out_color, tex_color=None, has_sky: bool = False):
+    """The shading of one bounce wave as plain tensor ops, drawing through
+    `_scatter`: the sky of the rays that missed, the scatter, the light of
+    those that hit a light, the throughput and the next segment. Returns
+    new (orig, dirn, ray_color, out_color, active). `ops.pt_shade.
+    shade_wave` takes it on CPU tensors; on CUDA tensors its kernel is
+    bit-equal to it."""
+    miss_now = (active & ~hit)[:, None]
+    out_color = out_color + torch.where(
+        miss_now, ray_color * _sky(dirn, has_sky), 0.0)
+    hit_p = orig + t[:, None] * dirn
+    atten, new_dir, scattered, is_light = _scatter(
+        gen, mats, mat, dirn, n, hit_p, tex_color)
+    light_now = (active & hit & is_light)[:, None]
+    out_color = out_color + torch.where(
+        light_now, ray_color * mats.diffuse[mat.long()], 0.0)
+    ray_color = torch.where((active & hit)[:, None], ray_color * atten,
+                            ray_color)
+    orig = torch.where(hit[:, None], hit_p, orig)
+    dirn = torch.where(hit[:, None], new_dir, dirn)
+    return orig, dirn, ray_color, out_color, active & hit & scattered
+
+
 def generate_camera_rays(gen, camera: Camera, cfg: RenderConfig,
                          aperture: float = 0.0, focus: float = 1.0):
     """Jittered primary rays with thin-lens defocus (+z forward):
@@ -713,8 +745,10 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     round bounce 0's hit search (the binning and the binned cast, or the
     traversal); `pt.traverse` round each later bounce's; `pt.sort` round
     a wave's coherence permutation, parking and un-permute; `pt.shade`
-    round the rest of a bounce. Counters: `live_rays` and `rays`, the
-    rays active on entering each wave and all of them; `tri_visits` and
+    round the rest of a bounce (the splat segment, textures, the draws and
+    the shading). Counters: `live_rays` and `rays`, the rays active on
+    entering each wave and all of them; `shade_waves` and `shade_fused`,
+    one a wave and one a wave the shading kernel shaded; `tri_visits` and
     `tri_blocks`, each block traversal's planned (block, super-cluster)
     visits and its blocks; `tri_nodes`, `tri_tests` and `tri_rays`, each
     per-ray walk's node records fetched, triangle tests and rays that
@@ -793,6 +827,7 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
 
     for _ in range(cfg.samples):
         orig, dirn = generate_camera_rays(gen, camera, cfg, aperture, focus)
+        orig, dirn = orig.contiguous(), dirn.contiguous()   # shaded in place
         ray_color = torch.ones((R, 3), device=dev)
         out_color = torch.zeros((R, 3), device=dev)
         active = torch.ones((R,), dtype=torch.bool, device=dev)
@@ -848,9 +883,6 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
                         act, ray_color * g_color, 0.0)
                     ray_color = torch.where(
                         act, ray_color * g_trans[:, None], ray_color)
-                miss_now = (active & ~hit)[:, None]
-                out_color = out_color + torch.where(
-                    miss_now, ray_color * _sky(dirn, cfg.has_sky), 0.0)
                 tex_color = None
                 if textured:
                     if uv is None:
@@ -864,18 +896,12 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
                         tex_color = sample_texture_lod(mip, tid, uv, lod)
                     else:
                         tex_color = sample_texture(scene.textures, tid, uv)
-                hit_p = orig + t[:, None] * dirn
-                atten, new_dir, scattered, is_light = _scatter(
-                    gen, scene.materials, mat, dirn, n, hit_p, tex_color)
-                light_now = (active & hit & is_light)[:, None]
-                out_color = out_color + torch.where(
-                    light_now,
-                    ray_color * scene.materials.diffuse[mat.long()], 0.0)
-                ray_color = torch.where((active & hit)[:, None],
-                                        ray_color * atten, ray_color)
-                orig = torch.where(hit[:, None], hit_p, orig)
-                dirn = torch.where(hit[:, None], new_dir, dirn)
-                active = active & hit & scattered
+                fused = _kernels.PT_SHADE.launches
+                orig, dirn, ray_color, out_color, active = shade_wave(
+                    gen, scene.materials, t, n, mat, hit, orig, dirn, active,
+                    ray_color, out_color, tex_color, cfg.has_sky)
+                TRACER.count(shade_waves=1,
+                             shade_fused=_kernels.PT_SHADE.launches - fused)
         acc = acc + out_color
     color = acc / cfg.samples
     if cfg.gamma_correction:

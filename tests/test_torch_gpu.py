@@ -22,7 +22,9 @@ written; the per-ray tree's t bits, slots and hits against brute force,
 but for rays within 1e-5 of parallel to a small triangle, and against the
 walk in tensor code, with its counters); the projection kernel bit
 for bit on all twelve columns (it rounds each op as PyTorch's CUDA ops
-do, see csrc/project.cu).
+do, see csrc/project.cu); the path tracer's shading kernel bit for bit
+on every output, and a 16-bounce frame with it bit-equal to the frame
+shaded by its plain version on the card (see csrc/pt_shade.cu).
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from gsrt_torch.ops import splat_subtile as t_sub
 from gsrt_torch.ops import tile_binning as t_tb
 from gsrt_torch.scene import random_cloud
 from test_torch_project import SH_CASES, edge_cloud, edge_config
+from test_torch_pt_shade import (OUTPUTS, WAVE_KINDS, clone_wave, make_wave,
+                                 materials, shade)
 
 pytestmark = pytest.mark.gpu
 DEAD = t_pe._DEAD_BASE
@@ -1096,3 +1100,79 @@ def test_project_kernel_launches_once_a_render(cuda):
         params, opt, out.color.detach(), cam, cfg, mp))
     assert "project_splats" not in counts
     assert counts["blend_backward"] == 1
+
+
+@pytest.mark.parametrize("has_sky", [False, True], ids=["nosky", "sky"])
+@pytest.mark.parametrize("tex", [False, True], ids=["untextured", "tex"])
+@pytest.mark.parametrize("kind", WAVE_KINDS)
+def test_pt_shade_kernel_bitwise(cuda, kind, tex, has_sky):
+    """The shading kernel against its plain version on the card, the same
+    draws (two generators seeded alike, left in the same state): orig,
+    dirn, ray colour, out colour and active bit for bit, on rays of every
+    material, live, retired, missing and parked, normals on both sides,
+    glass at total internal reflection, with and without a texture colour
+    and a sky; one launch a wave."""
+    from gsrt_torch.models import path_tracer as t_pt
+    from gsrt_torch.ops import pt_shade
+    mats = materials(cuda)
+    w = make_wave(kind, 4096 + 37, tex, cuda, seed=5)
+    want, g_want = shade(t_pt._shade_plain, 9, mats, clone_wave(w), has_sky)
+    before = _kernels.PT_SHADE.launches
+    got_w = clone_wave(w)
+    got, g_got = shade(pt_shade.shade_wave, 9, mats, got_w, has_sky)
+    torch.cuda.synchronize()
+    assert _kernels.PT_SHADE.launches == before + 1
+    assert all(a is got_w[k] for a, k in zip(got, OUTPUTS))
+    for name, a, b in zip(OUTPUTS, got, want):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), name
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                f"{name}: {_ulps(a.reshape(-1), b.reshape(-1))}"
+    assert torch.equal(g_got.get_state(), g_want.get_state())
+    if kind == "glass_tir":     # most rays reflect, the others refract
+        refl = (got[1] * w["n"]).sum(-1) < 0
+        assert 0.5 < refl.float().mean().item() < 0.99
+
+
+def test_pt_frame_shades_once_a_wave(cuda, monkeypatch):
+    """A 16-bounce frame of a small room: one launch of the shading kernel
+    a wave, `shade_waves` and `shade_fused` 16 under a recording profiler,
+    and the frame bit-equal to the one shaded by the plain version on the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import port, tri_scene
+    from gsrt_torch.interop import scene_from_numpy
+    from gsrt_torch.models import path_tracer as t_pt
+    from gsrt_torch.utils.profiling import TRACER
+    s = tri_scene.build(3000, 64, 48)
+    ps = t_pt.with_tri_table(scene_from_numpy(s.fields(), device=cuda))
+    cfg = RenderConfig(width=64, height=48, samples=1, bounces=16,
+                       has_sky=False, gamma_correction=False)
+    cam = port.camera(s.view, cuda)
+    kw = dict(seed=4, primary_impl="binned", tri_max_pairs=1 << 16)
+    _kernels.reset_launch_counts()
+    img = t_pt.render_path_traced(ps, cam, cfg, **kw)
+    assert _kernels.launch_counts()["pt_shade"] == 16
+    TRACER.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        traced = t_pt.render_path_traced(ps, cam, cfg, **kw)
+    rep = TRACER.report()
+    TRACER.reset()
+    assert torch.equal(traced, img)
+    shades = [r["counters"] for r in rep if r["name"] == "pt.shade"]
+    assert sum(c["shade_waves"] for c in shades) == 16
+    assert sum(c["shade_fused"] for c in shades) == 16
+
+    def plain(gen, mats, *wave):
+        outs = (wave[4], wave[5], wave[7], wave[8], wave[6])
+        for dst, src in zip(outs, t_pt._shade_plain(gen, mats, *wave)):
+            dst.copy_(src)
+        return outs
+    monkeypatch.setattr(t_pt, "shade_wave", plain)
+    _kernels.reset_launch_counts()
+    want = t_pt.render_path_traced(ps, cam, cfg, **kw)
+    assert _kernels.launch_counts()["pt_shade"] == 0
+    assert torch.equal(img.view(torch.int32), want.view(torch.int32))
+    assert img.std() > 0.05       # the light reached through the bounces
