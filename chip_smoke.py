@@ -214,6 +214,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
              (path_tracer._shade_plain, the same draws) on every ray, its
              ms beside its byte bound, with the draws, and the plain
              version's; its build (registers, spills, resident blocks);
+22d. splat-bvh — m360-rt's cloud (benchmark/configs/mipnerf360-rt-1080p
+             .json: 2.96M splats, SH 3) and its per-ray tree, built and
+             timed; orbit views 0 and 16 of its traffic mix, each a
+             1920x1080 frame through GaussianRayTracer(cfg, "traced")
+             with launches counted from 0 just before it (one
+             csrc/splat_bvh.cu launch a frame); the kernel's ms on that
+             frame's rays, registers and local (stack) bytes, passes,
+             nodes and tests from its counters, its least time
+             (benchmark/rt_roofline.py, from the frame's hits); and the
+             plain version (trace_gaussian_rays_bvh_plain, brute force)
+             on every 1024th ray, timed: hits and passes equal, colour
+             and transmittance within 1e-4;
 23. scenes — after ellipse: the path tracer's catalog at its factories'
              sizes (RTIOW, planets, the 30-grid cube and cylinder fields
              and the Mandelbulb at 640x480, cube and spheres at 256x256,
@@ -448,6 +460,14 @@ PT_SHADE_WAVES = (1, 8)   # the bounces whose waves the rows time
 # and unit draw 12 each read; origin, direction, throughput, colour 12
 # each and active 1 written
 PT_SHADE_RAY_BYTES = 3 * 4 + 2 + 6 * 12 + 4 * 12 + 1
+# --- the per-ray splat tree at m360-rt's size (the traced mode) ---
+SPLAT_BVH_SRC = "gsrt_torch/csrc/splat_bvh.cu"
+SPLAT_BVH_CONFIG = "benchmark/configs/mipnerf360-rt-1080p.json"
+SPLAT_BVH_MIX = "benchmark/traffic/orbit-traced.json"
+SPLAT_BVH_VIEWS = (0, 16)        # the orbit views whose frames the rows time
+SPLAT_BVH_PLAIN_STRIDE = 1024    # the plain version holds every 1024th ray
+SPLAT_BVH_PLAIN_PAIRS = 1 << 27  # (ray, splat) pairs a chunk of the plain
+SPLAT_BVH_TOL = 1e-4             # colour and transmittance against the plain
 # Mean colours of SH, AO and PT on soup359k as the traversal kernel with the
 # block cull (commit 8f9a83f) renders them on this card, from
 # tools/traverse_ab.py; the warp cull leaves every pixel as it was there.
@@ -3258,6 +3278,146 @@ def pt_shade_phase(torch, rows) -> dict:
                 waves=out)
 
 
+def splat_bvh_info() -> dict:
+    """The splat tree kernel's build (gsrt_splat_bvh_info) and its spills
+    (nvcc -Xptxas -v, where this run built it)."""
+    import ctypes
+    from gsrt_torch import _kernels
+    fn = _kernels._load("splat_bvh").gsrt_splat_bvh_info
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    buf = (ctypes.c_int * 6)()
+    if fn(buf) != 0:
+        raise SystemExit("gsrt_splat_bvh_info failed")
+    info = dict(zip(("registers", "static_smem_bytes", "local_bytes",
+                     "blocks_per_sm", "threads", "grid_blocks"), buf))
+    rep = ptxas_report(_kernels.build.last_log, "splat_bvh",
+                       "splat_bvh_kernel")
+    info["spill_bytes"] = next(iter(rep.values())).get("spill_bytes") \
+        if rep else None
+    return info
+
+
+def splat_bvh_phase(torch, rows) -> dict:
+    """splat-bvh (see the module docstring). Appends the splat tree
+    kernel's rows, one a view; returns the figures."""
+    import dataclasses
+    from benchmark import port, rt_roofline, scene
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import splat_bvh
+    with open(SPLAT_BVH_CONFIG) as f:
+        c = json.load(f)
+    with open(SPLAT_BVH_MIX) as f:
+        mix = json.load(f)
+    a = c["assumed"]
+    W, H = c["width"], c["height"]
+    t0 = time.perf_counter()
+    cl = scene.random_cloud(
+        c["splats"], SEED, DEVICE, extent=a["extent"],
+        scale_range=a["scale_range"], opacity_range=a["opacity_range"],
+        sh_degree=c["sh_degree"], scene_seed=a["scene_seed"])
+    cloud = port.cloud(cl, scene.cov3d(cl.quats, cl.scales))
+    cfg = port.render_config(c)
+    n = int(mix["views"])
+    cams = [port.camera(v, DEVICE) for v in scene.orbit_from_mix(
+        mix["orbit"], [360.0 * i / n for i in SPLAT_BVH_VIEWS], W, H)]
+    torch.cuda.synchronize()
+    cloud_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = splat_bvh.build_splat_bvh(cloud, cfg)
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    info = splat_bvh_info()
+    tree_bytes = 4 * (tree.nodes.numel() + tree.slots.numel())
+    log(f"phase splat-bvh: {cloud.n} splats ({tree.n_splats} above the "
+        f"threshold), {tree.n_leaves} leaves, {tree.nodes.shape[0]} nodes, "
+        f"depth {tree.depth}, {tree_bytes} B; cloud {cloud_s:.2f} s, tree "
+        f"{tree_s:.2f} s; build {info}")
+    tree_splats = tree.n_splats
+    del tree
+    tracer = grt.GaussianRayTracer(cfg, "traced", device=DEVICE)
+    tracer(cloud, cams[0])                       # builds the tree; warm-up
+    torch.cuda.synchronize()
+    out = {}
+    for vi, cam in zip(SPLAT_BVH_VIEWS, cams):
+        _kernels.reset_launch_counts()
+        with Recorder(grt, "trace_gaussian_rays_bvh") as rec:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            frame = tracer(cloud, cam)
+            end.record()
+            torch.cuda.synchronize()
+        launches = rec.launched("trace_gaussian_rays_bvh")
+        if len(rec.calls) != 1 or launches != 1:
+            raise SystemExit(f"phase splat-bvh: view {vi}: want one launch "
+                             f"a frame: {len(rec.calls)} calls, {launches} "
+                             f"launches")
+        frame_ms = start.elapsed_time(end)
+        (tree, o, d, _, colors), _ = rec.calls[0]
+        R = o.shape[0]
+        counts = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+        trans, color, hits, passes = splat_bvh.trace_gaussian_rays_bvh(
+            tree, o, d, cfg, colors, counts=counts)
+        nodes, tests, walks, blended = counts.tolist()
+        if not (torch.equal(hits.reshape(H, W), frame.hits)
+                and torch.equal(color.reshape(H, W, 3), frame.color)):
+            raise SystemExit(f"phase splat-bvh: view {vi}: a second launch "
+                             f"differs from the frame's")
+        ms = time_cuda(lambda: splat_bvh.trace_gaussian_rays_bvh(
+            tree, o, d, cfg, colors), 3)
+        idx = torch.arange(0, R, SPLAT_BVH_PLAIN_STRIDE, device=DEVICE)
+        plain_cfg = dataclasses.replace(
+            cfg, splat_chunk=SPLAT_BVH_PLAIN_PAIRS // idx.numel())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_trans, p_color, p_hits, p_passes = \
+            splat_bvh.trace_gaussian_rays_bvh_plain(
+                tree, o[idx], d[idx], plain_cfg, colors)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max_abs_err(color[idx] - p_color, trans[idx] - p_trans)
+        hits_off = int((hits[idx] != p_hits).sum())
+        passes_off = int((passes[idx] != p_passes).sum())
+        if hits_off or passes_off or not err <= SPLAT_BVH_TOL:
+            raise SystemExit(
+                f"phase splat-bvh: view {vi}: the kernel differs from its "
+                f"plain version on {idx.numel()} rays: hits on {hits_off}, "
+                f"passes on {passes_off}, max |colour, trans| {err:.3e}")
+        total_hits = int(hits.sum())
+        t_ops = rt_roofline.HIT_FLOPS * total_hits / F32_FLOPS
+        t_bytes = (rt_roofline.SPLAT_BYTES * tree.n_splats
+                   + rt_roofline.RAY_BYTES * R) / HBM_BYTES_PER_S
+        bound_ms = rt_roofline.least_seconds(total_hits, tree.n_splats,
+                                             R) * 1e3
+        name = f"trace_gaussian_rays_bvh[view {vi}]"
+        row = dict(
+            name=name, route="cuda", source=SPLAT_BVH_SRC,
+            replaces="none (the k-buffer of free rays is plain jnp in the "
+            "JAX package)", launches=launches, max_abs_err=err, ms=ms,
+            frame_ms=frame_ms, plain_ms=plain_s * 1e3,
+            plain_rays=idx.numel(), bound_ms=bound_ms,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, rays=R, hits_per_ray=total_hits / R,
+            passes_per_ray=walks / R, nodes_per_ray=nodes / R,
+            tests_per_hit=tests / max(blended, 1), build=info,
+            at=f"m360-rt's cloud, {W}x{H}, orbit view {vi} of {n}")
+        rows.append(row)
+        out[str(vi)] = {k: v for k, v in row.items() if k != "build"}
+        log(f"phase splat-bvh: {name}: {R} rays, {row['hits_per_ray']:.1f} "
+            f"hits, {row['passes_per_ray']:.2f} passes walked and "
+            f"{row['nodes_per_ray']:.0f} nodes a ray, "
+            f"{row['tests_per_hit']:.1f} tests a hit; frame {frame_ms:.1f} "
+            f"ms, {launches} launch; kernel {ms:.1f} ms, bound "
+            f"{bound_ms:.3f} ms ({row['bound_by']}, {bound_ms / ms:.3%} of "
+            f"it); plain (brute force) on {idx.numel()} rays: hits and "
+            f"passes equal, max |colour, trans| {err:.2e}, "
+            f"{plain_s:.1f} s on those rays")
+    return dict(splats=cloud.n, tree_splats=tree_splats,
+                tree_bytes=tree_bytes, cloud_s=cloud_s, tree_s=tree_s,
+                build=info, views=out)
+
+
 # --- the scenes phase: the catalog, foveated PT, the foliage field ---
 
 # the catalog at its factories' sizes: (factory, width, height, kwargs)
@@ -5291,6 +5451,7 @@ def main() -> int:
         tri = tri_phases(torch, rows)
         tri["bvh"] = bvh_phase(torch, rows)
         tri["pt_shade"] = pt_shade_phase(torch, rows)
+        splat_bvh = splat_bvh_phase(torch, rows)
         front_ends = front_ends_phase(
             torch, rows, capture_dir, scenes["catalog"]["rtiow"].pop("image"),
             serving, mrays, frame_ms)
@@ -5306,7 +5467,8 @@ def main() -> int:
                       "max_rows": mrows, "projection": projection,
                       "serving": serving,
                       "train": train, "fit": fit, "kbuffer": kbuffer,
-                      "tri": tri, "scenes": scenes, "front_ends": front_ends,
+                      "tri": tri, "splat_bvh": splat_bvh, "scenes": scenes,
+                      "front_ends": front_ends,
                       "multi_device": multi_device,
                       "wall_s": time.perf_counter() - t_run}),
           flush=True)

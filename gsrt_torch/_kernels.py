@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
            "splat_grad", "tri_cast", "tri_kernel", "tri_bvh", "project",
-           "pt_shade")
+           "pt_shade", "splat_bvh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -187,9 +187,14 @@ PT_SHADE = CudaKernel(
     "pt_shade", "pt_shade", "gsrt_pt_shade",
     [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, P])
 
+SPLAT_BVH = CudaKernel(
+    "trace_gaussian_rays_bvh", "splat_bvh", "gsrt_splat_bvh",
+    [P, P, P, P, P, P, F, P, F, I, I, F, F, P, P, P, P, P, P, P])
+
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_PAIRS, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
-           TRI_CLOSEST_HIT, TRI_ANY_HIT, TRI_BVH, PROJECT, PT_SHADE)
+           TRI_CLOSEST_HIT, TRI_ANY_HIT, TRI_BVH, PROJECT, PT_SHADE,
+           SPLAT_BVH)
 
 
 def launch_counts() -> dict[str, int]:

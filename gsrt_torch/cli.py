@@ -643,8 +643,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--camera", type=str, default=None,
                    help=".camera file (eye xyz, center xyz)")
     p.add_argument("--fov", type=float, default=60.0)
-    p.add_argument("--mode", choices=["tiled", "fast", "reference"],
-                   default="tiled")
+    p.add_argument("--mode",
+                   choices=["tiled", "fast", "reference", "traced"],
+                   default="tiled",
+                   help="traced = one ray a pixel through a per-ray tree "
+                        "over the splats, the k-buffer passes")
     p.add_argument("--k", type=int, default=8)
     p.add_argument("--exp-lut", action="store_true")
     p.add_argument("--reference-conic", action="store_true")

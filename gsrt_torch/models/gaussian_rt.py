@@ -20,10 +20,14 @@
   (`ServingAux`) that `gsrt_torch.serving` consumes. `cfg.span_mode =
   "ellipse"` bins ellipse spans on the tile stream (at most 255 tile rows;
   rect spans past that).
-* `GaussianRayTracer`: "fast", "reference" or "tiled"; in "tiled" mode
-  it sizes the static pair and unit buffers from a
+* `render_traced`: the k-buffer passes of `trace_gaussian_rays` for a
+  camera's rays, one through each pixel centre, through a per-ray tree
+  over the splats (`ops.splat_bvh`: one CUDA kernel on the card).
+* `GaussianRayTracer`: "fast", "reference", "tiled" or "traced"; in
+  "tiled" mode it sizes the static pair and unit buffers from a
   NumPy count of the view (`calibrate`) and re-renders a frame that
-  overflowed them, at once or, with defer_overflow=N, N frames later.
+  overflowed them, at once or, with defer_overflow=N, N frames later; in
+  "traced" mode it builds the tree on first use for a cloud and keeps it.
 
 Entry points render on the device the cloud lives on; clouds and cameras
 come from `gsrt_torch.scene` or `gsrt_torch.interop`, which default to
@@ -41,13 +45,14 @@ from gsrt_torch.core.config import RenderConfig
 from gsrt_torch.core.types import Camera, GaussianCloud, resolve_device
 from gsrt_torch.ops import explut
 from gsrt_torch.ops.gaussian import (eval_gaussian_response, invert_cov3d,
-                                     project_gaussians,
-                                     ray_gaussian_response)
+                                     project_gaussians)
 from gsrt_torch.ops.gaussian import screen_extents_abc  # noqa: F401 re-export
-from gsrt_torch.ops.kbuffer import finish_pass, merge_nearest, ray_window
+from gsrt_torch.ops.kbuffer import (finish_pass, nearest_pass, ray_window,
+                                    trace_splat_passes)
 from gsrt_torch.ops.project import alive_mask  # noqa: F401 re-export
 from gsrt_torch.ops.project import SplatColumns, project_splats, unit_dirs
 from gsrt_torch.ops.sh import eval_sh
+from gsrt_torch.ops.splat_bvh import build_splat_bvh, trace_gaussian_rays_bvh
 from gsrt_torch.ops.tile_binning import group_rows_k, tile_extent
 from gsrt_torch.utils.profiling import TRACER
 
@@ -181,17 +186,6 @@ def render_fast(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
                         depth=dacc.reshape(H, W) if with_depth else None)
 
 
-def _nearest_pass(n_rays: int, candidates, k: int, init_d: float, dev):
-    """One k-buffer pass: every chunk's candidates (depth, alpha, id)
-    merged into a fresh buffer. Returns (kd, ka, ki, count)."""
-    kd = torch.full((n_rays, k), init_d, device=dev)
-    ka = torch.zeros((n_rays, k), device=dev)
-    ki = torch.zeros((n_rays, k), dtype=torch.int64, device=dev)
-    for cd, ca, ci in candidates:
-        kd, ka, ki = merge_nearest(kd, ka, ki, cd, ca, ci)
-    return kd, ka, ki, (kd < init_d).sum(-1, dtype=torch.int32)
-
-
 def render_reference(cloud: GaussianCloud, camera: Camera,
                      cfg: RenderConfig) -> RenderOutput:
     """The paper's multi-pass k-buffer render: each pass keeps, per pixel,
@@ -234,7 +228,7 @@ def render_reference(cloud: GaussianCloud, camera: Camera,
 
     while live.numel():
         fr = front[live]
-        kd, ka, ki, count = _nearest_pass(
+        kd, ka, ki, count = nearest_pass(
             live.numel(), candidates(pix[live], fr), cfg.k, init_d, dev)
         trans[live], color[live], front[live] = finish_pass(
             trans[live], color[live], fr, kd, ka, colors[ki], count)
@@ -268,51 +262,68 @@ def trace_gaussian_rays(cloud: GaussianCloud, origins, dirs,
     all splats in chunks of cfg.splat_chunk, tracing only the rays still
     live (the same outputs as tracing all). Equal t* are taken lowest
     splat index first."""
-    dev = origins.device
-    R, N = origins.shape[0], cloud.n
-    cov_inv = invert_cov3d(cloud.cov3d)
     if colors is None:
         if sh_origin is not None:
             colors = eval_sh(cloud.sh, unit_dirs(cloud.means, sh_origin),
                              min(cfg.sh_degree, cloud.sh_degree))
         else:
             colors = eval_sh(cloud.sh, torch.zeros_like(cloud.means), 0)
-    tmax_r = ray_window(t_max, R, cfg, dev)
     op = torch.where(cloud.opacity > cfg.alpha_threshold, cloud.opacity,
                      torch.zeros_like(cloud.opacity))
-    init_d = float(cfg.init_depth)
-    ids = torch.arange(N, device=dev)
-    front = torch.zeros(R, device=dev)
-    trans = torch.ones(R, device=dev)
-    color = torch.zeros((R, 3), device=dev)
-    hits = torch.zeros(R, dtype=torch.int32, device=dev)
-    live = torch.arange(R, device=dev)
-
-    def candidates(o, d, lo, hi):
-        for c0 in range(0, N, cfg.splat_chunk):
-            sl = slice(c0, c0 + cfg.splat_chunk)
-            t_star, g = ray_gaussian_response(o, d, cloud.means[sl],
-                                              cov_inv[sl])
-            alpha = torch.clamp_max(op[sl][None, :] * torch.exp(-g), 0.99)
-            valid = ((g <= cfg.g_cutoff) & (alpha > cfg.alpha_threshold)
-                     & (t_star > lo) & (t_star < hi))
-            yield (torch.where(valid, t_star, init_d),
-                   torch.where(valid, alpha, 0.0), ids[sl])
-
-    while live.numel():
-        fr = front[live]
-        kd, ka, ki, count = _nearest_pass(
-            live.numel(),
-            candidates(origins[live], dirs[live],
-                       torch.clamp_min(fr, cfg.t_min)[:, None],
-                       tmax_r[live][:, None]),
-            cfg.k, init_d, dev)
-        trans[live], color[live], front[live] = finish_pass(
-            trans[live], color[live], fr, kd, ka, colors[ki], count)
-        h = hits[live] + count
-        hits[live] = h
-        live = live[~((count == 0) | (h >= cfg.max_passes * cfg.k))]
+    trans, color, hits, _ = trace_splat_passes(
+        cloud.means, invert_cov3d(cloud.cov3d), op,
+        torch.arange(cloud.n, device=origins.device), colors, origins, dirs,
+        cfg, ray_window(t_max, origins.shape[0], cfg, origins.device))
     return trans, color, hits
+
+
+def camera_rays(camera: Camera):
+    """One ray a pixel from the camera's eye through the pixel's centre at
+    integer coordinates, row by row (`_pixel_grid`'s order), with a unit
+    direction: (origins [H·W, 3], dirs [H·W, 3]). The eye (−Rᵀt) and
+    the directions (Rᵀ·((x − cx)/fx, (y − cy)/fy, 1), normalised) are
+    elementwise products and sums."""
+    pix = _pixel_grid(camera.width, camera.height, camera.device)
+    R, t = camera.view[:3, :3], camera.view[:3, 3]
+    x = (pix[:, 0] - camera.cx) / camera.fx
+    y = (pix[:, 1] - camera.cy) / camera.fy
+    d = [R[0, i] * x + R[1, i] * y + R[2, i] for i in range(3)]
+    inv = 1.0 / torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    eye = -(R[0] * t[0] + R[1] * t[1] + R[2] * t[2])
+    return eye.expand(pix.shape[0], 3), torch.stack([c * inv for c in d],
+                                                    -1)
+
+
+def render_traced(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
+                  tree) -> RenderOutput:
+    """A frame by tracing rays: SH colours seen from the camera's eye
+    (`rt.colors`), one ray a pixel (`camera_rays`, `rt.rays`), and the
+    k-buffer passes of `trace_gaussian_rays` through `tree`, the
+    cloud's `ops.splat_bvh.SplatBVH` (`rt.trace`: one kernel launch on
+    CUDA tensors, the plain version on CPU ones). `passes` counts the
+    passes that found something, `hits` the splats blended. While the
+    tracer records, `rt.trace` carries the kernel's counters `rt_rays`,
+    `rt_nodes`, `rt_tests`, `rt_passes` (passes walked) and `rt_hits`."""
+    H, W = camera.height, camera.width
+    with TRACER.span("rt.rays"):
+        origins, dirs = camera_rays(camera)
+    with TRACER.span("rt.colors"):
+        colors = eval_sh(cloud.sh, unit_dirs(cloud.means, origins[0]),
+                         min(cfg.sh_degree, cloud.sh_degree))
+    with TRACER.span("rt.trace"):
+        counts = (torch.zeros(4, dtype=torch.int64, device=origins.device)
+                  if origins.is_cuda and TRACER.recording() else None)
+        trans, color, hits, passes = trace_gaussian_rays_bvh(
+            tree, origins, dirs, cfg, colors, counts=counts)
+        if counts is not None:
+            TRACER.count(rt_rays=H * W, rt_nodes=counts[0],
+                         rt_tests=counts[1], rt_passes=counts[2],
+                         rt_hits=counts[3])
+    if cfg.white_background:
+        color = color + trans[:, None]
+    return RenderOutput(trans=trans.reshape(H, W),
+                        color=color.reshape(H, W, 3),
+                        passes=passes.reshape(H, W), hits=hits.reshape(H, W))
 
 
 class StreamPlan(NamedTuple):
@@ -614,12 +625,15 @@ class GaussianRayTracer:
     frame's overflow flag N frames later instead of at once (one host
     synchronisation per frame less): an overflowing frame is then served
     truncated, and the frame at which its flag is read re-calibrates and
-    renders again."""
+    renders again. In "traced" mode (`render_traced`) the splat tree is
+    built on the first call for a cloud (span `rt.build`) and kept while
+    the cloud's means, covariances and opacities are the same tensors,
+    unchanged."""
 
     def __init__(self, cfg: RenderConfig, mode: str = "fast",
                  max_pairs: Optional[int] = None, device=None,
                  defer_overflow: int = 0):
-        if mode not in ("fast", "reference", "tiled"):
+        if mode not in ("fast", "reference", "tiled", "traced"):
             raise ValueError(f"unknown mode {mode!r}")
         self.cfg = cfg
         self.mode = mode
@@ -628,6 +642,8 @@ class GaussianRayTracer:
         self.max_rows = None
         self.defer_overflow = defer_overflow
         self._overflow_pending: list[torch.Tensor] = []
+        self._tree = None
+        self._tree_key: list = []
 
     def calibrate(self, cloud: GaussianCloud, camera: Camera) -> int:
         """Size max_pairs (and max_rows: the group stream's units or the
@@ -649,6 +665,19 @@ class GaussianRayTracer:
         self.max_pairs = pair_bucket(int(total * 1.1))
         return self.max_pairs
 
+    def splat_tree(self, cloud: GaussianCloud):
+        """The traced mode's tree over `cloud`, built anew when the
+        cloud's shape tensors are others or were changed in place."""
+        key = [(t, t._version) for t in (cloud.means, cloud.cov3d,
+                                         cloud.opacity)]
+        if self._tree is None or any(
+                a is not b or va != vb
+                for (a, va), (b, vb) in zip(key, self._tree_key)):
+            with TRACER.span("rt.build"):
+                self._tree = build_splat_bvh(cloud, self.cfg)
+            self._tree_key = key
+        return self._tree
+
     def _render(self, cloud, camera) -> RenderOutput:
         return render_tiled(cloud, camera, self.cfg,
                             max_pairs=self.max_pairs, max_rows=self.max_rows)
@@ -660,6 +689,9 @@ class GaussianRayTracer:
                 return render_fast(cloud, camera, self.cfg)
             if self.mode == "reference":
                 return render_reference(cloud, camera, self.cfg)
+            if self.mode == "traced":
+                return render_traced(cloud, camera, self.cfg,
+                                     self.splat_tree(cloud))
             if self.max_pairs is None:
                 self.calibrate(cloud, camera)
             out = self._render(cloud, camera)

@@ -113,6 +113,91 @@ def build_lbvh(aabb_min, aabb_max) -> LBVH:
                 leaf_max=lmax)
 
 
+# The per-ray trees' walks (`ops.tri_bvh`, `ops.splat_bvh` and their
+# kernels, csrc/bvh_walk.cuh)
+FAR_SCALE = 1.0 + 2.0 ** -21   # float32-exact, above 1 + 2γ₃ (γ₃ ≈ 3·2⁻²⁴)
+EMPTY = -(1 << 31)  # a walk's empty stack (no leaf has this id)
+EPS = 1e-20         # |d| below it is replaced by it, as tri_kernel's cull
+
+
+def tree_depth(kids: torch.Tensor) -> int:
+    """Internal nodes on the longest path from the root (node 0) of a
+    tree whose [NI, 2] children are c ≥ 0 an internal node, c < 0 a
+    leaf."""
+    depth, level = 0, torch.zeros(1, dtype=torch.long, device=kids.device)
+    while level.numel():
+        depth += 1
+        nxt = kids[level].reshape(-1)
+        level = nxt[nxt >= 0]
+    return depth
+
+
+def node_records(lo, hi, stack: int):
+    """The per-ray kernels' node records over leaf boxes [L, 3] lo and hi
+    (L ≥ 1; csrc/tri_bvh.cu and csrc/splat_bvh.cu walk them): the Karras
+    tree of `build_lbvh`, a record of 64 B (16 f32) a node holding both
+    children's boxes, so one fetch tests two children: lo x, hi x, lo y,
+    hi y of child 0, the same of child 1, lo z, hi z of child 0 and of
+    child 1, then both children's int32 ids (c ≥ 0 an internal node,
+    c < 0 the leaf ~c, leaves numbered as `lo` rows) and two unused
+    words. The root is node 0. One leaf is tested twice (the Karras tree
+    needs two). Returns (nodes [NI, 16], root_box [6] lo xyz, hi xyz,
+    depth); raises if the tree is deeper than `stack`, the kernels'
+    stack entries."""
+    n_leaves = lo.shape[0]
+    ids = torch.arange(n_leaves, dtype=torch.int32, device=lo.device)
+    if n_leaves == 1:
+        lo, hi, ids = lo.expand(2, 3), hi.expand(2, 3), ids.expand(2)
+    bvh = build_lbvh(lo, hi)
+    n_tree = bvh.n_leaves
+    leaf_id = ids[bvh.leaf_prim.long()]
+    sides = []
+    for child, is_leaf in ((bvh.left, bvh.left_leaf),
+                           (bvh.right, bvh.right_leaf)):
+        c = child.long()
+        ci = torch.clamp_max(c, n_tree - 2)      # an internal child
+        leaf = is_leaf[:, None]
+        bmin = torch.where(leaf, bvh.leaf_min[c], bvh.node_min[ci])
+        bmax = torch.where(leaf, bvh.leaf_max[c], bvh.node_max[ci])
+        kid = torch.where(is_leaf, ~leaf_id[c], child)
+        sides.append((bmin, bmax, kid))
+    (min0, max0, kid0), (min1, max1, kid1) = sides
+    nodes = torch.stack(
+        [min0[:, 0], max0[:, 0], min0[:, 1], max0[:, 1],
+         min1[:, 0], max1[:, 0], min1[:, 1], max1[:, 1],
+         min0[:, 2], max0[:, 2], min1[:, 2], max1[:, 2],
+         kid0.view(torch.float32), kid1.view(torch.float32),
+         torch.zeros_like(min0[:, 0]), torch.zeros_like(min0[:, 0])], 1)
+    depth = tree_depth(torch.stack([kid0, kid1], 1).long())
+    if depth > stack:
+        raise ValueError(f"the tree is {depth} nodes deep, past the "
+                         f"kernel's stack of {stack}")
+    root_box = torch.cat([bvh.node_min[0], bvh.node_max[0]])
+    return nodes.contiguous(), root_box.contiguous(), depth
+
+
+def slab(box, ray, iv, lim):
+    """The per-ray kernels' box test (csrc/bvh_walk.cuh `slab`) of each
+    ray against boxes [..., 6] (lo x, hi x, lo y, hi y, lo z, hi z):
+    ray = (ox, oy, oz, lo), iv the inverse direction's components (each
+    |d| under EPS taken as EPS), lim the window's far end. The box is
+    entered where its slab window [t_near, t_far · FAR_SCALE] meets
+    [lo, lim]; min and max carry a NaN, as the kernels' do. Returns
+    (hit, t_near)."""
+    ox, oy, oz, lo = ray
+    ivx, ivy, ivz = iv
+    l0, h0 = (box[..., 0] - ox) * ivx, (box[..., 1] - ox) * ivx
+    l1, h1 = (box[..., 2] - oy) * ivy, (box[..., 3] - oy) * ivy
+    l2, h2 = (box[..., 4] - oz) * ivz, (box[..., 5] - oz) * ivz
+    tn = torch.maximum(torch.maximum(torch.minimum(l0, h0),
+                                     torch.minimum(l1, h1)),
+                       torch.minimum(l2, h2))
+    tf = torch.minimum(torch.minimum(torch.maximum(l0, h0),
+                                     torch.maximum(l1, h1)),
+                       torch.maximum(l2, h2)) * FAR_SCALE
+    return (tn <= tf) & (tf >= lo) & (tn <= lim), tn
+
+
 def _ray_aabb(orig, inv_d, bmin, bmax, t_min, t_max):
     lo = (bmin - orig) * inv_d
     hi = (bmax - orig) * inv_d

@@ -16,11 +16,17 @@ half, the candidate's position in the low half — so equal depths are
 taken lowest position first on every device, as in the JAX package.
 `merge_nearest` applies it to the concatenation [buffer, chunk], which
 is how the JAX package's multi-pass loops merge each chunk.
+
+`trace_splat_passes` runs the passes of free rays over a set of splats
+by brute force, chunk by chunk (`nearest_pass`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from gsrt_torch.core.config import RenderConfig
+from gsrt_torch.ops.gaussian import ray_gaussian_response
 
 
 def _order_key(depth: torch.Tensor) -> torch.Tensor:
@@ -128,3 +134,67 @@ def ray_window(t_max, n_rays: int, cfg, dev) -> torch.Tensor:
     t = torch.as_tensor(cfg.t_max if t_max is None else t_max,
                         dtype=torch.float32, device=dev)
     return torch.clamp_max(t.expand(n_rays), float(cfg.init_depth))
+
+
+def nearest_pass(n_rays: int, candidates, k: int, init_d: float, dev):
+    """One k-buffer pass: every chunk's candidates (depth, alpha, id)
+    merged into a fresh buffer. Returns (kd, ka, ki, count)."""
+    kd = torch.full((n_rays, k), init_d, device=dev)
+    ka = torch.zeros((n_rays, k), device=dev)
+    ki = torch.zeros((n_rays, k), dtype=torch.int64, device=dev)
+    for cd, ca, ci in candidates:
+        kd, ka, ki = merge_nearest(kd, ka, ki, cd, ca, ci)
+    return kd, ka, ki, (kd < init_d).sum(-1, dtype=torch.int32)
+
+
+def trace_splat_passes(means, cov_inv, op, ids, colors, origins, dirs,
+                       cfg: RenderConfig, tmax_r):
+    """The multi-pass k-buffer of free rays over splats given as rows
+    (`models.gaussian_rt.trace_gaussian_rays`' passes, and the plain
+    version of `ops.splat_bvh`'s): per pass each ray's k nearest splats
+    with the ray-space response g ≤ g_cutoff, alpha = min(op·e⁻ᵍ, 0.99)
+    > alpha_threshold and t* in (max(front, t_min), tmax_r), blended by
+    `finish_pass`; a ray is done on a pass that finds nothing or once it
+    holds max_passes·k hits. means [N, 3], cov_inv [N, 6]
+    (upper-triangular Σ⁻¹), op [N] (0 where a splat is left out), ids
+    [N] int64 ascending, the splat index of each row, which names its
+    colour (colors [·, 3]) and breaks ties (lowest first, as the rows'
+    order); tmax_r [R] the rays' windows (`ray_window`). Returns (trans
+    [R], color [R, 3], hits [R], passes [R]): passes counts the passes
+    that found something."""
+    dev = origins.device
+    R, N = origins.shape[0], means.shape[0]
+    init_d = float(cfg.init_depth)
+    front = torch.zeros(R, device=dev)
+    trans = torch.ones(R, device=dev)
+    color = torch.zeros((R, 3), device=dev)
+    hits = torch.zeros(R, dtype=torch.int32, device=dev)
+    passes = torch.zeros(R, dtype=torch.int32, device=dev)
+    live = torch.arange(R, device=dev) if N else torch.zeros(
+        0, dtype=torch.long, device=dev)
+
+    def candidates(o, d, lo, hi):
+        for c0 in range(0, N, cfg.splat_chunk):
+            sl = slice(c0, c0 + cfg.splat_chunk)
+            t_star, g = ray_gaussian_response(o, d, means[sl], cov_inv[sl])
+            alpha = torch.clamp_max(op[sl][None, :] * torch.exp(-g), 0.99)
+            valid = ((g <= cfg.g_cutoff) & (alpha > cfg.alpha_threshold)
+                     & (t_star > lo) & (t_star < hi))
+            yield (torch.where(valid, t_star, init_d),
+                   torch.where(valid, alpha, 0.0), ids[sl])
+
+    while live.numel():
+        fr = front[live]
+        kd, ka, ki, count = nearest_pass(
+            live.numel(),
+            candidates(origins[live], dirs[live],
+                       torch.clamp_min(fr, cfg.t_min)[:, None],
+                       tmax_r[live][:, None]),
+            cfg.k, init_d, dev)
+        trans[live], color[live], front[live] = finish_pass(
+            trans[live], color[live], fr, kd, ka, colors[ki], count)
+        h = hits[live] + count
+        hits[live] = h
+        passes[live] += (count > 0).to(torch.int32)
+        live = live[~((count == 0) | (h >= cfg.max_passes * cfg.k))]
+    return trans, color, hits, passes

@@ -19,7 +19,8 @@ walks a binary tree of its own instead.
    1e-12 floor and u, v and t lose their digits. Unpadded, the tests'
    rays aimed at shared edges lose hits; padded, they lose none. The
    internal nodes are the Karras tree of `ops.bvh.build_lbvh` over the
-   leaf boxes. A node record is 64 B (`nodes` [NI, 16] f32) and holds
+   leaf boxes, in `ops.bvh.node_records` (which `ops.splat_bvh`'s tree
+   shares). A node record is 64 B (`nodes` [NI, 16] f32) and holds
    both children's boxes, so one fetch tests two children: lo x, hi x,
    lo y, hi y of child 0, the same of child 1, lo z, hi z of child 0 and
    of child 1, then both children's int32 ids (c ≥ 0 an internal node,
@@ -31,15 +32,15 @@ walks a binary tree of its own instead.
    Semantics: the closest hit over all triangles, each tested as
    `tri_kernel._mt` tests it; a ray keeps the least (t, slot), so on
    equal t the smaller slot wins. A box is entered where the slab window
-   [t_near, t_far · FAR_SCALE] meets [t_min, min(t_max, best)], the far
-   end scaled by 1 + 2γ₃ or more (Ize 2013) and t_near compared with ≤,
-   so ties are visited. The tree gives the brute force's (t, slot)
-   wherever a padded box holds the hit Möller–Trumbore accepts. That is
-   measured, not guaranteed: on the tests' random, grazing, shared-edge,
-   parked, windowed and axis-aligned rays every ray agrees; of rays
-   grazing a room's smallest triangles (1e-7 to 1e-1 rad off their
-   planes) about 0.04% lose a hit, each on a triangle the ray meets
-   within 1e-5 of parallel.
+   [t_near, t_far · FAR_SCALE] (`ops.bvh.slab`) meets [t_min, min(t_max,
+   best)], the far end scaled by 1 + 2γ₃ or more (Ize 2013) and t_near
+   compared with ≤, so ties are visited. The tree gives the brute force's
+   (t, slot) wherever a padded box holds the hit Möller–Trumbore accepts.
+   That is measured, not guaranteed: on the tests' random, grazing,
+   shared-edge, parked, windowed and axis-aligned rays every ray agrees;
+   of rays grazing a room's smallest triangles (1e-7 to 1e-1 rad off
+   their planes) about 0.04% lose a hit, each on a triangle the ray
+   meets within 1e-5 of parallel.
 3. `walk_bvh_plain` is the kernel's walk in tensor code, step by step:
    its t and slot are the kernel's, and its node and test counts are
    the kernel's counters.
@@ -52,15 +53,13 @@ from typing import NamedTuple
 import torch
 
 from gsrt_torch import _kernels
+from gsrt_torch.ops.bvh import EMPTY, EPS, node_records, slab
 from gsrt_torch.ops.tri_kernel import GEOM, K, PLAIN_PAIRS, TriTable, _mt
 
 LEAF = 4            # slots a leaf: one float4 of each geometry row
 STACK = 64          # the kernel's stack entries, the tree depth it takes
 BOX_PAD = 1e-5      # leaf boxes widened by this share of the scene extent
-FAR_SCALE = 1.0 + 2.0 ** -21   # float32-exact, above 1 + 2γ₃ (γ₃ ≈ 3·2⁻²⁴)
-EMPTY = -(1 << 31)  # a walk's empty stack (no leaf has this id)
 CPU_PAIRS = 1 << 16  # the plain version's batch on the CPU, kept in cache
-_EPS = 1e-20        # |d| below it is replaced by it, as tri_kernel's cull
 
 
 class TriBVH(NamedTuple):
@@ -86,55 +85,13 @@ def _leaf_boxes(tt: TriTable):
     return lo, hi
 
 
-def _depth(kids: torch.Tensor) -> int:
-    """Internal nodes on the longest path from the root (node 0)."""
-    depth, level = 0, torch.zeros(1, dtype=torch.long, device=kids.device)
-    while level.numel():
-        depth += 1
-        nxt = kids[level].reshape(-1)
-        level = nxt[nxt >= 0]
-    return depth
-
-
 def build_tri_bvh(tt: TriTable) -> TriBVH:
     """The per-ray tree over the table's leaves (module docstring)."""
-    from gsrt_torch.ops.bvh import build_lbvh
-
     lo, hi = _leaf_boxes(tt)
     pad = BOX_PAD * float((hi.amax(0) - lo.amin(0)).amax())
-    lo, hi = lo - pad, hi + pad
-    n_leaves = lo.shape[0]
-    ids = torch.arange(n_leaves, dtype=torch.int32, device=lo.device)
-    if n_leaves == 1:      # the Karras tree needs two leaves: test it twice
-        lo, hi, ids = lo.expand(2, 3), hi.expand(2, 3), ids.expand(2)
-    bvh = build_lbvh(lo, hi)
-    n_tree = bvh.n_leaves
-    leaf_id = ids[bvh.leaf_prim.long()]
-    sides = []
-    for child, is_leaf in ((bvh.left, bvh.left_leaf),
-                           (bvh.right, bvh.right_leaf)):
-        c = child.long()
-        ci = torch.clamp_max(c, n_tree - 2)      # an internal child
-        leaf = is_leaf[:, None]
-        bmin = torch.where(leaf, bvh.leaf_min[c], bvh.node_min[ci])
-        bmax = torch.where(leaf, bvh.leaf_max[c], bvh.node_max[ci])
-        kid = torch.where(is_leaf, ~leaf_id[c], child)
-        sides.append((bmin, bmax, kid))
-    (min0, max0, kid0), (min1, max1, kid1) = sides
-    kids = torch.stack([kid0, kid1], 1)
-    nodes = torch.stack(
-        [min0[:, 0], max0[:, 0], min0[:, 1], max0[:, 1],
-         min1[:, 0], max1[:, 0], min1[:, 1], max1[:, 1],
-         min0[:, 2], max0[:, 2], min1[:, 2], max1[:, 2],
-         kid0.view(torch.float32), kid1.view(torch.float32),
-         torch.zeros_like(min0[:, 0]), torch.zeros_like(min0[:, 0])], 1)
-    depth = _depth(kids.long())
-    if depth > STACK:
-        raise ValueError(f"the tree is {depth} nodes deep, past the "
-                         f"kernel's stack of {STACK}")
-    root_box = torch.cat([bvh.node_min[0], bvh.node_max[0]])
-    return TriBVH(nodes=nodes.contiguous(), root_box=root_box.contiguous(),
-                  depth=depth, n_leaves=n_leaves)
+    nodes, root_box, depth = node_records(lo - pad, hi + pad, STACK)
+    return TriBVH(nodes=nodes, root_box=root_box, depth=depth,
+                  n_leaves=lo.shape[0])
 
 
 def _bound(x, R: int, device):
@@ -235,23 +192,6 @@ def closest_hit_bvh_plain(tt: TriTable, orig, dirn, t_min, t_max):
     return bt, bi.to(torch.int32), torch.isfinite(bt)
 
 
-def _slab(box, ray, iv, lim):
-    """The kernel's box test of each ray against boxes [..., 6] (lo x,
-    hi x, lo y, hi y, lo z, hi z): (hit, t_near)."""
-    ox, oy, oz, tmin = ray
-    ivx, ivy, ivz = iv
-    l0, h0 = (box[..., 0] - ox) * ivx, (box[..., 1] - ox) * ivx
-    l1, h1 = (box[..., 2] - oy) * ivy, (box[..., 3] - oy) * ivy
-    l2, h2 = (box[..., 4] - oz) * ivz, (box[..., 5] - oz) * ivz
-    tn = torch.maximum(torch.maximum(torch.minimum(l0, h0),
-                                     torch.minimum(l1, h1)),
-                       torch.minimum(l2, h2))
-    tf = torch.minimum(torch.minimum(torch.maximum(l0, h0),
-                                     torch.maximum(l1, h1)),
-                       torch.maximum(l2, h2)) * FAR_SCALE
-    return (tn <= tf) & (tf >= tmin) & (tn <= lim), tn
-
-
 def walk_bvh_plain(tt: TriTable, orig, dirn, t_min, t_max):
     """The kernel's walk in tensor code, every ray a step at a time:
     (t [R], slot [R], counts [3] int64: node records fetched, triangle
@@ -263,7 +203,7 @@ def walk_bvh_plain(tt: TriTable, orig, dirn, t_min, t_max):
     dev = orig.device
     ox, oy, oz, dx, dy, dz, tmin, tmax = _rays(orig, dirn, t_min, t_max)
     R = ox.shape[0]
-    iv = [1.0 / torch.where(d.abs() < _EPS, torch.full_like(d, _EPS), d)
+    iv = [1.0 / torch.where(d.abs() < EPS, torch.full_like(d, EPS), d)
           for d in (dx, dy, dz)]
     nd = bvh.nodes
     boxes = torch.stack([nd[:, [0, 1, 2, 3, 8, 9]],
@@ -274,7 +214,7 @@ def walk_bvh_plain(tt: TriTable, orig, dirn, t_min, t_max):
     geo = tt.table.reshape(-1, GEOM, K // LEAF, LEAF)  # [M, 9, 32, 4]
     bt = torch.full((R,), float("inf"), device=dev)
     bi = torch.zeros(R, dtype=torch.int64, device=dev)
-    hit, _ = _slab(root, (ox, oy, oz, tmin), iv, tmax)
+    hit, _ = slab(root, (ox, oy, oz, tmin), iv, tmax)
     POP = EMPTY + 1
     cur = torch.where(hit, 0, EMPTY).long()
     stack_c = torch.zeros((R, STACK), dtype=torch.long, device=dev)
@@ -298,7 +238,7 @@ def walk_bvh_plain(tt: TriTable, orig, dirn, t_min, t_max):
             n_nodes += a.numel()
             c = cur[a]
             ray = (ox[a, None], oy[a, None], oz[a, None], tmin[a, None])
-            h, tn = _slab(boxes[c], ray, [v[a, None] for v in iv],
+            h, tn = slab(boxes[c], ray, [v[a, None] for v in iv],
                           lim[a, None])
             k = kids[c]
             swap = tn[:, 1] < tn[:, 0]

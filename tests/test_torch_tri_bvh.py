@@ -32,6 +32,7 @@ from gsrt_torch import RenderConfig
 from gsrt_torch.interop import scene_from_numpy
 from gsrt_torch.models import path_tracer as t_pt
 from gsrt_torch.ops import tri_bvh, tri_kernel
+from gsrt_torch.ops.bvh import tree_depth
 
 N_ROOM = 3000
 RAYS = 2500
@@ -174,7 +175,7 @@ def test_tree_structure(room, soup_table, scene):
         assert bool((node_box[:, :3] <= boxes[:, j, :3]).all())
         assert bool((boxes[:, j, 3:] <= node_box[:, 3:]).all())
     assert 1 < bvh.depth <= tri_bvh.STACK
-    assert bvh.depth == tri_bvh._depth(kids)
+    assert bvh.depth == tree_depth(kids)
 
 
 def test_a_tree_deeper_than_the_stack_raises(soup_table, monkeypatch):
