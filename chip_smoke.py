@@ -220,8 +220,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              1920x1080 frame through GaussianRayTracer(cfg, "traced")
              with launches counted from 0 just before it (one
              csrc/splat_bvh.cu launch a frame); the kernel's ms on that
-             frame's rays, registers and local (stack) bytes, passes,
-             nodes and tests from its counters, its least time
+             frame's rays beside the ms of one walk a pass, registers,
+             shared and local (stack) bytes and blocks an SM, walks,
+             replayed passes, nodes and tests from its counters, its
+             least time
              (benchmark/rt_roofline.py, from the frame's hits); and the
              plain version (trace_gaussian_rays_bvh_plain, brute force)
              on every 1024th ray, timed: hits and passes equal, colour
@@ -3356,10 +3358,10 @@ def splat_bvh_phase(torch, rows) -> dict:
         frame_ms = start.elapsed_time(end)
         (tree, o, d, _, colors), _ = rec.calls[0]
         R = o.shape[0]
-        counts = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+        counts = torch.zeros(5, dtype=torch.int64, device=DEVICE)
         trans, color, hits, passes = splat_bvh.trace_gaussian_rays_bvh(
             tree, o, d, cfg, colors, counts=counts)
-        nodes, tests, walks, blended = counts.tolist()
+        nodes, tests, walks, blended, replays = counts.tolist()
         if not (torch.equal(hits.reshape(H, W), frame.hits)
                 and torch.equal(color.reshape(H, W, 3), frame.color)):
             raise SystemExit(f"phase splat-bvh: view {vi}: a second launch "
@@ -3398,21 +3400,29 @@ def splat_bvh_phase(torch, rows) -> dict:
             frame_ms=frame_ms, plain_ms=plain_s * 1e3,
             plain_rays=idx.numel(), bound_ms=bound_ms,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, rays=R, hits_per_ray=total_hits / R,
-            passes_per_ray=walks / R, nodes_per_ray=nodes / R,
-            tests_per_hit=tests / max(blended, 1), build=info,
-            at=f"m360-rt's cloud, {W}x{H}, orbit view {vi} of {n}")
+            library_ms=None,
+            rays=R, hits_per_ray=total_hits / R,
+            passes_per_ray=int(passes.sum()) / R, walks_per_ray=walks / R,
+            replays_per_ray=replays / R, nodes_per_ray=nodes / R,
+            tests_per_ray=tests / R, tests_per_hit=tests / max(blended, 1),
+            build=info, at=f"m360-rt's cloud, {W}x{H}, orbit view {vi} of "
+            f"{n}")
         rows.append(row)
         out[str(vi)] = {k: v for k, v in row.items() if k != "build"}
         log(f"phase splat-bvh: {name}: {R} rays, {row['hits_per_ray']:.1f} "
-            f"hits, {row['passes_per_ray']:.2f} passes walked and "
-            f"{row['nodes_per_ray']:.0f} nodes a ray, "
-            f"{row['tests_per_hit']:.1f} tests a hit; frame {frame_ms:.1f} "
-            f"ms, {launches} launch; kernel {ms:.1f} ms, bound "
-            f"{bound_ms:.3f} ms ({row['bound_by']}, {bound_ms / ms:.3%} of "
-            f"it); plain (brute force) on {idx.numel()} rays: hits and "
-            f"passes equal, max |colour, trans| {err:.2e}, "
-            f"{plain_s:.1f} s on those rays")
+            f"hits, {row['passes_per_ray']:.2f} passes, "
+            f"{row['walks_per_ray']:.2f} walks and "
+            f"{row['replays_per_ray']:.2f} replays, "
+            f"{row['nodes_per_ray']:.0f} nodes and "
+            f"{row['tests_per_ray']:.0f} tests a ray "
+            f"({row['tests_per_hit']:.1f} a hit); frame {frame_ms:.1f} ms, "
+            f"{launches} launch; kernel {ms:.1f} ms at {info['registers']} "
+            f"registers, {info['static_smem_bytes']} B shared, "
+            f"{info['local_bytes']} B local, {info['blocks_per_sm']} blocks "
+            f"an SM; bound {bound_ms:.3f} ms ({row['bound_by']}, "
+            f"{bound_ms / ms:.3%} of it); plain (brute force) on "
+            f"{idx.numel()} rays: hits and passes equal, max |colour, "
+            f"trans| {err:.2e}, {plain_s:.1f} s on those rays")
     return dict(splats=cloud.n, tree_splats=tree_splats,
                 tree_bytes=tree_bytes, cloud_s=cloud_s, tree_s=tree_s,
                 build=info, views=out)

@@ -17,7 +17,8 @@
 // scalar; t_max per ray where the pointer is given, else the scalar. Out:
 // trans [R], color [R, 3], hits [R] and passes [R] (int32: passes that
 // found something). counts, where given, receives (node records fetched,
-// response evaluations, passes walked, hits blended), added to what it
+// response evaluations, walks from the root, hits blended, passes
+// replayed from a walk's buffer after the walk's own), added to what it
 // holds.
 //
 // Semantics (the plain version's, trace_gaussian_rays'): per pass the
@@ -33,19 +34,38 @@
 // `finish_pass` but sums a pass's colours in slot order. The walk is walk_splat_bvh_plain's, step for step, which the
 // counters follow.
 //
-// Design. One ray a thread, its kK-entry buffer sorted in registers (an
-// unrolled insertion, so no local memory), passes in-thread. Warps persist
-// and take 32 rays at a time from a global counter. A pass is one walk of
-// bvh_walk.cuh from the root, front to back (a leaf: 11 float4 loads for
-// 4 slots), entering a box only while its slab window meets
-// [max(front, t_min), lim], lim = t_max while the buffer has room, else
-// its kK-th t* (compared with <=: ties are visited); at the pass's end
-// the ray composites its buffer and moves its front. Each pass walks from
-// the root again, as the reference's rgen launches a traceRayEXT a pass.
+// Design. One ray a thread, passes in-thread. Warps persist and take 32
+// rays at a time from a global counter. One walk of bvh_walk.cuh from the
+// root, front to back (a leaf: 11 float4 loads for 4 slots), fills a
+// buffer of the kW nearest hits past lo = max(front, t_min), entering a
+// box only while its slab window meets [lo, lim], lim = t_max while the
+// buffer has room, else its kW-th t* (compared with <=: ties are
+// visited). The passes are then replayed from the buffer, each exactly
+// the pass a walk of its own would make: the next kK entries past the
+// front, composited in order; the front moves to the last of them and
+// the entries tied with it are skipped (a walk from it would reject them,
+// t > lo). Replay stops when fewer than kK entries are left: of a full
+// buffer they are dropped and the ray walks again from its front (a hit
+// past the kW-th may belong to the pass); of a buffer that held every
+// hit in the window they are the ray's last pass, so no empty walk ends
+// the ray. The reference's rgen launches a traceRayEXT a pass; the
+// outputs are the same pass for pass.
+//
+// The buffer lives in shared memory, a slice a thread: entry j of thread
+// x at [j][x], so each lane of a warp reads its own bank whichever
+// entries it touches; 12 B an entry, 24 KB a block of 64, 9 blocks an SM
+// at 96 registers. The last entry's (t*, index) stays in registers: the
+// window's end, and the test a hit must pass to enter (most fail it once
+// the buffer is full). A hit enters by insertion from the back; the walk
+// meets hits roughly front to back, so few move. Measured on m360-rt's
+// frames (PERF.md §6): kW = 32 in blocks of 64 is the fastest of kW =
+// 16, 24, 28, 32, 40, 64 in blocks of 32 to 128 and of register buffers
+// of 16 and 32 (a register buffer spills or halves residency; a kW that
+// is no multiple of kK drops the entries past its last whole pass).
 //
 // Bound. Latency of dependent node and leaf fetches (the tree is 64 B a
 // node and the leaves 192 B, about 190 MB at 2.96M splats: past the 50
-// MB L2) and the response's arithmetic on every slot of each leaf a pass
+// MB L2) and the response's arithmetic on every slot of each leaf a walk
 // enters. benchmark/rt_roofline.py counts the least time (each blended
 // hit evaluated and blended once, the splats and rays read once).
 
@@ -59,42 +79,54 @@ namespace {
 
 using namespace gsrt::bvh;
 
-constexpr int kThreads = 128;
-constexpr int kK = 8;                       // ops/splat_bvh.py K
+constexpr int kThreads = 64;
+constexpr int kK = 8;                       // a pass: ops/splat_bvh.py K
+constexpr int kW = 32;                      // a walk's buffer: KW
 constexpr int kRows = 12;                   // float4 rows a leaf record
 constexpr int kNoId = 2147483647;           // an empty buffer entry
 
-// The ray's buffer: kK entries ascending by (t*, index); empty entries
-// (inf, kNoId) at the end.
+// The block's walk buffers: thread x's entry j at [j][x].
+__shared__ float buf_t[kW][kThreads], buf_a[kW][kThreads];
+__shared__ int buf_id[kW][kThreads];
+
+// A ray's walk buffer: m entries ascending by (t*, index) in column x of
+// buf_*; the last entry's (t*, index) in registers, (inf, kNoId) while
+// the buffer has room.
 struct Buffer {
-  float t[kK], a[kK];
-  int id[kK];
+  int x, m;
+  float last_t;
+  int last_id;
+  __device__ float& t(int j) { return buf_t[j][x]; }
+  __device__ float& a(int j) { return buf_a[j][x]; }
+  __device__ int& id(int j) { return buf_id[j][x]; }
 };
 
 __device__ __forceinline__ void clear(Buffer& b) {
-#pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    b.t[j] = INFINITY;
-    b.a[j] = 0.0f;
-    b.id[j] = kNoId;
-  }
+  b.m = 0;
+  b.last_t = INFINITY;
+  b.last_id = kNoId;
 }
 
-// The hit put in its place; the last entry falls off.
+// The hit put in its place, if it comes before the last entry; of a full
+// buffer the last entry falls off.
 __device__ __forceinline__ void insert(Buffer& b, float t, float a, int id) {
-#pragma unroll
-  for (int j = 0; j < kK; ++j) {
-    const bool before = t < b.t[j] || (t == b.t[j] && id < b.id[j]);
-    const float bt = b.t[j], ba = b.a[j];
-    const int bi = b.id[j];
-    if (before) {
-      b.t[j] = t;
-      b.a[j] = a;
-      b.id[j] = id;
-      t = bt;
-      a = ba;
-      id = bi;
-    }
+  if (!(t < b.last_t || (t == b.last_t && id < b.last_id))) return;
+  int j = b.m < kW ? b.m : kW - 1;
+  for (; j > 0; --j) {
+    const float pt = b.t(j - 1);
+    const int pi = b.id(j - 1);
+    if (!(t < pt || (t == pt && id < pi))) break;
+    b.t(j) = pt;
+    b.a(j) = b.a(j - 1);
+    b.id(j) = pi;
+  }
+  b.t(j) = t;
+  b.a(j) = a;
+  b.id(j) = id;
+  if (b.m < kW) ++b.m;
+  if (b.m == kW) {
+    b.last_t = b.t(kW - 1);
+    b.last_id = b.id(kW - 1);
   }
 }
 
@@ -165,8 +197,9 @@ splat_bvh_kernel(const float4* __restrict__ nodes,
   float rb[6];
 #pragma unroll
   for (int a = 0; a < 6; ++a) rb[a] = __ldg(root_box + a);
-  unsigned n_nodes = 0, n_tests = 0, n_walks = 0, n_hits = 0;
+  unsigned n_nodes = 0, n_tests = 0, n_walks = 0, n_hits = 0, n_replays = 0;
   int2 stack[kStack];   // (node or leaf id, t_near bits)
+  Buffer b{(int)threadIdx.x, 0, INFINITY, kNoId};
 
   for (;;) {
     int base = 0;
@@ -181,43 +214,53 @@ splat_bvh_kernel(const float4* __restrict__ nodes,
     const float3 iv = inv_dir(r);
     float front = 0.0f, trans = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
     int hits = 0, passes = 0;
-    Buffer b;
-    for (;;) {   // a pass
+    bool done = false;
+    while (!done) {   // a walk
       const float lo = jmax(front, p.tmin);
       clear(b);
       ++n_walks;
       walk(nodes, rb, r, iv, lo, stack, n_nodes,
-           [&] { return jmin(tmax, b.t[kK - 1]); },
+           [&] { return jmin(tmax, b.last_t); },
            [&](int l) {
              leaf_test(slots, l, r, lo, tmax, p, b);
              n_tests += 4;
            });
-      // the pass's end: finish_pass's composite, the front advanced
-      int n = 0;
-      float keep = 1.0f, sr = 0.0f, sg = 0.0f, sbl = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kK; ++j) {
-        if (b.t[j] != INFINITY) {
-          const float a = b.a[j];
+      // its passes: finish_pass's composite of the next kK entries, the
+      // front advanced, the entries tied with it skipped
+      int j = 0;
+      for (bool own = true;; own = false) {
+        const int left = b.m - j;
+        if (left < kK && b.m == kW) break;       // walk again
+        if (left == 0) {
+          done = true;
+          break;
+        }
+        const int n = left < kK ? left : kK;
+        float keep = 1.0f, sr = 0.0f, sg = 0.0f, sbl = 0.0f;
+        for (const int end = j + n; j < end; ++j) {
+          const float a = b.a(j);
           const float w = mul(mul(a, keep), trans);
-          const float* col = colors + 3 * (size_t)b.id[j];
+          const float* col = colors + 3 * (size_t)b.id(j);
           sr = add(sr, mul(w, __ldg(col)));
           sg = add(sg, mul(w, __ldg(col + 1)));
           sbl = add(sbl, mul(w, __ldg(col + 2)));
           keep = mul(keep, sub(1.0f, a));
-          front = b.t[j];
-          ++n;
+          front = b.t(j);
         }
+        cr = add(cr, sr);
+        cg = add(cg, sg);
+        cb = add(cb, sbl);
+        trans = mul(trans, keep);
+        hits += n;
+        n_hits += n;
+        ++passes;
+        if (!own) ++n_replays;
+        if (hits >= max_hits) {
+          done = true;
+          break;
+        }
+        while (j < b.m && b.t(j) == front) ++j;
       }
-      if (n == 0) break;
-      cr = add(cr, sr);
-      cg = add(cg, sg);
-      cb = add(cb, sbl);
-      trans = mul(trans, keep);
-      hits += n;
-      n_hits += n;
-      ++passes;
-      if (hits >= max_hits) break;
     }
     trans_out[i] = trans;
     color_out[3 * i] = cr;
@@ -232,11 +275,13 @@ splat_bvh_kernel(const float4* __restrict__ nodes,
     n_tests = __reduce_add_sync(kFull, n_tests);
     n_walks = __reduce_add_sync(kFull, n_walks);
     n_hits = __reduce_add_sync(kFull, n_hits);
+    n_replays = __reduce_add_sync(kFull, n_replays);
     if (lane == 0) {
       atomicAdd(counts, (unsigned long long)n_nodes);
       atomicAdd(counts + 1, (unsigned long long)n_tests);
       atomicAdd(counts + 2, (unsigned long long)n_walks);
       atomicAdd(counts + 3, (unsigned long long)n_hits);
+      atomicAdd(counts + 4, (unsigned long long)n_replays);
     }
   }
 }

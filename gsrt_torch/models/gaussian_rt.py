@@ -303,7 +303,9 @@ def render_traced(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
     CUDA tensors, the plain version on CPU ones). `passes` counts the
     passes that found something, `hits` the splats blended. While the
     tracer records, `rt.trace` carries the kernel's counters `rt_rays`,
-    `rt_nodes`, `rt_tests`, `rt_passes` (passes walked) and `rt_hits`."""
+    `rt_nodes`, `rt_tests`, `rt_passes` (walks from the tree's root),
+    `rt_hits` and `rt_replays` (passes blended from a walk's buffer
+    without a walk of their own)."""
     H, W = camera.height, camera.width
     with TRACER.span("rt.rays"):
         origins, dirs = camera_rays(camera)
@@ -311,14 +313,14 @@ def render_traced(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
         colors = eval_sh(cloud.sh, unit_dirs(cloud.means, origins[0]),
                          min(cfg.sh_degree, cloud.sh_degree))
     with TRACER.span("rt.trace"):
-        counts = (torch.zeros(4, dtype=torch.int64, device=origins.device)
+        counts = (torch.zeros(5, dtype=torch.int64, device=origins.device)
                   if origins.is_cuda and TRACER.recording() else None)
         trans, color, hits, passes = trace_gaussian_rays_bvh(
             tree, origins, dirs, cfg, colors, counts=counts)
         if counts is not None:
             TRACER.count(rt_rays=H * W, rt_nodes=counts[0],
                          rt_tests=counts[1], rt_passes=counts[2],
-                         rt_hits=counts[3])
+                         rt_hits=counts[3], rt_replays=counts[4])
     if cfg.white_background:
         color = color + trans[:, None]
     return RenderOutput(trans=trans.reshape(H, W),

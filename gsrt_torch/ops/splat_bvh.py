@@ -30,9 +30,16 @@ k-buffer of `trace_gaussian_rays`:
    splat index first, and composites them front to back; the front moves
    to the last of them, so hits tied with it past the buffer are dropped;
    a ray is done on a pass that finds nothing or once hits ≥
-   max_passes·k. A pass's walk enters a box only while its slab window
-   meets [max(front, t_min), lim], lim = t_max while the buffer has room,
-   else its k-th t* (compared with ≤, so ties are visited).
+   max_passes·k. One walk serves several passes: it keeps the KW nearest
+   hits past max(front, t_min) by (t*, index), entering a box only while
+   its slab window meets [max(front, t_min), lim], lim = t_max while the
+   buffer has room, else its KW-th t* (compared with ≤, so ties are
+   visited). The passes are replayed from that buffer, each the next k
+   entries past the front, the entries tied with the new front skipped,
+   until fewer than k are left: of a full buffer those are dropped and
+   the ray walks again from its front (hits past the KW-th may belong to
+   the pass); of a buffer that held every hit in the window they are the
+   ray's last pass, and no empty walk follows.
 3. `walk_splat_bvh_plain` is the kernel's walk in tensor code, step by
    step: its outputs are the kernel's and its counts the kernel's
    counters.
@@ -56,7 +63,8 @@ from gsrt_torch.ops.splat_clusters import splat_world_radius
 LEAF = 4            # slots a leaf: one float4 of each record row
 ROWS = 12           # record rows a leaf (module docstring)
 STACK = 64          # the kernel's stack entries, the tree depth it takes
-K = 8               # the kernel's buffer: cfg.k it takes
+K = 8               # the kernel's pass: cfg.k it takes
+KW = 32             # the kernel's walk buffer: hits a walk keeps
 BOX_PAD = 1e-4      # leaf boxes widened by this share of the cloud extent
 _ID = 10            # the record row of the splat index
 _NO_ID = (1 << 63) - 1   # an empty buffer entry's index in the walk
@@ -127,10 +135,11 @@ def trace_gaussian_rays_bvh(tree: SplatBVH, origins, dirs,
     [R], color [R, 3], hits [R] int32, passes [R] int32: the passes that
     found something). CUDA tensors launch `csrc/splat_bvh.cu` once (none
     for a tree or a batch that is empty), which takes cfg.k = K; CPU
-    tensors run `trace_gaussian_rays_bvh_plain`. `counts`, an int64 [4]
+    tensors run `trace_gaussian_rays_bvh_plain`. `counts`, an int64 [5]
     CUDA tensor, receives the kernel's node records fetched, response
-    evaluations, passes walked (each a walk from the root, a ray's last,
-    empty one included) and hits blended, added to what it holds."""
+    evaluations, walks (each from the root; a ray's last, empty one
+    included), hits blended and passes replayed (blended from a walk's
+    buffer after the walk's own first pass), added to what it holds."""
     if not origins.is_cuda:
         return trace_gaussian_rays_bvh_plain(tree, origins, dirs, cfg,
                                              colors, t_max)
@@ -143,9 +152,9 @@ def trace_gaussian_rays_bvh(tree: SplatBVH, origins, dirs,
         raise ValueError("trace_gaussian_rays_bvh takes the rays, tree and "
                          "colours on one CUDA device")
     if counts is not None and not (counts.dtype == torch.int64 and
-                                   counts.shape == (4,) and
+                                   counts.shape == (5,) and
                                    counts.device == dev):
-        raise ValueError("counts is an int64 [4] tensor on the rays' "
+        raise ValueError("counts is an int64 [5] tensor on the rays' "
                          "device")
     R = origins.shape[0]
     o = origins.to(torch.float32).contiguous()
@@ -215,19 +224,24 @@ def _insert(kd, ka, ki, t, a, i, take):
 def walk_splat_bvh_plain(tree: SplatBVH, origins, dirs, cfg: RenderConfig,
                          colors, t_max=None):
     """The kernel's walk in tensor code, every ray a step at a time:
-    (trans [R], color [R, 3], hits [R], passes [R], counts [4] int64: node
-    records fetched, response evaluations, passes walked, hits blended).
-    A step is one of a ray's pass starts (the root box tested against
-    [max(front, t_min), t_max], the buffer emptied), node visits (nearer
-    child first, the other pushed with its t_near), leaf tests (its LEAF
-    slots in order, each accepted hit put in the buffer), pops (an entry
-    whose t_near is past the window is dropped) or pass ends (the buffer
-    composited by `ops.kbuffer.finish_pass`), as in the kernel's loop."""
+    (trans [R], color [R, 3], hits [R], passes [R], counts [5] int64: node
+    records fetched, response evaluations, walks, hits blended, passes
+    replayed). A step is one of a ray's walk starts (the root box tested
+    against [max(front, t_min), t_max], the buffer of KW entries
+    emptied), node visits (nearer child first, the other pushed with its
+    t_near), leaf tests (its LEAF slots in order, each accepted hit put in
+    the buffer), pops (an entry whose t_near is past the window is
+    dropped) or walk ends (passes of k entries replayed from the buffer,
+    each composited by `ops.kbuffer.finish_pass`, as the module docstring
+    says), as in the kernel's loop. Like the kernel, it takes k ≤ KW."""
     dev = origins.device
     R, k = origins.shape[0], cfg.k
+    if k > KW:
+        raise ValueError(f"the walk's buffer holds {KW} hits, cfg.k is {k}")
+    W = KW
     trans, color, hits, passes = _empty(R, dev)
     if tree.n_leaves == 0 or R == 0:
-        return trans, color, hits, passes, torch.zeros(4, dtype=torch.int64)
+        return trans, color, hits, passes, torch.zeros(5, dtype=torch.int64)
     o = origins.to(torch.float32)
     d = dirs.to(torch.float32)
     ox, oy, oz = o.T
@@ -246,17 +260,18 @@ def walk_splat_bvh_plain(tree: SplatBVH, origins, dirs, cfg: RenderConfig,
     inf = float("inf")
     front = torch.zeros(R, device=dev)
     lo = torch.zeros(R, device=dev)
-    kd = torch.full((R, k), inf, device=dev)
-    ka = torch.zeros((R, k), device=dev)
-    ki = torch.full((R, k), _NO_ID, dtype=torch.long, device=dev)
+    kd = torch.full((R, W), inf, device=dev)
+    ka = torch.zeros((R, W), device=dev)
+    ki = torch.full((R, W), _NO_ID, dtype=torch.long, device=dev)
+    q = torch.arange(W, device=dev)[None]
     cur = torch.full((R,), START, dtype=torch.long, device=dev)
     done = torch.zeros(R, dtype=torch.bool, device=dev)
     stack_c = torch.zeros((R, STACK), dtype=torch.long, device=dev)
     stack_t = torch.zeros((R, STACK), device=dev)
     sp = torch.zeros(R, dtype=torch.long, device=dev)
-    n_nodes = n_tests = n_walks = n_hits = 0
+    n_nodes = n_tests = n_walks = n_hits = n_replays = 0
     while not bool(done.all()):
-        # a pass starts: the buffer emptied, the root tested
+        # a walk starts: the buffer emptied, the root tested
         s = ((cur == START) & ~done).nonzero()[:, 0]
         if s.numel():
             n_walks += s.numel()
@@ -315,22 +330,42 @@ def walk_splat_bvh_plain(tree: SplatBVH, origins, dirs, cfg: RenderConfig,
                                      ids[:, j], valid[:, j])
             kd[f], ka[f], ki[f] = bd, ba, bi
             cur[f] = POP
-        # a pass ends: the buffer composited, the front advanced
+        # a walk ends: its passes replayed from the buffer
         e = ((cur == EMPTY) & ~done).nonzero()[:, 0]
         if e.numel():
-            count = (kd[e] < inf).sum(1, dtype=torch.int32)
-            found = count > 0
-            gi = torch.where(ki[e] == _NO_ID, 0, ki[e])
-            tr, cl, fr = finish_pass(trans[e], color[e], front[e], kd[e],
-                                     ka[e], colors[gi], count)
-            trans[e] = torch.where(found, tr, trans[e])
-            color[e] = torch.where(found[:, None], cl, color[e])
-            front[e] = torch.where(found, fr, front[e])
-            hits[e] += count
-            passes[e] += found.to(torch.int32)
-            n_hits += int(count.sum())
-            done[e] = ~found | (hits[e] >= max_hits)
+            ed, ea, ei = kd[e], ka[e], ki[e]
+            m = (ed < inf).sum(1)
+            full = m == W
+            at = torch.zeros_like(m)            # the next entry
+            own = torch.ones_like(full)         # the walk's own pass to come
+            go = torch.ones_like(full)
+            while bool(go.any()):
+                left = m - at
+                again = go & full & (left < k)  # walk again from the front
+                take = go & ~again & (left > 0)
+                count = torch.where(take, torch.clamp_max(left, k), 0)
+                pos = torch.clamp_max(at[:, None] + q[:, :k], W - 1)
+                td, ta, ti = (torch.gather(b, 1, pos) for b in (ed, ea, ei))
+                c32 = count.to(torch.int32)
+                tr, cl, fr = finish_pass(trans[e], color[e], front[e], td, ta,
+                                         colors[torch.where(ti == _NO_ID, 0,
+                                                            ti)], c32)
+                trans[e] = torch.where(take, tr, trans[e])
+                color[e] = torch.where(take[:, None], cl, color[e])
+                front[e] = torch.where(take, fr, front[e])
+                hits[e] += c32
+                passes[e] += take.to(torch.int32)
+                n_hits += int(count.sum())
+                n_replays += int((take & ~own).sum())
+                own &= ~take
+                # the entries tied with the new front skipped
+                at = at + count + torch.where(take, (
+                    (ed == front[e][:, None]) & (q >= (at + count)[:, None])
+                ).sum(1), 0)
+                capped = take & (hits[e] >= max_hits)
+                done[e] |= (go & ~again & ~take) | capped
+                go = take & ~capped
             cur[e] = START
-    counts = torch.tensor([n_nodes, n_tests, n_walks, n_hits],
+    counts = torch.tensor([n_nodes, n_tests, n_walks, n_hits, n_replays],
                           dtype=torch.int64)
     return trans, color, hits, passes, counts

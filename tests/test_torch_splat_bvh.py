@@ -3,12 +3,14 @@ the ray-traced frame (`GaussianRayTracer(cfg, "traced")`), on the CPU:
 the tree's structure; the plain version and the kernel's walk in tensor
 code against `trace_gaussian_rays` on rays from outside and inside the
 cloud, rays that miss, per-ray windows, exact ties of t*, rays capped at
-max_passes·k, and clouds of one splat and of none; the traced mode and
+max_passes·k, rays of over KW hits (a walk's buffer replayed pass after
+pass, then walked again), ties placed on a pass's end and on a buffer's
+last entry, and clouds of one splat and of none; the traced mode and
 the CLI; the benchmark's plain reference (`benchmark/reference/
 splat_rt.py`) against `trace_gaussian_rays`; the triangle tree's node
 records, which the splat tree's build shares, against the build they
 were factored out of. On the card (marker gpu): the kernel against the
-plain version and its counters against the walk's.
+plain version and its five counters against the walk's.
 
 Tolerances: the plain version, the walk and `trace_gaussian_rays` take
 the same hits (the same response, rounded alike, and the same
@@ -23,6 +25,7 @@ within 1e-5.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -40,7 +43,7 @@ from gsrt_torch.ops.splat_clusters import splat_world_radius
 from gsrt_torch.scene import random_cloud
 from gsrt_torch.utils.profiling import TRACER
 
-KINDS = ("outside", "inside", "miss", "t_max", "ties", "capped")
+KINDS = ("outside", "inside", "miss", "t_max", "ties", "capped", "deep")
 TOL = dict(rtol=0, atol=1e-5)
 CFG = RenderConfig(width=32, height=24)
 
@@ -92,7 +95,10 @@ def splat_rays(kind: str, c: GaussianCloud, R: int = 96, seed: int = 1):
 
 
 def case(kind: str):
-    """(cloud, cfg, origins, dirs, t_max, colors) of a test kind."""
+    """(cloud, cfg, origins, dirs, t_max, colors) of a test kind: a ray
+    kind of `splat_rays`, or `ties` (outside rays, a third of the splats
+    copied), `capped` (outside rays through a dense cloud, max_passes 2),
+    `deep` (outside rays through a dense cloud: over KW hits a ray)."""
     c = cloud()
     cfg = CFG
     if kind == "ties":
@@ -100,7 +106,9 @@ def case(kind: str):
     if kind == "capped":
         c = cloud(n=3000, scale_range=(0.1, 0.3))
         cfg = dataclasses.replace(CFG, max_passes=2)
-    o, d, t_max = splat_rays("outside" if kind in ("ties", "capped")
+    if kind == "deep":
+        c = cloud(n=1200, scale_range=(0.05, 0.2))
+    o, d, t_max = splat_rays("outside" if kind in ("ties", "capped", "deep")
                              else kind, c)
     colors = torch.abs(torch.sin(c.means * 5.0))
     return c, cfg, o, d, t_max, colors
@@ -109,6 +117,14 @@ def case(kind: str):
 def want_of(c, cfg, o, d, t_max, colors):
     return t_rt.trace_gaussian_rays(c, o, d, cfg, colors=colors,
                                     t_max=t_max)
+
+
+@functools.cache
+def walk_of(kind: str):
+    """`walk_splat_bvh_plain` on the kind's case (computed once)."""
+    c, cfg, o, d, t_max, colors = case(kind)
+    tree = splat_bvh.build_splat_bvh(c, cfg)
+    return splat_bvh.walk_splat_bvh_plain(tree, o, d, cfg, colors, t_max)
 
 
 def assert_same(got, want, k, tol=TOL):
@@ -180,29 +196,122 @@ def test_plain_matches_trace_gaussian_rays(kind):
 def test_walk_matches_trace_gaussian_rays(kind):
     """The kernel's walk in tensor code finds every hit brute force
     finds: the padded boxes and the buffer's window skip no box that
-    holds one of a pass's k nearest; ties go lowest index first and hits
+    holds one of the KW nearest; ties go lowest index first and hits
     tied with a pass's last are dropped, as in the plain code; rays are
-    capped at max_passes·k. Its counters: a pass walked for each pass
-    that found something and one for each ray's last (none at the cap),
+    capped at max_passes·k. Its counters: every pass blended either the
+    first of a walk or a replay, and a walk more only where a ray's last
+    walk found nothing (never at the cap, nor after a pass of under k);
     the hits blended, LEAF tests a leaf."""
     c, cfg, o, d, t_max, colors = case(kind)
-    tree = splat_bvh.build_splat_bvh(c, cfg)
     want = want_of(c, cfg, o, d, t_max, colors)
-    got = splat_bvh.walk_splat_bvh_plain(tree, o, d, cfg, colors, t_max)
+    got = walk_of(kind)
     assert_same(got, want, cfg.k)
-    counts = got[4]
+    nodes, tests, walks, blended, replays = got[4].tolist()
     cap = cfg.max_passes * cfg.k
-    assert int(counts[3]) == int(want[2].sum())
-    assert int(counts[2]) == int(got[3].sum() + (want[2] < cap).sum())
-    assert int(counts[1]) % splat_bvh.LEAF == 0
+    passes = int(got[3].sum())
+    can_end_empty = int(((want[2] < cap) & (want[2] % cfg.k == 0)).sum())
+    assert blended == int(want[2].sum())
+    assert passes <= walks + replays <= passes + can_end_empty
+    assert tests % splat_bvh.LEAF == 0
     if kind == "miss":
-        assert int(want[2].max()) == 0
+        assert int(want[2].max()) == 0 and walks == o.shape[0]
     else:
         assert float(want[2].float().mean()) > 4
+        assert walks < passes and replays > 0
     if kind == "capped":
         assert float((want[2] == cap).float().mean()) > 0.5
     if kind == "ties":
-        assert int(counts[1]) > int(counts[3])
+        assert tests > blended
+    if kind == "deep":                  # buffers replayed, then re-walked
+        assert float((want[2] > splat_bvh.KW).float().mean()) > 0.9
+        assert walks > o.shape[0]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_walk_matches_plain(kind):
+    """The replaying walk against the tree's plain version (brute force,
+    a pass at a time): hits and passes equal, trans and colour within
+    1e-5."""
+    c, cfg, o, d, t_max, colors = case(kind)
+    tree = splat_bvh.build_splat_bvh(c, cfg)
+    want = splat_bvh.trace_gaussian_rays_bvh_plain(tree, o, d, cfg, colors,
+                                                   t_max)
+    got = walk_of(kind)
+    assert torch.equal(got[3], want[3])
+    assert_same(got, want, cfg.k)
+
+
+@pytest.mark.parametrize("k", [splat_bvh.KW, splat_bvh.KW + 1])
+def test_walk_takes_k_up_to_its_buffer(k):
+    """As the kernel, the walk takes passes of up to KW hits: at k = KW
+    a full buffer is one pass, and the ray walks again after it; a
+    larger k raises."""
+    c, cfg, o, d, t_max, colors = case("deep")
+    cfg = dataclasses.replace(cfg, k=k)
+    tree = splat_bvh.build_splat_bvh(c, cfg)
+    if k > splat_bvh.KW:
+        with pytest.raises(ValueError, match="buffer"):
+            splat_bvh.walk_splat_bvh_plain(tree, o, d, cfg, colors, t_max)
+        return
+    got = splat_bvh.walk_splat_bvh_plain(tree, o, d, cfg, colors, t_max)
+    assert_same(got, want_of(c, cfg, o, d, t_max, colors), k)
+    walks, replays = got[4][[2, 4]].tolist()
+    assert replays == 0 and walks >= int(got[3].sum())
+
+
+LINE = 45     # splats on a tied line's ray
+
+
+def tied_line(ties, seed=0):
+    """(cloud, origins, dirs, colors): LINE small splats on the z axis at
+    depths 0.1, 0.2, ... 4.5 from one ray's origin, in a seeded index
+    order, and a copy of each splat whose depth rank is in `ties`, at
+    later indices (a copy meets the ray at its original's t*)."""
+    rank = torch.as_tensor(np.random.default_rng(seed).permutation(LINE))
+    ties = torch.as_tensor(ties, dtype=torch.long)
+    rank = torch.cat([rank, ties])
+    n = rank.numel()
+    means = torch.zeros((n, 3))
+    means[:, 2] = 0.1 * (rank + 1).float()
+    cov = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0]) * 0.02 ** 2
+    c = GaussianCloud(means, cov.expand(n, 6).clone(), torch.full((n,), 0.1),
+                      torch.zeros((n, 1, 3)))
+    colors = torch.rand((n, 3), generator=torch.Generator().manual_seed(seed))
+    return (c, torch.zeros((1, 3)), torch.tensor([[0.0, 0.0, 1.0]]),
+            colors)
+
+
+# (depth ranks copied, hits, walks, replays) with k = 8 and KW = 32
+TIED_LINES = [
+    # the 8th hit's copy is the buffer's 9th entry: skipped at the first
+    # pass's end; the fourth pass finds 7 entries left and walks again
+    ((7,), 45, 2, 4),
+    # the 32nd hit's copy falls off the first buffer, whose fourth pass
+    # ends on the 32nd: the second walk starts at it and drops the copy
+    ((31,), 45, 2, 4),
+    # as the first, and the 31st hit's copy falls off the first buffer
+    # behind its last entry: the second walk blends both in one pass
+    ((7, 30), 46, 2, 4),
+    # copies inside passes: both blended
+    ((3, 12), 47, 2, 4),
+]
+
+
+@pytest.mark.parametrize("ties,hits,walks,replays", TIED_LINES)
+def test_ties_on_pass_and_buffer_ends(ties, hits, walks, replays):
+    """Ties of t* placed on a pass's end inside a walk's buffer and on
+    the buffer's last entry: the walk blends what `trace_gaussian_rays`
+    blends (a copy tied with a pass's last is dropped, one inside a pass
+    is blended), with the walks and replays the replay rules give."""
+    c, o, d, colors = tied_line(ties)
+    cfg = CFG
+    assert splat_bvh.KW == 32 and cfg.k == 8
+    tree = splat_bvh.build_splat_bvh(c, cfg)
+    want = t_rt.trace_gaussian_rays(c, o, d, cfg, colors=colors)
+    got = splat_bvh.walk_splat_bvh_plain(tree, o, d, cfg, colors)
+    assert_same(got, want, cfg.k)
+    assert int(want[2][0]) == hits
+    assert got[4][[2, 4]].tolist() == [walks, replays]
 
 
 def test_ties_are_taken_lowest_index_first():
@@ -421,13 +530,13 @@ def _on(dev, *xs):
 @pytest.mark.parametrize("kind", KINDS)
 def test_kernel_matches_plain(cuda, kind):
     """The kernel against its plain version on the card: hits and passes
-    equal, trans and colour within 1e-4; its counters equal the walk's;
-    one launch a call, the same outputs without counters."""
+    equal, trans and colour within 1e-4; its five counters equal the
+    walk's; one launch a call, the same outputs without counters."""
     c, cfg, o, d, t_max, colors = case(kind)
     c = c.to(cuda)
     o, d, t_max, colors = _on(cuda, o, d, t_max, colors)
     tree = splat_bvh.build_splat_bvh(c, cfg)
-    counts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    counts = torch.zeros(5, dtype=torch.int64, device=cuda)
     before = _kernels.SPLAT_BVH.launches
     got = splat_bvh.trace_gaussian_rays_bvh(tree, o, d, cfg, colors, t_max,
                                             counts=counts)
@@ -448,7 +557,9 @@ def test_kernel_matches_plain(cuda, kind):
 @pytest.mark.gpu
 def test_kernel_at_a_larger_cloud(cuda):
     """20,000 splats, 4,096 rays from outside and inside: hits and passes
-    equal to the plain version's, trans and colour within 1e-4."""
+    equal to the plain version's, trans and colour within 1e-4; over 32
+    hits a ray, so walks' buffers are replayed and rays walk again; the
+    counters equal the walk's."""
     c = cloud(n=20_000, extent=2.0, scale_range=(0.01, 0.06))
     o1, d1, _ = splat_rays("outside", c, R=2048, seed=8)
     o2, d2, _ = splat_rays("inside", c, R=2048, seed=9)
@@ -457,9 +568,72 @@ def test_kernel_at_a_larger_cloud(cuda):
     colors = torch.abs(torch.sin(c.means * 5.0))
     cfg = dataclasses.replace(CFG, splat_chunk=4096)
     tree = splat_bvh.build_splat_bvh(c, cfg)
-    got = splat_bvh.trace_gaussian_rays_bvh(tree, o, d, cfg, colors)
+    counts = torch.zeros(5, dtype=torch.int64, device=cuda)
+    got = splat_bvh.trace_gaussian_rays_bvh(tree, o, d, cfg, colors,
+                                            counts=counts)
     want = splat_bvh.trace_gaussian_rays_bvh_plain(tree, o, d, cfg, colors)
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
     for a, b in zip(got[:2], want[:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     assert float(want[2].float().mean()) > 32
+    walk = splat_bvh.walk_splat_bvh_plain(tree, o, d, cfg, colors)
+    assert torch.equal(counts.cpu(), walk[4])
+    walks, replays = int(counts[2]), int(counts[4])
+    assert walks > o.shape[0] and 0 < replays and walks < int(got[3].sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties,hits,walks,replays", TIED_LINES)
+def test_kernel_on_tied_lines(cuda, ties, hits, walks, replays):
+    """The kernel on `tied_line`'s rays: the walk's hits, passes and
+    counters; trans and colour within 1e-4."""
+    c, o, d, colors = tied_line(ties)
+    c, o, d, colors = c.to(cuda), *_on(cuda, o, d, colors)
+    tree = splat_bvh.build_splat_bvh(c, CFG)
+    counts = torch.zeros(5, dtype=torch.int64, device=cuda)
+    got = splat_bvh.trace_gaussian_rays_bvh(tree, o, d, CFG, colors,
+                                            counts=counts)
+    walk = splat_bvh.walk_splat_bvh_plain(tree, o, d, CFG, colors)
+    assert torch.equal(got[2], walk[2]) and torch.equal(got[3], walk[3])
+    assert int(got[2][0]) == hits
+    assert torch.equal(counts.cpu(), walk[4])
+    assert counts[[2, 4]].tolist() == [walks, replays]
+    for a, b in zip(got[:2], walk[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n", [(torch.int64, 4), (torch.int32, 5)])
+def test_kernel_rejects_counts_not_int64_of_5(cuda, dtype, n):
+    c, cfg, o, d, t_max, colors = case("outside")
+    tree = splat_bvh.build_splat_bvh(c.to(cuda), cfg)
+    with pytest.raises(ValueError, match="int64 \\[5\\]"):
+        splat_bvh.trace_gaussian_rays_bvh(
+            tree, *_on(cuda, o, d), cfg, colors.to(cuda),
+            counts=torch.zeros(n, dtype=dtype, device=cuda))
+
+
+@pytest.mark.gpu
+def test_traced_frame_counts_walks_and_replays(cuda):
+    """A traced frame under a recording profiler: `rt.trace` carries the
+    kernel's counters, `rt_replays` among them; each pass that blended
+    is a walk's own or a replay."""
+    from torch.profiler import ProfilerActivity, profile
+    c, cam = random_cloud(3000, seed=6, extent=1.0, width=32, height=24,
+                          device="cuda")
+    rt = t_rt.GaussianRayTracer(RenderConfig(width=32, height=24), "traced",
+                                device="cuda")
+    rt(c, cam)
+    TRACER.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = rt(c, cam)
+    rep = TRACER.report()
+    TRACER.reset()
+    got = [s["counters"] for s in rep if s["name"] == "rt.trace"]
+    assert len(got) == 1
+    n = {k: int(v) for k, v in got[0].items()}
+    assert set(n) == {"rt_rays", "rt_nodes", "rt_tests", "rt_passes",
+                      "rt_hits", "rt_replays"}
+    passes = int(out.passes.sum())
+    assert n["rt_rays"] == 32 * 24 and n["rt_hits"] == int(out.hits.sum())
+    assert passes <= n["rt_passes"] + n["rt_replays"] <= passes + 32 * 24
