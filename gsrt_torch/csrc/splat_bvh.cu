@@ -19,7 +19,8 @@
 // found something). counts, where given, receives (node records fetched,
 // response evaluations, walks from the root, hits blended, passes
 // replayed from a walk's buffer after the walk's own), added to what it
-// holds.
+// holds. A ray whose window is empty (t_max <= max(0, t_min), or NaN)
+// makes no walk: the path tracer gives its retired rays such windows.
 //
 // Semantics (the plain version's, trace_gaussian_rays'): per pass the
 // kK nearest splats with g <= g_cutoff, alpha = min(opacity * exp(-g),
@@ -214,7 +215,8 @@ splat_bvh_kernel(const float4* __restrict__ nodes,
     const float3 iv = inv_dir(r);
     float front = 0.0f, trans = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
     int hits = 0, passes = 0;
-    bool done = false;
+    // an empty window (a retired or parked ray of a path): no walk
+    bool done = !(jmax(front, p.tmin) < tmax);
     while (!done) {   // a walk
       const float lo = jmax(front, p.tmin);
       clear(b);

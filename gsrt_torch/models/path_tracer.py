@@ -44,13 +44,15 @@ seed. The JAX package's `lax.map` over samples, `fori_loop` over bounces
 and `while_loop` over cutout skips are Python loops here.
 
 Splats share the scene with the primitives (`render_path_traced`'s
-`gaussians` or `gauss_clusters`): every bounce segment composites
-through them by the k-buffer passes of `models.gaussian_rt` or
-`ops.splat_clusters`.
+`gaussians`, with or without `gauss_tree`, or `gauss_clusters`): every
+bounce segment composites through them by the k-buffer passes of
+`models.gaussian_rt`, the per-ray splat tree (`ops.splat_bvh`, the CUDA
+kernel `csrc/splat_bvh.cu`) or `ops.splat_clusters`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -450,18 +452,22 @@ def _closest_hit_cutout(scene: PrimitiveScene, orig, dirn, t_min, t_max,
             buv if scene.tri_uv0 is not None else None, ovf)
 
 
-def _scene_sort_bounds(scene, gauss_clusters=None):
+def _scene_sort_bounds(scene, gauss_clusters=None, gauss_tree=None):
     """(lo, hi, park_o, park_d) for coherence sorting, or (None,) * 4
-    without a triangle table or splat clusters. lo, hi bound the table's
-    and the clusters' super-cluster boxes; retired rays are parked at
-    park_o, outside both, all along park_d, so blocks of them plan no
-    visits."""
+    without a triangle table, splat clusters or a splat tree. lo, hi
+    bound the table's and the clusters' super-cluster boxes and the
+    tree's root box; retired rays are parked at park_o, outside all of
+    them, all along park_d, so blocks of them plan no visits and their
+    walks miss every root."""
     boxes = []
     if scene.tri_table is not None:
         boxes.append((scene.tri_table.sup_min, scene.tri_table.sup_max))
     if gauss_clusters is not None:
         cl = gauss_clusters.clusters
         boxes.append((cl.sup_min, cl.sup_max))
+    if gauss_tree is not None and gauss_tree.n_leaves:
+        rb = gauss_tree.root_box
+        boxes.append((rb[None, :3], rb[None, 3:]))
     if not boxes:
         return None, None, None, None
     lo = torch.stack([b[0].amin(0) for b in boxes]).amin(0)
@@ -700,17 +706,64 @@ def _cast(binning, camera, cfg, dirn):
     return t_bin.reshape(-1), id_bin.reshape(-1)
 
 
+def _splat_segment(cfg: RenderConfig, o, d, t, hit, live, *,
+                   gaussians=None, colors=None, gauss_clusters=None,
+                   gauss_tree=None, rb: int = 256, s_max: int = 48):
+    """The splats along each ray's segment of a wave, from its origin to
+    its surface hit (cfg.t_max where it hit nothing): (trans [R], color
+    [R, 3], hits [R], overflow [] bool). With `gauss_tree` one
+    `ops.splat_bvh.trace_gaussian_rays_bvh` call (one `csrc/splat_bvh.cu`
+    launch on the card, the plain version on the CPU), the rays not
+    `live` given an empty window (t_max = −inf), so they blend nothing
+    and fetch no node record; it never overflows. Else the clustered
+    route (`gauss_clusters`) or the brute force (`gaussians`), every ray
+    windowed at its hit. Span `pt.splats`; counters `splat_rays`, the
+    live rays, and on the card the tree kernel's `splat_nodes`,
+    `splat_tests`, `splat_walks`, `splat_hits` and `splat_replays`."""
+    from gsrt_torch.models.gaussian_rt import trace_gaussian_rays
+    from gsrt_torch.ops.splat_bvh import trace_gaussian_rays_bvh
+    from gsrt_torch.ops.splat_clusters import trace_gaussian_rays_clustered
+    seg_tmax = torch.where(hit, t, torch.full_like(t, cfg.t_max))
+    no_ovf = torch.zeros((), dtype=torch.bool, device=o.device)
+    with TRACER.span("pt.splats"):
+        if TRACER.recording():
+            TRACER.count(splat_rays=live.sum())
+        if gauss_tree is not None:
+            seg_tmax = torch.where(live, seg_tmax,
+                                   torch.full_like(t, -math.inf))
+            counts = (torch.zeros(5, dtype=torch.int64, device=o.device)
+                      if o.is_cuda and TRACER.recording() else None)
+            trans, color, hits, _ = trace_gaussian_rays_bvh(
+                gauss_tree, o, d, cfg, colors, t_max=seg_tmax,
+                counts=counts)
+            if counts is not None:
+                TRACER.count(splat_nodes=counts[0], splat_tests=counts[1],
+                             splat_walks=counts[2], splat_hits=counts[3],
+                             splat_replays=counts[4])
+            return trans, color, hits, no_ovf
+        if gauss_clusters is not None:
+            return trace_gaussian_rays_clustered(
+                gauss_clusters, o, d, cfg, t_max=seg_tmax, rb=rb,
+                s_max=s_max)
+        trans, color, hits = trace_gaussian_rays(gaussians, o, d, cfg,
+                                                 colors=colors,
+                                                 t_max=seg_tmax)
+        return trans, color, hits, no_ovf
+
+
 def render_path_traced(scene: PrimitiveScene, camera: Camera,
                        cfg: RenderConfig, seed: int = 0,
                        aperture: float = 0.0, focus: float = 1.0,
                        gaussians=None, gauss_clusters=None,
                        gauss_s_max: int = 48, gauss_rb: int = 256,
+                       gauss_tree=None,
                        primary_impl: str = "auto",
                        tri_max_pairs: int = 1 << 20,
                        tri_span_exact: bool = False,
                        sort_bounces: bool = True,
                        return_flags: bool = False,
-                       primary_ids: list | None = None):
+                       primary_ids: list | None = None,
+                       primary_splat_hits: list | None = None):
     """Full path trace: [H, W, 3] linear colour, square-rooted under
     cfg.gamma_correction. return_flags adds {"tri_visits_overflow",
     "gauss_visits_overflow", "binned_pairs_overflow"}: a True flag means
@@ -727,13 +780,19 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     and no tri_clusters.
 
     Splats in the scene: `gaussians` (a GaussianCloud, traced brute force
-    by `trace_gaussian_rays`, colours from SH seen from the camera) or
-    `gauss_clusters` (prebuilt `ops.splat_clusters.SplatClusters`, traced
-    by `trace_gaussian_rays_clustered` in blocks of gauss_rb rays, at most
+    by `trace_gaussian_rays`, colours from SH seen from the camera),
+    `gaussians` with `gauss_tree` (a prebuilt `ops.splat_bvh.SplatBVH`
+    over them: each wave's segment is one per-ray tree walk,
+    `trace_gaussian_rays_bvh`, with the same colours; retired and parked
+    rays get empty windows) or `gauss_clusters` (prebuilt
+    `ops.splat_clusters.SplatClusters`, traced by
+    `trace_gaussian_rays_clustered` in blocks of gauss_rb rays, at most
     gauss_s_max super-clusters a block). Every bounce segment, up to its
-    surface hit, composites through them: their in-scatter is added and
-    their transmittance scales the path's throughput, so splats are seen
-    by primary, reflected and refracted rays alike.
+    surface hit, composites through them (`_splat_segment`): their
+    in-scatter is added and their transmittance scales the path's
+    throughput, so splats are seen by primary, reflected and refracted
+    rays alike. `primary_splat_hits`, where given, receives each sample's
+    [H, W] count of the splats bounce 0's segment blended.
 
     Textured materials scale their albedo by the texture at the hit:
     trilinear at the ray-cone LOD of this segment (one pixel, 1/fy, wide)
@@ -741,44 +800,59 @@ def render_path_traced(scene: PrimitiveScene, camera: Camera,
     (`alpha_textures`) are skipped by `_closest_hit_cutout` on every
     traced bounce; they rule out the binned primary cast.
 
-    Spans (`TRACER`): `pt.frame`, a root, round the call; `pt.primary`
-    round bounce 0's hit search (the binning and the binned cast, or the
-    traversal); `pt.traverse` round each later bounce's; `pt.sort` round
-    a wave's coherence permutation, parking and un-permute; `pt.shade`
-    round the rest of a bounce (the splat segment, textures, the draws and
-    the shading). Counters: `live_rays` and `rays`, the rays active on
-    entering each wave and all of them; `shade_waves` and `shade_fused`,
-    one a wave and one a wave the shading kernel shaded; `tri_visits` and
-    `tri_blocks`, each block traversal's planned (block, super-cluster)
-    visits and its blocks; `tri_nodes`, `tri_tests` and `tri_rays`, each
-    per-ray walk's node records fetched, triangle tests and rays that
-    entered the tree (on the card)."""
+    Spans (`TRACER`): `pt.frame`, a root, round the call; `pt.colors`
+    round the splats' SH colours (once a call, with `gaussians`);
+    `pt.primary` round bounce 0's hit search (the binning and the binned
+    cast, or the traversal); `pt.traverse` round each later bounce's;
+    `pt.splats` round each wave's splat segment; `pt.sort` round a wave's
+    coherence permutation, parking and un-permute; `pt.shade` round the
+    rest of a bounce (the splat segment's composite, textures, the draws
+    and the shading). Counters: `live_rays` and `rays`, the rays active
+    on entering each wave and all of them; `shade_waves` and
+    `shade_fused`, one a wave and one a wave the shading kernel shaded;
+    `tri_visits` and `tri_blocks`, each block traversal's planned (block,
+    super-cluster) visits and its blocks; `tri_nodes`, `tri_tests` and
+    `tri_rays`, each per-ray walk's node records fetched, triangle tests
+    and rays that entered the tree (on the card); on `pt.splats`,
+    `splat_rays`, the live rays entering the segment, and with a tree on
+    the card the kernel's `splat_nodes`, `splat_tests`, `splat_walks`,
+    `splat_hits` and `splat_replays` (node records fetched, response
+    evaluations, walks from the root, hits blended, passes replayed)."""
     with TRACER.span("pt.frame", root=True):
         return _path_trace(scene, camera, cfg, seed, aperture, focus,
                            gaussians, gauss_clusters, gauss_s_max, gauss_rb,
-                           primary_impl, tri_max_pairs, tri_span_exact,
-                           sort_bounces, return_flags, primary_ids)
+                           gauss_tree, primary_impl, tri_max_pairs,
+                           tri_span_exact, sort_bounces, return_flags,
+                           primary_ids, primary_splat_hits)
 
 
 def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
-                gauss_clusters, gauss_s_max, gauss_rb, primary_impl,
-                tri_max_pairs, tri_span_exact, sort_bounces, return_flags,
-                primary_ids):
-    from gsrt_torch.models.gaussian_rt import (unit_dirs,
-                                               trace_gaussian_rays)
+                gauss_clusters, gauss_s_max, gauss_rb, gauss_tree,
+                primary_impl, tri_max_pairs, tri_span_exact, sort_bounces,
+                return_flags, primary_ids, primary_splat_hits):
+    from gsrt_torch.models.gaussian_rt import unit_dirs
     from gsrt_torch.ops.sh import eval_sh
-    from gsrt_torch.ops.splat_clusters import trace_gaussian_rays_clustered
 
     H, W = camera.height, camera.width
     R = H * W
     dev = scene.device
+    if gauss_tree is not None and (gaussians is None
+                                   or gauss_clusters is not None):
+        raise ValueError("gauss_tree traces the splats of `gaussians` (their "
+                         "colours), without gauss_clusters")
     gen = torch.Generator(device=dev).manual_seed(seed)
     gauss_colors = None
     if gaussians is not None and gauss_clusters is None:
-        gauss_colors = eval_sh(gaussians.sh,
-                               unit_dirs(gaussians.means, camera.position),
-                               min(cfg.sh_degree, gaussians.sh_degree))
+        with TRACER.span("pt.colors"):
+            gauss_colors = eval_sh(gaussians.sh,
+                                   unit_dirs(gaussians.means,
+                                             camera.position),
+                                   min(cfg.sh_degree, gaussians.sh_degree))
     has_gauss = gaussians is not None or gauss_clusters is not None
+    segment = functools.partial(
+        _splat_segment, cfg, gaussians=gaussians, colors=gauss_colors,
+        gauss_clusters=gauss_clusters, gauss_tree=gauss_tree, rb=gauss_rb,
+        s_max=gauss_s_max)
     primary_impl = _resolve_primary(primary_impl, scene, aperture)
     if primary_impl == "binned" and aperture != 0.0:
         raise ValueError("the binned primary cast needs a shared ray origin "
@@ -793,24 +867,12 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
            and scene.tex_mips is not None and scene.mat_texel is not None
            else None)
     sort_lo, sort_hi, park_o, park_d = (
-        _scene_sort_bounds(scene, gauss_clusters) if sort_bounces
-        else (None,) * 4)
+        _scene_sort_bounds(scene, gauss_clusters, gauss_tree)
+        if sort_bounces else (None,) * 4)
     binning = None
     ovf_tri = torch.zeros((), dtype=torch.bool, device=dev)
     ovf_gauss = torch.zeros((), dtype=torch.bool, device=dev)
     acc = torch.zeros((R, 3), device=dev)
-
-    def gauss_segment(o, d, t, hit):
-        """(trans, color, overflow) of the splats along each segment."""
-        seg_tmax = torch.where(hit, t, torch.full_like(t, cfg.t_max))
-        if gauss_clusters is not None:
-            g_trans, g_color, _, g_ovf = trace_gaussian_rays_clustered(
-                gauss_clusters, o, d, cfg, t_max=seg_tmax, rb=gauss_rb,
-                s_max=gauss_s_max)
-            return g_trans, g_color, g_ovf
-        g_trans, g_color, _ = trace_gaussian_rays(
-            gaussians, o, d, cfg, colors=gauss_colors, t_max=seg_tmax)
-        return g_trans, g_color, torch.zeros_like(ovf_gauss)
 
     def hits(o, d, b, tri_override=None):
         """A wave's (t, n, mat, hit, uv, ovf) and, on bounce 0 where
@@ -843,8 +905,8 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
                                                tri_max_pairs, tri_span_exact)
                     (t, n, mat, hit, uv, ovf), tri = hits(
                         orig, dirn, b, _cast(binning, camera, cfg, dirn))
-                    if has_gauss:
-                        g = gauss_segment(orig, dirn, t, hit)
+                if has_gauss:
+                    g = segment(orig, dirn, t, hit, active)
             elif sort_lo is not None:
                 with TRACER.span("pt.sort"):
                     perm, inv = _coherence_perm(orig, dirn, active, sort_lo,
@@ -854,11 +916,11 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
                     d_s = torch.where(act_s, dirn[perm], park_d)
                 with TRACER.span(search):
                     (t, n, mat, hit, uv, ovf), tri = hits(o_s, d_s, b)
-                    if has_gauss:
-                        g = gauss_segment(o_s, d_s, t, hit)
+                if has_gauss:
+                    g = segment(o_s, d_s, t, hit, act_s[:, 0])
                 with TRACER.span("pt.sort"):
                     if g is not None:
-                        g = (g[0][inv], g[1][inv], g[2])
+                        g = (g[0][inv], g[1][inv], g[2][inv], g[3])
                     t, n, mat, hit = t[inv], n[inv], mat[inv], hit[inv]
                     if uv is not None:
                         uv = uv[inv]
@@ -867,16 +929,18 @@ def _path_trace(scene, camera, cfg, seed, aperture, focus, gaussians,
             else:
                 with TRACER.span(search):
                     (t, n, mat, hit, uv, ovf), tri = hits(orig, dirn, b)
-                    if has_gauss:
-                        g = gauss_segment(orig, dirn, t, hit)
+                if has_gauss:
+                    g = segment(orig, dirn, t, hit, active)
             if tri is not None:
                 primary_ids.append(tri.reshape(H, W))
+            if b == 0 and g is not None and primary_splat_hits is not None:
+                primary_splat_hits.append(g[2].reshape(H, W))
             ovf_tri = ovf_tri | ovf
             with TRACER.span("pt.shade"):
                 if g is not None:
                     # the segment through the splats: their in-scatter,
                     # then T_gauss times what lies beyond
-                    g_trans, g_color, g_ovf = g
+                    g_trans, g_color, _, g_ovf = g
                     ovf_gauss = ovf_gauss | g_ovf
                     act = active[:, None]
                     out_color = out_color + torch.where(
@@ -921,10 +985,12 @@ def render_path_traced_calibrated(scene: PrimitiveScene, camera: Camera,
                                   tri_max_pairs: int = 1 << 20,
                                   max_retries: int = 2, growth: float = 2.0,
                                   **kw):
-    """render_path_traced rendered again with a grown buffer while one
-    overflows, at most max_retries times: tri_max_pairs (the binned pair
-    buffer) times growth, and gauss_s_max (the clustered splats' visits)
-    to max(gauss_s_max·growth, gauss_s_max + 8). Returns (img, info) with
+    """render_path_traced (`kw` its other arguments: `gaussians`,
+    `gauss_tree`, `primary_ids`, ...) rendered again with a grown buffer
+    while one overflows, at most max_retries times: tri_max_pairs (the
+    binned pair buffer) times growth, and gauss_s_max (the clustered
+    splats' visits; the splat tree has none) to max(gauss_s_max·growth,
+    gauss_s_max + 8). Returns (img, info) with
     the final sizes, the retries and the last flags as Python values; it
     reads the flags from the device, in `pt.sync` spans under its own
     `pt.frame` root (each render's `pt.frame` nests in it)."""

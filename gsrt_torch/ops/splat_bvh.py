@@ -39,7 +39,9 @@ k-buffer of `trace_gaussian_rays`:
    until fewer than k are left: of a full buffer those are dropped and
    the ray walks again from its front (hits past the KW-th may belong to
    the pass); of a buffer that held every hit in the window they are the
-   ray's last pass, and no empty walk follows.
+   ray's last pass, and no empty walk follows. A ray whose window is
+   empty (t_max ≤ max(0, t_min), or NaN: the path tracer's retired rays)
+   makes no walk at all.
 3. `walk_splat_bvh_plain` is the kernel's walk in tensor code, step by
    step: its outputs are the kernel's and its counts the kernel's
    counters.
@@ -137,8 +139,8 @@ def trace_gaussian_rays_bvh(tree: SplatBVH, origins, dirs,
     for a tree or a batch that is empty), which takes cfg.k = K; CPU
     tensors run `trace_gaussian_rays_bvh_plain`. `counts`, an int64 [5]
     CUDA tensor, receives the kernel's node records fetched, response
-    evaluations, walks (each from the root; a ray's last, empty one
-    included), hits blended and passes replayed (blended from a walk's
+    evaluations, walks (each from the root; none for a ray whose window
+    is empty), hits blended and passes replayed (blended from a walk's
     buffer after the walk's own first pass), added to what it holds."""
     if not origins.is_cuda:
         return trace_gaussian_rays_bvh_plain(tree, origins, dirs, cfg,
@@ -265,7 +267,7 @@ def walk_splat_bvh_plain(tree: SplatBVH, origins, dirs, cfg: RenderConfig,
     ki = torch.full((R, W), _NO_ID, dtype=torch.long, device=dev)
     q = torch.arange(W, device=dev)[None]
     cur = torch.full((R,), START, dtype=torch.long, device=dev)
-    done = torch.zeros(R, dtype=torch.bool, device=dev)
+    done = ~(torch.maximum(front, tmin) < tmax)     # an empty window
     stack_c = torch.zeros((R, STACK), dtype=torch.long, device=dev)
     stack_t = torch.zeros((R, STACK), device=dev)
     sp = torch.zeros(R, dtype=torch.long, device=dev)
