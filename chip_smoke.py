@@ -368,6 +368,11 @@ BLEND_FLOPS_PER_PAIR_PIXEL = 20  # sub x2, response 5, alpha 2, blend 9,
 
 # --- the projection layer at m360-view's size ---
 PROJECT_SRC = "gsrt_torch/csrc/project.cu"
+TILE_BIN_SRC = "gsrt_torch/csrc/tile_bin.cu"
+TILE_BIN_REPS = 20     # binnings a profiled run of the tile-bin rows
+# the group stream's launches in a tiled frame on the card, one each
+TILE_BIN_KERNELS = ("bin_prep", "bin_gather", "bin_units",
+                    "expand_pairs_fused", "expand_pairs_binned")
 PROJECT_SPLATS = 2_960_000   # the 3DGS paper's Mip-NeRF 360 scene (Table 1)
 
 # --- the training workload and its kernels (the f32 tile stream) ---
@@ -1433,6 +1438,123 @@ def projection_phase(torch, rows) -> dict:
         f"{counts}, {frame_ms:.3f} ms")
     return dict(ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
                 frame_ms=frame_ms, launches=counts, ptxas=ptxas)
+
+
+def device_ops(torch, fn, reps: int) -> dict:
+    """The device's own events (kernels, copies, fills) of one call of fn,
+    averaged over `reps` calls under torch.profiler: {name: (count, ms)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / reps, e.self_device_time_total / 1e3 / reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+def tile_bin_phase(torch, rows) -> dict:
+    """The group stream's binning kernels (csrc/tile_bin.cu) at m360-view's
+    size, on the inputs of a recorded tiled frame: the kernel route against
+    the plain route bit for bit on every TileBinning field, each kernel's
+    launches in that frame (counted from 0; each of TILE_BIN_KERNELS
+    exactly once, else it exits), its device ms beside its byte bound, the
+    route's and the plain route's ms, and the device operations one
+    binning of each launches."""
+    from gsrt_torch import _kernels
+    from gsrt_torch.models import gaussian_rt as grt
+    from gsrt_torch.ops import tile_binning
+    t0 = time.perf_counter()
+    cfg, cloud, camera = projection_cell()
+    tracer = grt.GaussianRayTracer(cfg, "tiled", device=DEVICE)
+    tracer.calibrate(cloud, camera)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    with Recorder(tile_binning, "build_tile_binning") as rec:
+        out = tracer(cloud, camera)
+        torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    binning = {k: counts[k] for k in TILE_BIN_KERNELS}
+    if len(rec.calls) != 1 or bool(out.overflow) or \
+            any(v != 1 for v in binning.values()):
+        raise SystemExit(f"phase tile-bin: the frame binned {len(rec.calls)} "
+                         f"times, launched {binning}, overflow "
+                         f"{bool(out.overflow)}")
+    log(f"phase tile-bin: the recorded frame launched {binning}")
+    args, kw = rec.calls[0]
+    del out
+    plain_kw = dict(
+        width=kw["width"], height=kw["height"], tile_w=kw["tile_w"],
+        tile_h=kw["tile_h"], max_pairs=kw["max_pairs"],
+        max_units=kw["max_rows"], cutoff_map=kw.get("cutoff_map"),
+        carry_depth=kw.get("carry_depth", False))
+    route = lambda: tile_binning.build_tile_binning(*args, **kw)  # noqa
+    plain = lambda: tile_binning.group_stream_plain(*args, **plain_kw)  # noqa
+    got, want = route(), plain()
+    torch.cuda.synchronize()
+    differ = {}
+    for f in tile_binning.TileBinning._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None):
+            differ[f] = "None"
+        elif a is not None:
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                differ[f] = f"{tuple(a.shape)} vs {tuple(b.shape)}"
+            elif int((a != b).sum()):
+                differ[f] = int((a != b).sum())
+    if differ:
+        raise SystemExit(f"phase tile-bin: the kernel route differs from the "
+                         f"plain route: {differ}")
+    n, mu = args[0].shape[0], plain_kw["max_units"]
+    total = int(want.total_pairs)
+    del got, want
+    route_ops = device_ops(torch, route, TILE_BIN_REPS)
+    plain_ops = device_ops(torch, plain, 3)
+    route_ms = time_cuda(route, TILE_BIN_REPS)
+    plain_ms = time_cuda(plain, 3)
+    ntx, nty = tile_binning.tile_extent(kw["width"], kw["height"],
+                                        kw["tile_w"], kw["tile_h"])
+    # each input byte read once, each output byte written once
+    kernel_bytes = {
+        "bin_prep": n * (12 * 4 + 1 + 4 + 32)
+        + 4 * ((ntx + 1) * (nty + 1) + 2 * ntx * nty),
+        "bin_gather": n * (8 + 32 + 32),
+        "bin_units": mu * (8 + 7) * 4}
+    for name, nbytes in kernel_bytes.items():
+        mine = [v for k, v in route_ops.items() if f"{name}_kernel" in k]
+        ms = sum(v[1] for v in mine)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=TILE_BIN_SRC, replaces=None,
+            launches=binning[name], max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=None, bytes=nbytes, splats=n, units=mu))
+        log(f"phase tile-bin: {name} {ms:.4f} ms a binning, bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_ms / ms:.1%} "
+            f"of it)" if ms else f"phase tile-bin: {name} not in the trace")
+    count = lambda o: sum(v[0] for v in o.values())  # noqa: E731
+    busy = lambda o: sum(v[1] for v in o.values())  # noqa: E731
+    top = sorted(route_ops.items(), key=lambda kv: -kv[1][1])
+    log(f"phase tile-bin: {n} splats, {total} pairs, {mu} unit slots, made "
+        f"and recorded in {time.perf_counter() - t0:.1f} s; every field "
+        f"bitwise equal to the plain route; the route {route_ms:.4f} ms a "
+        f"binning ({count(route_ops):.0f} device ops, {busy(route_ops):.4f} "
+        f"ms of them), the plain route {plain_ms:.4f} ms "
+        f"({count(plain_ops):.0f} device ops, {busy(plain_ops):.4f} ms); "
+        f"the route's ops: " + ", ".join(
+            f"{k[:48]} x{v[0]:.0f} {v[1]:.4f}" for k, v in top))
+    return dict(route_ms=route_ms, plain_ms=plain_ms, launches=binning,
+                route_ops=count(route_ops), plain_ops=count(plain_ops),
+                route_busy_ms=busy(route_ops), plain_busy_ms=busy(plain_ops),
+                ops={k[:64]: v for k, v in route_ops.items()},
+                splats=n, pairs=total, units=mu)
 
 
 def tiles128_render(torch, cloud, camera, rows):
@@ -5439,6 +5561,7 @@ def main() -> int:
 
     del main_tracer, tracer, out, state
     projection = projection_phase(torch, rows)
+    tile_bin = tile_bin_phase(torch, rows)
     tiles128_render(torch, cloud, camera, rows)
     # the serving workload's cloud is this one (extent 4.0), seen from an
     # orbit
@@ -5475,6 +5598,7 @@ def main() -> int:
                       "splats_with_pairs": splats_live, "units": units,
                       "pairs": total, "max_pairs": mpairs,
                       "max_rows": mrows, "projection": projection,
+                      "tile_bin": tile_bin,
                       "serving": serving,
                       "train": train, "fit": fit, "kbuffer": kbuffer,
                       "tri": tri, "splat_bvh": splat_bvh, "scenes": scenes,

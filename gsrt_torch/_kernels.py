@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = ("pair_expand", "splat_packed", "splat_subtile",
            "splat_grad", "tri_cast", "tri_kernel", "tri_bvh", "project",
-           "pt_shade", "splat_bvh")
+           "pt_shade", "splat_bvh", "tile_bin")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -191,10 +191,20 @@ SPLAT_BVH = CudaKernel(
     "trace_gaussian_rays_bvh", "splat_bvh", "gsrt_splat_bvh",
     [P, P, P, P, P, P, F, P, F, I, I, F, F, P, P, P, P, P, P, P])
 
+# the group stream's binning (ops/tile_bin.py): three entry points
+BIN_PREP = CudaKernel(
+    "bin_prep", "tile_bin", "gsrt_bin_prep",
+    [P] * 14 + [I] * 10 + [P, LL] + [P] * 9)
+BIN_GATHER = CudaKernel(
+    "bin_gather", "tile_bin", "gsrt_bin_gather",
+    [P, I, P, I, I, I] + [P] * 7)
+BIN_UNITS = CudaKernel(
+    "bin_units", "tile_bin", "gsrt_bin_units", [P] + [I] * 5 + [P] * 6)
+
 KERNELS = (EXPAND_PLAIN, EXPAND_EMIT, EXPAND_PAIRS, PARTITION, BLEND_GROUP,
            BLEND_TILE, BLEND_SUBTILE, BLEND_TILES, BLEND_BACKWARD, TRI_CAST,
            TRI_CLOSEST_HIT, TRI_ANY_HIT, TRI_BVH, PROJECT, PT_SHADE,
-           SPLAT_BVH)
+           SPLAT_BVH, BIN_PREP, BIN_GATHER, BIN_UNITS)
 
 
 def launch_counts() -> dict[str, int]:

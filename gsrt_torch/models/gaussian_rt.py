@@ -422,7 +422,11 @@ def render_tiled(cloud: GaussianCloud, camera: Camera, cfg: RenderConfig,
             expand_impl=cfg.expand_impl, cutoff_map=cutoff_map,
             carry_depth=serving, cull_super=cfg.serving_super,
             g_cutoff=cfg.g_cutoff, alpha_threshold=cfg.alpha_threshold)
-        TRACER.count(pairs=binning.total_pairs, max_pairs=max_pairs)
+        # group_bin_fused: 1 where the group stream took the kernels,
+        # which build_tile_binning gives every CUDA group stream
+        TRACER.count(pairs=binning.total_pairs, max_pairs=max_pairs,
+                     group_bin_fused=int(plan.stream == "group"
+                                         and cols.depth.is_cuda))
     size = dict(width=camera.width, height=camera.height)
     exact_hits = None
     consumed = None

@@ -42,7 +42,10 @@ total_pairs / overflow / pair_depth.
 
 Sorts are `torch.sort` plus index gathers and the tile histogram is a
 scatter-add of rectangle corner marks followed by two prefix sums: none of
-this is a TPU kernel. Payloads keep their live rows and columns only: the
+this is a TPU kernel. On CUDA tensors the group stream is built instead by
+`ops.tile_bin` (three launches of `csrc/tile_bin.cu` around the depth sort
+and the two expands), bit for bit the stream of the plain version here,
+which CPU tensors take. Payloads keep their live rows and columns only: the
 JAX package pads the compact payload to eight rows and both payloads by a
 chunk + 128 column tail for the TPU's DMA windows.
 """
@@ -335,6 +338,16 @@ def build_tile_binning(
     if ntx >= (1 << 12) or nty >= (1 << 12) or T >= (1 << 20):
         raise ValueError("tile grid exceeds the packed-operand bit budget")
 
+    if group:
+        # CUDA tensors take the kernels, CPU tensors the plain version
+        bin_group = _bin_group_cuda if depth.is_cuda else group_stream_plain
+        return bin_group(
+            depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, rx, ry,
+            alive, width=width, height=height, tile_w=tile_w, tile_h=tile_h,
+            max_pairs=max_pairs,
+            max_units=max_rows if max_rows is not None else max_pairs,
+            cutoff_map=cutoff_map, cull_super=cull_super,
+            carry_depth=carry_depth)
     x0, x1, y0, y1, touched = compute_tile_spans(
         m2x, m2y, rx, ry, alive, width, height, tile_w, tile_h)
     opacity = torch.where(alive, opacity, torch.zeros_like(opacity))
@@ -362,13 +375,6 @@ def build_tile_binning(
     tile_start = torch.minimum(tile_start, torch.clamp_max(total, max_pairs))
     bk = dict(counts=counts, tile_start=tile_start, total=total,
               overflow=overflow)
-    if group:
-        return _build_group_stream(
-            depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
-            x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
-            tile_h=tile_h, max_pairs=max_pairs,
-            max_units=max_rows if max_rows is not None else max_pairs,
-            k_rows=k, carry_depth=carry_depth, **bk)
     if compact:
         return _build_compact_stream(
             depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
@@ -486,7 +492,60 @@ def _finish_compact(
         pair_depth=unpack_bf16_lo(feats[2]) if carry_depth else None)
 
 
-def _build_group_stream(
+def group_stream_plain(depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg,
+                       cb, rx, ry, alive, *, width, height, tile_w, tile_h,
+                       max_pairs, max_units, cutoff_map=None,
+                       cull_super=SUPER, carry_depth=False) -> TileBinning:
+    """`build_tile_binning`'s group stream as plain tensor ops: the spans,
+    the histogram and `_build_group_stream_plain`. CPU tensors take it; on
+    the card it is the reference `ops.tile_bin`'s kernels equal."""
+    ntx, nty = tile_extent(width, height, tile_w, tile_h)
+    T = ntx * nty
+    x0, x1, y0, y1, touched = compute_tile_spans(
+        m2x, m2y, rx, ry, alive, width, height, tile_w, tile_h)
+    opacity = torch.where(alive, opacity, torch.zeros_like(opacity))
+    if cutoff_map is not None:
+        keep = cutoff_cull(depth, x0, x1, y0, y1, cutoff_map, ntx, nty,
+                           super_size=cull_super)
+        touched = torch.where(keep, touched, torch.zeros_like(touched))
+    counts = tile_histogram(x0, x1, y0, y1, touched > 0, ntx, nty).reshape(T)
+    total = touched.sum(dtype=torch.int32)
+    tile_start = torch.cat([torch.zeros(1, dtype=torch.int32,
+                                        device=counts.device),
+                            torch.cumsum(counts, 0, dtype=torch.int32)])
+    tile_start = torch.minimum(tile_start, torch.clamp_max(total, max_pairs))
+    return _build_group_stream_plain(
+        depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+        x0, x1, y0, y1, touched, ntx=ntx, nty=nty, T=T, tile_w=tile_w,
+        tile_h=tile_h, max_pairs=max_pairs, max_units=max_units,
+        k_rows=group_rows_k(ntx), carry_depth=carry_depth, counts=counts,
+        tile_start=tile_start, total=total, overflow=total > max_pairs)
+
+
+def _bin_group_cuda(depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
+                    rx, ry, alive, *, width, height, tile_w, tile_h,
+                    max_pairs, max_units, cutoff_map, cull_super,
+                    carry_depth) -> TileBinning:
+    """The group stream of CUDA columns through `ops.tile_bin`'s kernels,
+    bit-equal to `group_stream_plain` on the card; serving's cull, where
+    given, is computed here as in the plain route."""
+    from gsrt_torch.ops.tile_bin import bin_group_stream
+    keep = None
+    if cutoff_map is not None:
+        ntx, nty = tile_extent(width, height, tile_w, tile_h)
+        x0, x1, y0, y1, _ = compute_tile_spans(
+            m2x, m2y, rx, ry, alive, width, height, tile_w, tile_h)
+        keep = cutoff_cull(depth, x0, x1, y0, y1, cutoff_map, ntx, nty,
+                           super_size=cull_super).contiguous()
+    cols = (depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb, rx, ry,
+            alive)
+    return bin_group_stream(
+        *(c.contiguous() for c in cols), width=width, height=height,
+        tile_w=tile_w, tile_h=tile_h, max_pairs=max_pairs,
+        max_units=max_units, keep=keep, carry_depth=carry_depth)
+
+
+def _build_group_stream_plain(
     depth, m2x, m2y, qa_c, qb_c, qc_c, opacity, cr, cg, cb,
     x0, x1, y0, y1, touched, *, ntx, nty, T, tile_w, tile_h, max_pairs,
     max_units, k_rows, carry_depth, counts, tile_start, total, overflow,

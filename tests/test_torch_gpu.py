@@ -1176,3 +1176,167 @@ def test_pt_frame_shades_once_a_wave(cuda, monkeypatch):
     assert _kernels.launch_counts()["pt_shade"] == 0
     assert torch.equal(img.view(torch.int32), want.view(torch.int32))
     assert img.std() > 0.05       # the light reached through the bounces
+
+
+# --- the group stream's kernel route (csrc/tile_bin.cu) ---
+
+BIN_W, BIN_H = 1920, 1080
+
+
+def _assert_same_binning(got, want):
+    """Every TileBinning field equal, bit for bit (floats as their bits)."""
+    for f in t_tb.TileBinning._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is None:
+            continue
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), f
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ = int((a != b).sum())
+        assert differ == 0, f"{f}: {differ} entries differ"
+
+
+@pytest.fixture(scope="module")
+def bin_scene():
+    """A 200K-splat seeded cloud at the render cell's scales and three
+    1080p orbit views of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU "
+                    "mode")
+    from gsrt_torch.scene import orbit_path
+    dev = torch.device("cuda")
+    cloud, _ = random_cloud(200_000, seed=11, width=BIN_W, height=BIN_H,
+                            scale_range=(0.004, 0.03), device=dev)
+    cams = orbit_path((0, 0, 6.0), 10.0, 3, height=2.0, width=BIN_W,
+                      height_px=BIN_H, start_deg=200.0, device=dev)
+    return cloud, cams
+
+
+def _bin_columns(cloud, cam, tile):
+    cfg = RenderConfig(width=BIN_W, height=BIN_H, tile_w=tile[0],
+                       tile_h=tile[1])
+    c = t_rt._precompute(cloud, cam, cfg)
+    cols = [c.depth, c.m2x, c.m2y, c.qa, c.qb, c.qc, cloud.opacity, c.cr,
+            c.cg, c.cb, c.rx, c.ry, c.alive]
+    k = t_tb.group_rows_k(t_tb.tile_extent(BIN_W, BIN_H, *tile)[0])
+    pairs, units = t_rt.count_units_numpy(cloud, cam, cfg, k)
+    return cols, pairs, units
+
+
+def _edge_columns(n, seed, device):
+    """Seeded columns of splats off screen, straddling every edge and
+    corner, inside, dead, zero-extent, behind, with colours across both
+    tiers and past them."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)  # noqa
+    m2x = torch.where(torch.rand(n, generator=g) < 0.5, u(-400, 120),
+                      u(BIN_W - 120, BIN_W + 400))
+    m2y = torch.where(torch.rand(n, generator=g) < 0.5, u(-400, 80),
+                      u(BIN_H - 80, BIN_H + 400))
+    inside = torch.rand(n, generator=g) < 0.3
+    m2x = torch.where(inside, u(0, BIN_W), m2x)
+    m2y = torch.where(inside, u(0, BIN_H), m2y)
+    rx, ry = u(-2, 150), u(-2, 150)
+    rx = torch.where(torch.rand(n, generator=g) < 0.05, 0.0, rx)
+    qa, qc = u(1e-4, 2.0), u(1e-4, 2.0)
+    qb = u(-1, 1) * torch.sqrt(qa * qc)
+    cols = [u(-1, 50), m2x, m2y, qa, qb, qc, u(-0.1, 1.1), u(-0.2, 4.5),
+            u(-0.2, 4.5), u(-0.2, 4.5), rx, ry,
+            torch.rand(n, generator=g) < 0.8]
+    return [c.to(device) for c in cols]
+
+
+BIN_CASES = ["orbit0", "orbit1", "orbit2", "pairs_overflow",
+             "units_overflow", "no_live", "edges", "cull", "tiles16x16",
+             "tiles64x16", "tiles16x4", "tiles16x2"]
+
+
+@pytest.mark.parametrize("case", BIN_CASES)
+def test_group_bin_kernels_bitwise(cuda, bin_scene, case):
+    """The kernel route against the plain group route on the card, every
+    TileBinning field bit for bit: three 1080p orbit views of 200K splats,
+    each buffer cut below its need, no live splat, splats off screen and
+    across the edges, serving's cull, and the 16x16 and 64x16 grids,
+    16x4 (270 groups: more keys than bin_units has threads) and 16x2 (a
+    121x541 corner grid, past shared memory: bin_prep keeps it in device
+    memory)."""
+    cloud, cams = bin_scene
+    tile = {"tiles16x16": (16, 16), "tiles64x16": (64, 16),
+            "tiles16x4": (16, 4), "tiles16x2": (16, 2)}.get(case, (32, 16))
+    view = int(case[-1]) if case.startswith("orbit") else 0
+    cols, pairs, units = _bin_columns(cloud, cams[view], tile)
+    if case == "edges":
+        cols = _edge_columns(20_000, 7, cuda)
+        pairs = units = 1 << 21
+    if case == "no_live":
+        cols[12] = torch.zeros_like(cols[12])
+    kw = dict(width=BIN_W, height=BIN_H, tile_w=tile[0], tile_h=tile[1],
+              max_pairs=t_rt.pair_bucket(int(pairs * 1.1)),
+              max_units=t_rt.pair_bucket(int(units * 1.1)),
+              carry_depth=case in ("orbit1", "cull"))
+    if case == "pairs_overflow":
+        kw["max_pairs"] = pairs // 2
+    if case == "units_overflow":
+        kw["max_units"] = units // 2
+    if case == "cull":
+        ntx, nty = t_tb.tile_extent(BIN_W, BIN_H, *tile)
+        gen = torch.Generator().manual_seed(3)
+        kw["cutoff_map"] = (5 + 20 * torch.rand(ntx * nty, generator=gen)
+                            ).to(cuda)
+    before = _kernels.launch_counts()
+    got = t_tb.build_tile_binning(
+        *cols, width=kw["width"], height=kw["height"], tile_w=tile[0],
+        tile_h=tile[1], max_pairs=kw["max_pairs"], max_rows=kw["max_units"],
+        cutoff_map=kw.get("cutoff_map"), carry_depth=kw["carry_depth"])
+    after = _kernels.launch_counts()
+    want = t_tb.group_stream_plain(*cols, **kw)
+    torch.cuda.synchronize()
+    for name in ("bin_prep", "bin_gather", "bin_units",
+                 "expand_pairs_fused", "expand_pairs_binned"):
+        assert after[name] == before[name] + 1, name
+    _assert_same_binning(got, want)
+    total, over = int(want.total_pairs), bool(want.overflow)
+    if case == "no_live":
+        assert total == 0 and not over
+    elif case in ("pairs_overflow", "units_overflow"):
+        assert over
+    else:
+        assert total > 0 and not over
+
+
+def test_group_bin_render_matches_plain_route(cuda, bin_scene, monkeypatch):
+    """A tiled frame through GaussianRayTracer with the kernel route is
+    bit-equal to the frame with the plain group route, and its binning
+    launches bin_prep once and counts group_bin_fused 1 under a recording
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsrt_torch.utils.profiling import TRACER
+    cloud, cams = bin_scene
+    cfg = RenderConfig(width=BIN_W, height=BIN_H)
+    tracer = t_rt.GaussianRayTracer(cfg, "tiled", device=cuda)
+    tracer.calibrate(cloud, cams[0])
+    TRACER.reset()
+    launched = _kernels.BIN_PREP.launches
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            got = tracer(cloud, cams[0])
+        binnings = [s for s in TRACER.report()
+                    if s["name"] == "render.binning"]
+    finally:
+        TRACER.reset()
+    assert _kernels.BIN_PREP.launches == launched + 1
+    assert [s["counters"]["group_bin_fused"] for s in binnings] == [1]
+    monkeypatch.setattr(t_tb, "_bin_group_cuda", t_tb.group_stream_plain)
+    before = _kernels.BIN_PREP.launches
+    want = tracer(cloud, cams[0])
+    torch.cuda.synchronize()
+    assert _kernels.BIN_PREP.launches == before
+    assert not bool(got.overflow) and not bool(want.overflow)
+    for f in ("color", "trans", "hits", "passes"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b), f

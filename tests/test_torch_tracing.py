@@ -140,7 +140,11 @@ def test_spans_record_only_under_a_profiler(kind, scene, tmp_path,
     counted = [(s["counters"]["pairs"], s["counters"]["max_pairs"])
                for s in rep if s["name"] == "render.binning"]
     assert counted == seen and len(seen) == names.count("render.binning")
-    assert all(set(s["counters"]) <= {"pairs", "max_pairs"} for s in rep)
+    # and group_bin_fused on a frame's binning: 1 where the group stream's
+    # kernels built it, so 0 on the CPU
+    assert all(set(s["counters"]) <= {"pairs", "max_pairs",
+                                      "group_bin_fused"} for s in rep)
+    assert all(s["counters"].get("group_bin_fused", 0) == 0 for s in rep)
 
     # the Chrome trace: a user_annotation a span, nested as the spans are
     path = tmp_path / "trace.json"
