@@ -269,8 +269,8 @@ def make_train_step_adaptive(cfg, lambda_ssim: float = 0.2):
 
     def step(params: GaussianParams, optimizer, stats: DensifyStats,
              target, camera):
-        loss = _step(lambda: render_loss(params, target, camera, cfg,
-                                         lambda_ssim), optimizer)
+        loss = _step(lambda _: render_loss(params, target, camera, cfg,
+                                           lambda_ssim), optimizer)
         return accumulate_stats(stats, params), loss
 
     return step

@@ -690,7 +690,10 @@ class GaussianRayTracer:
 
     def __call__(self, cloud: GaussianCloud, camera: Camera) -> RenderOutput:
         with TRACER.span("render.frame", root=True):
-            cloud, camera = cloud.to(self.device), camera.to(self.device)
+            with TRACER.span("render.prepare"):
+                cloud, camera = cloud.to(self.device), camera.to(self.device)
+                if self.mode == "tiled" and self.max_pairs is None:
+                    self.calibrate(cloud, camera)
             if self.mode == "fast":
                 return render_fast(cloud, camera, self.cfg)
             if self.mode == "reference":
@@ -698,8 +701,6 @@ class GaussianRayTracer:
             if self.mode == "traced":
                 return render_traced(cloud, camera, self.cfg,
                                      self.splat_tree(cloud))
-            if self.max_pairs is None:
-                self.calibrate(cloud, camera)
             out = self._render(cloud, camera)
             if self.defer_overflow > 0:
                 self._overflow_pending.append(out.overflow)

@@ -145,11 +145,11 @@ def make_train_step_mv(cfg: RenderConfig, lambda_ssim: float = 0.2,
         nonlocal max_pairs
         camera, target = vs.camera_at(i), vs.images[i]
         if max_pairs is None:
-            loss = _step(lambda: render_loss(params, target, camera, cfg,
-                                             lambda_ssim), optimizer)
+            loss = _step(lambda _: render_loss(params, target, camera,
+                                               cfg, lambda_ssim), optimizer)
             return accumulate_stats(stats, params), loss
-        fn = lambda: render_loss_tiled(params, target, camera, cfg,
-                                       max_pairs, lambda_ssim)
+        fn = lambda stages: render_loss_tiled(params, target, camera, cfg,
+                                              max_pairs, lambda_ssim, stages)
         try:
             loss = _step(fn, optimizer)
         except PairOverflow as e:

@@ -156,11 +156,13 @@ def tiled_blend_diff(cfg: RenderConfig, camera: Camera, max_pairs: int,
 
 
 def render_tiled_diff(cloud: GaussianCloud, camera: Camera,
-                      cfg: RenderConfig, max_pairs: int):
+                      cfg: RenderConfig, max_pairs: int, stages=None):
     """Differentiable tiled render: color [H, W, 3] (plus the white
     background if cfg asks) and trans [H, W], trainable with respect to
     every field of the cloud. Raises when the view needs more than
-    max_pairs pairs."""
+    max_pairs pairs. With `stages` (a traced step's `BackwardStages`) the
+    blend's inputs and outputs are marked: the backward closes its stage
+    at the outputs and opens `train.project_bwd` past the blend."""
     with TRACER.span("render.project"):
         depth, mean2d, quad, in_front, colors = _project_sh(cloud, camera,
                                                             cfg)
@@ -170,10 +172,15 @@ def render_tiled_diff(cloud: GaussianCloud, camera: Camera,
                                         cfg.g_cutoff, opacity=cloud.opacity,
                                         alpha_threshold=cfg.alpha_threshold)
             alive = alive_mask(depth, cloud.opacity, in_front, cfg)
+        cols = (*mean2d.unbind(-1), qa, qb, qc, cloud.opacity,
+                *colors.unbind(-1))
+        if stages is not None:
+            cols = stages.mark("train.project_bwd", *cols)
     core = tiled_blend_diff(cfg, camera, max_pairs, depth.detach(), rx, ry,
                             alive)
-    color, trans = core(*mean2d.unbind(-1), qa, qb, qc, cloud.opacity,
-                        *colors.unbind(-1))
+    color, trans = core(*cols)
+    if stages is not None:
+        color, trans = stages.mark(None, color, trans)
     if cfg.white_background:
         color = color + trans[..., None]
     return color, trans

@@ -43,11 +43,24 @@ class GaussianParams(nn.Module):
         self.opacity_logit = par(opacity_logit)  # [N]
         self.sh = par(sh)                        # [N, K, 3]
 
-    def to_cloud(self) -> GaussianCloud:
-        cov3d = quat_scale_to_cov3d(self.quats, torch.exp(self.log_scales))
-        return GaussianCloud(means=self.means, cov3d=cov3d,
-                             opacity=torch.sigmoid(self.opacity_logit),
-                             sh=self.sh)
+    def to_cloud(self, stages=None) -> GaussianCloud:
+        """The activated cloud. With `stages` (a traced step's
+        `BackwardStages`) the leaves and the cloud's fields are marked, so
+        that the backward of the activations is the stage
+        `train.activate_bwd`."""
+        means, log_scales, quats, opacity_logit, sh = (
+            self.means, self.log_scales, self.quats, self.opacity_logit,
+            self.sh)
+        if stages is not None:
+            means, log_scales, quats, opacity_logit, sh = stages.mark(
+                None, means, log_scales, quats, opacity_logit, sh)
+        cloud = GaussianCloud(
+            means=means, cov3d=quat_scale_to_cov3d(quats,
+                                                   torch.exp(log_scales)),
+            opacity=torch.sigmoid(opacity_logit), sh=sh)
+        if stages is not None:
+            cloud = GaussianCloud(*stages.mark("train.activate_bwd", *cloud))
+        return cloud
 
 
 def init_params(cloud: GaussianCloud) -> GaussianParams:
@@ -121,17 +134,29 @@ def render_loss(params: GaussianParams, target, camera: Camera,
                 cfg: RenderConfig, lambda_ssim: float = 0.2):
     """`image_loss` of `render_fast` (white background, if any, already
     composited)."""
-    out = render_fast(params.to_cloud(), camera, cfg)
-    return image_loss(out.color, target, lambda_ssim)
+    with TRACER.span("train.activate"):
+        cloud = params.to_cloud()
+    out = render_fast(cloud, camera, cfg)
+    with TRACER.span("train.loss"):
+        return image_loss(out.color, target, lambda_ssim)
 
 
 def render_loss_tiled(params: GaussianParams, target, camera: Camera,
                       cfg: RenderConfig, max_pairs: int,
-                      lambda_ssim: float = 0.2):
+                      lambda_ssim: float = 0.2, stages=None):
     """`render_loss` on the tiled path: scales to resolutions and splat
-    counts whose residuals `render_fast` cannot hold."""
-    img, _ = render_tiled_diff(params.to_cloud(), camera, cfg, max_pairs)
-    return image_loss(img, target, lambda_ssim)
+    counts whose residuals `render_fast` cannot hold. With `stages` (a
+    traced step's `BackwardStages`) the backward runs as the stages
+    `train.loss_bwd`, `train.blend_bwd` (the blend's own span),
+    `train.project_bwd` and `train.activate_bwd`."""
+    with TRACER.span("train.activate"):
+        cloud = params.to_cloud(stages)
+    img, _ = render_tiled_diff(cloud, camera, cfg, max_pairs, stages=stages)
+    with TRACER.span("train.loss"):
+        loss = image_loss(img, target, lambda_ssim)
+    if stages is not None:
+        loss, = stages.mark("train.loss_bwd", loss)
+    return loss
 
 
 def make_optimizer(params: GaussianParams, lr_means=1.6e-4, lr_scales=5e-3,
@@ -148,11 +173,18 @@ def make_optimizer(params: GaussianParams, lr_means=1.6e-4, lr_scales=5e-3,
 
 
 def _step(loss_fn, optimizer) -> torch.Tensor:
+    """One step of loss_fn(stages): `stages` is the traced step's
+    `BackwardStages` (None untraced), which the loss may mark."""
     with TRACER.span("train.step", root=True):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn()
+        stages = TRACER.backward_stages()
+        loss = loss_fn(stages)
         with TRACER.span("train.backward"):
-            loss.backward()
+            try:
+                loss.backward()
+            finally:
+                if stages is not None:     # a backward that raised
+                    stages.enter(None)
         with TRACER.span("train.optim"):
             optimizer.step()
     return loss.detach()
@@ -162,8 +194,8 @@ def train_step(params: GaussianParams, optimizer, target, camera: Camera,
                cfg: RenderConfig, lambda_ssim: float = 0.2) -> torch.Tensor:
     """One optimiser step on `render_loss`; updates params and the
     optimiser in place and returns the loss before the step."""
-    return _step(lambda: render_loss(params, target, camera, cfg,
-                                     lambda_ssim), optimizer)
+    return _step(lambda _: render_loss(params, target, camera, cfg,
+                                       lambda_ssim), optimizer)
 
 
 def train_step_tiled(params: GaussianParams, optimizer, target,
@@ -172,9 +204,9 @@ def train_step_tiled(params: GaussianParams, optimizer, target,
     """One optimiser step on `render_loss_tiled`; updates params and the
     optimiser in place and returns the loss before the step. Raises when
     the view needs more than max_pairs pairs."""
-    return _step(lambda: render_loss_tiled(params, target, camera, cfg,
-                                           max_pairs, lambda_ssim),
-                 optimizer)
+    return _step(lambda stages: render_loss_tiled(
+        params, target, camera, cfg, max_pairs, lambda_ssim, stages),
+        optimizer)
 
 
 def make_train_step_dp(cfg: RenderConfig, optimizer, mesh,

@@ -95,17 +95,19 @@ def _serving_step(cloud: GaussianCloud, camera: Camera,
     out, aux = render_tiled(cloud, camera, cfg, max_pairs=max_pairs,
                             cutoff_map=cutoff_map if use_cull else None,
                             serving=True)
-    new_map, violation = update_cutoff_map(
-        aux, out.trans, cutoff_map, width=camera.width,
-        height=camera.height, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
-        bs=cfg.blend_bs, chunk=min(cfg.pair_chunk, 128),  # render_tiled's
-        term_eps=TERM_EPS, margin=margin, floor_pairs=floor_pairs)
-    nviol = violation.sum(dtype=torch.int32) if use_cull else \
-        torch.zeros((), dtype=torch.int32, device=new_map.device)
-    scalars = torch.stack([
-        nviol, aux.tile_count.sum(dtype=torch.int32),
-        out.overflow.to(torch.int32),
-        torch.isfinite(new_map).sum(dtype=torch.int32)])
+    with TRACER.span("serve.cutoff"):
+        new_map, violation = update_cutoff_map(
+            aux, out.trans, cutoff_map, width=camera.width,
+            height=camera.height, tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+            bs=cfg.blend_bs,
+            chunk=min(cfg.pair_chunk, 128),   # render_tiled's
+            term_eps=TERM_EPS, margin=margin, floor_pairs=floor_pairs)
+        nviol = violation.sum(dtype=torch.int32) if use_cull else \
+            torch.zeros((), dtype=torch.int32, device=new_map.device)
+        scalars = torch.stack([
+            nviol, aux.tile_count.sum(dtype=torch.int32),
+            out.overflow.to(torch.int32),
+            torch.isfinite(new_map).sum(dtype=torch.int32)])
     return out, new_map, scalars
 
 
@@ -193,20 +195,21 @@ class ServingRenderer:
 
     def __call__(self, cloud: GaussianCloud, camera: Camera) -> RenderOutput:
         with TRACER.span("serve.frame", root=True):
-            if self.max_pairs is None:
-                self.calibrate(cloud, camera)
-            if self._src is not cloud:
-                self._src, self._cloud = cloud, cloud.to(self.device)
-                self.reset()
-            camera = camera.to(self.device)
-            ntx, nty = tile_extent(camera.width, camera.height,
-                                   self.cfg.tile_w, self.cfg.tile_h)
-            T = ntx * nty
-            if self.cutoff_map is None or self.cutoff_map.shape[0] != T:
-                self.finish()
-                self.cutoff_map = torch.full((T,), float("inf"),
-                                             device=self.device)
-                self._use_cull = False   # an all-inf map culls nothing
+            with TRACER.span("render.prepare"):
+                if self.max_pairs is None:
+                    self.calibrate(cloud, camera)
+                if self._src is not cloud:
+                    self._src, self._cloud = cloud, cloud.to(self.device)
+                    self.reset()
+                camera = camera.to(self.device)
+                ntx, nty = tile_extent(camera.width, camera.height,
+                                       self.cfg.tile_w, self.cfg.tile_h)
+                T = ntx * nty
+                if self.cutoff_map is None or self.cutoff_map.shape[0] != T:
+                    self.finish()
+                    self.cutoff_map = torch.full((T,), float("inf"),
+                                                 device=self.device)
+                    self._use_cull = False   # an all-inf map culls nothing
 
             used_cull = self._use_cull
             out, new_map, scalars = self._step(camera, self.cutoff_map,

@@ -18,9 +18,28 @@ nothing. On, a span records
 
 A span opened with `root=True` outside every other span is a root: one
 item, a frame or a training step. It also counts `device_allocs`, the
-caching allocator's new device allocations over it. `count` attaches an
-int or a 0-d tensor to the innermost open span; a tensor is read only
-in `report()`, so a counter adds no host synchronisation.
+caching allocator's new device allocations over it, read before its
+profiler range opens and after it closes, so that the read stays out of
+the item. `count` attaches an int or a 0-d tensor to the innermost open
+span; a tensor is read only in `report()`, so a counter adds no host
+synchronisation.
+
+`span(name)` is a `with` block. Where a stage starts in one callback and
+ends in a later one, `h = begin(name)` opens the span and `end(h)`
+closes it, on the same thread; spans on one thread nest, so `end` closes
+the innermost span open there. `begin` returns None while no profiler
+records and `end(None)` does nothing, so a profiler that starts between
+the two records nothing of the stage; one that stops between them still
+gets the span closed and recorded, with its events and its host time,
+and its range's end falls outside the profiler's trace.
+
+`backward_stages()` splits an autograd backward into such spans.
+`stages.mark(name, *tensors)` passes the tensors through an identity
+node; autograd runs its backward once the gradients of all of them are
+in, and there it closes the stage span it opened last and opens `name`
+(None: it only closes). A traced training step marks its loss, image,
+projection outputs, cloud and leaves (`models/trainer.py`); while no
+profiler records, `backward_stages()` is None and no node is added.
 """
 
 from __future__ import annotations
@@ -74,11 +93,12 @@ class _Span:
             tm._spans.append(rec)
         stack.append(idx)
         self.rec, self.stack = rec, stack
+        cuda = torch.cuda.is_initialized()
+        if cuda and root == idx:
+            rec.allocs0 = _device_allocs()
         self.fn = torch.profiler.record_function(self.name)
         self.fn.__enter__()
-        if torch.cuda.is_initialized():
-            if root == idx:
-                rec.allocs0 = _device_allocs()
+        if cuda:
             rec.ev0 = torch.cuda.Event(enable_timing=True)
             rec.ev0.record()
         rec.t0 = time.perf_counter()
@@ -89,11 +109,46 @@ class _Span:
             rec.ev1 = torch.cuda.Event(enable_timing=True)
             rec.ev1.record()
         rec.t1 = time.perf_counter()
-        if rec.allocs0 is not None:
-            rec.counters["device_allocs"] = _device_allocs() - rec.allocs0
         self.stack.pop()
         self.fn.__exit__(*exc)
+        if rec.allocs0 is not None:
+            rec.counters["device_allocs"] = _device_allocs() - rec.allocs0
         return False
+
+
+class _StageMark(torch.autograd.Function):
+    """Identity on its tensors. Autograd runs its backward once every
+    output's gradient is in (a gradient never computed is passed on as
+    None), and there it moves `stages` on to the stage `name`."""
+
+    @staticmethod
+    def forward(ctx, stages, name, *xs):
+        ctx.stages, ctx.name = stages, name
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.stages.enter(ctx.name)
+        return (None, None, *grads)
+
+
+class BackwardStages:
+    """The stage spans of one backward pass (`StageTimer.backward_stages`):
+    at most one open at a time, on the thread that runs the backward."""
+
+    def __init__(self, timer):
+        self.timer, self.open = timer, None
+
+    def mark(self, name, *tensors) -> tuple:
+        """The tensors, through a node whose backward ends the open stage
+        and opens `name` (None: none)."""
+        return _StageMark.apply(self, name, *tensors)
+
+    def enter(self, name) -> None:
+        """End the open stage span, if any, and open one named `name`."""
+        self.timer.end(self.open)
+        self.open = None if name is None else self.timer.begin(name)
 
 
 class StageTimer:
@@ -119,6 +174,25 @@ class StageTimer:
         if not _profiling():
             return _OFF
         return _Span(self, name, root)
+
+    def begin(self, name: str):
+        """Open a span named `name` for `end` to close later on this
+        thread; None while no profiler records."""
+        if not _profiling():
+            return None
+        s = _Span(self, name, False)
+        s.__enter__()
+        return s
+
+    def end(self, handle) -> None:
+        """Close a span that `begin` opened (nothing for None)."""
+        if handle is not None:
+            handle.__exit__(None, None, None)
+
+    def backward_stages(self):
+        """A `BackwardStages` for one backward pass while a profiler
+        records, else None."""
+        return BackwardStages(self) if _profiling() else None
 
     def recording(self) -> bool:
         """Whether spans and counters record now: a caller whose counter

@@ -557,6 +557,59 @@ def test_tiled_diff_gradients_cuda_match_cpu(cuda):
         assert ((g - w).abs().max().item() / scale) <= 1e-3, name
 
 
+def test_traced_train_step_splits_the_backward(cuda, tmp_path):
+    """A CUDA `train_step_tiled` under a recording profiler: its four
+    backward stages open on autograd's device thread (their ranges on
+    another thread than the step's) as children of `train.backward`, in
+    order, each with device ms > 0 and together at most the backward's;
+    the loss and the parameters bit-equal to an untraced step's."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsrt_torch.utils.profiling import TRACER
+    W, H = 160, 96
+    cfg = RenderConfig(width=W, height=H)
+    cloud, cam = random_cloud(2000, seed=3, width=W, height=H, device=cuda)
+    target = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(0)
+                        ).to(cuda)
+    stages = ["train.loss_bwd", "train.blend_bwd", "train.project_bwd",
+              "train.activate_bwd"]
+
+    def step():
+        params = t_tr.init_params(cloud)
+        opt = t_tr.make_optimizer(params)
+        loss = t_tr.train_step_tiled(params, opt, target, cam, cfg, 1 << 17)
+        return [loss] + [p.detach().clone() for p in params.parameters()]
+
+    off = step()
+    TRACER.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            on = step()
+        rep = TRACER.report()
+    finally:
+        TRACER.reset()
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+    back = [i for i, s in enumerate(rep) if s["name"] == "train.backward"]
+    assert len(back) == 1
+    kids = [s for s in rep if s["parent"] == back[0]]
+    assert [s["name"] for s in kids] == stages
+    assert all(s["device_ms"] > 0 for s in kids)
+    assert sum(s["device_ms"] for s in kids) <= rep[back[0]]["device_ms"]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    tids = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "user_annotation":
+            tids.setdefault(e["name"], set()).add(e.get("tid"))
+    step_tid = tids["train.step"]
+    for name in stages:
+        assert tids[name].isdisjoint(step_tid), name
+
+
 def _tri_soup(n, seed, spread=2.0, size=0.6):
     rng = np.random.default_rng(seed)
     c = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)

@@ -404,8 +404,8 @@ def test_traced_mode_matches_trace_gaussian_rays():
 
 def test_traced_mode_records_its_spans():
     """Under a recording profiler a traced frame's root `render.frame`
-    holds `rt.build` (first frame only), `rt.rays`, `rt.colors` and
-    `rt.trace`."""
+    holds `render.prepare`, `rt.build` (first frame only), `rt.rays`,
+    `rt.colors` and `rt.trace`."""
     from torch.profiler import ProfilerActivity, profile
     c, cam = random_cloud(200, seed=6, extent=1.0, width=8, height=8,
                           device="cpu")
@@ -421,8 +421,9 @@ def test_traced_mode_records_its_spans():
     assert [rep[i]["name"] for i in roots] == ["render.frame"] * 2
     names = [[s["name"] for s in rep if s["root"] == r and s["parent"] == r]
              for r in roots]
-    assert names == [["rt.build", "rt.rays", "rt.colors", "rt.trace"],
-                     ["rt.rays", "rt.colors", "rt.trace"]]
+    assert names == [["render.prepare", "rt.build", "rt.rays", "rt.colors",
+                      "rt.trace"],
+                     ["render.prepare", "rt.rays", "rt.colors", "rt.trace"]]
 
 
 def test_cli_render_traced(tmp_path, capsys):

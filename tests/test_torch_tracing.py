@@ -33,19 +33,26 @@ MP = 1 << 13
 TILES = dict(width=W, height=H, tile_w=16, tile_h=16)
 PROJECT_BIN_BLEND = ["render.project", "render.binning", "render.blend"]
 
+BACKWARD_STAGES = ["train.loss_bwd", "train.blend_bwd", "train.project_bwd",
+                   "train.activate_bwd"]
+
 # (name, parent's name) of every span an item records, in opening order
 TREES = {
     "render": [("render.frame", None)]
-    + [(n, "render.frame") for n in PROJECT_BIN_BLEND + ["render.sync"]],
+    + [(n, "render.frame") for n in ["render.prepare"] + PROJECT_BIN_BLEND
+       + ["render.sync"]],
     "serve": [("serve.frame", None)]
-    + [(n, "serve.frame") for n in PROJECT_BIN_BLEND
-       + ["serve.sync", "serve.rerender"]]
-    + [(n, "serve.rerender") for n in PROJECT_BIN_BLEND + ["serve.sync"]],
+    + [(n, "serve.frame") for n in ["render.prepare"] + PROJECT_BIN_BLEND
+       + ["serve.cutoff", "serve.sync", "serve.rerender"]]
+    + [(n, "serve.rerender") for n in PROJECT_BIN_BLEND
+       + ["serve.cutoff", "serve.sync"]],
     "train": [("train.step", None)]
-    + [(n, "train.step") for n in ("render.project", "render.binning",
-                                   "train.sync", "render.blend",
+    + [(n, "train.step") for n in ("train.activate", "render.project",
+                                   "render.binning", "train.sync",
+                                   "render.blend", "train.loss",
                                    "train.backward")]
-    + [("train.blend_bwd", "train.backward"), ("train.optim", "train.step")],
+    + [(n, "train.backward") for n in BACKWARD_STAGES]
+    + [("train.optim", "train.step")],
 }
 
 
@@ -196,3 +203,119 @@ def test_span_off_is_the_shared_null_context():
     assert TRACER.span("render.frame", root=True) is profiling._OFF
     TRACER.count(pairs=1)
     assert TRACER.report() == []
+
+
+def _stage_marks(loss) -> tuple[int, int]:
+    """(stage marks, all nodes) in the autograd graph behind `loss`."""
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        f = todo.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        todo.extend(g for g, _ in f.next_functions)
+    marks = sum(type(f).__name__ == "_StageMarkBackward" for f in seen)
+    return marks, len(seen)
+
+
+def test_untraced_step_builds_no_stage_mark(scene, monkeypatch):
+    # the loss each step's backward ran from, and the stages it was given
+    got = []
+    loss_fn = trainer.render_loss_tiled
+
+    def keep(*args, **kw):
+        loss = loss_fn(*args, **kw)
+        got.append((args[6], loss))
+        return loss
+    monkeypatch.setattr(trainer, "render_loss_tiled", keep)
+    off = _item("train", scene)()
+    on_call = _item("train", scene)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = on_call()
+    (s_off, l_off), (s_on, l_on) = got
+    assert s_off is None and s_on is not None
+    marks_off, nodes_off = _stage_marks(l_off)
+    marks_on, nodes_on = _stage_marks(l_on)
+    # untraced: no mark and no hook; traced: the same graph and five marks
+    # (loss, image, projection outputs, cloud, leaves)
+    assert marks_off == 0 and l_off._backward_hooks is None
+    assert marks_on == 5 and nodes_on == nodes_off + 5
+    assert s_on.open is None        # the last mark closed its stage
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_backward_stages_run_one_after_another(scene, tmp_path):
+    call = _item("train", scene)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    rep = TRACER.report()
+    back = [i for i, s in enumerate(rep) if s["name"] == "train.backward"]
+    assert len(back) == 1
+    stages = [s for s in rep if s["parent"] == back[0]]
+    assert [s["name"] for s in stages] == BACKWARD_STAGES
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"])
+              for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e["name"] in set(BACKWARD_STAGES) | {"train.backward"}}
+    b0, b1 = ranges["train.backward"]
+    order = [ranges[n] for n in BACKWARD_STAGES]
+    assert all(b0 <= t0 <= t1 <= b1 for t0, t1 in order)
+    assert all(a[1] <= b[0] for a, b in zip(order, order[1:]))
+    assert sum(s["host_ms"] for s in stages) <= rep[back[0]]["host_ms"]
+
+
+def test_begin_and_end_close_a_span_in_a_later_call():
+    # no profiler at begin: nothing is opened, and end(None) does nothing
+    h = TRACER.begin("stage")
+    assert h is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        TRACER.end(h)
+    assert TRACER.report() == []
+    # a profiler that stops between the two: the span is still closed
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    with TRACER.span("item", root=True):
+        h = TRACER.begin("stage")
+        prof.stop()
+        TRACER.end(h)
+        with TRACER.span("after"):
+            pass
+    rep = TRACER.report()
+    assert [(s["name"], s["parent"], s["root"]) for s in rep] == [
+        ("item", None, 0), ("stage", 0, 0)]
+    assert all(s["host_ms"] is not None for s in rep)
+
+
+class _Fails(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("backward failed")
+
+
+def test_a_backward_that_raises_leaves_no_stage_open(monkeypatch):
+    monkeypatch.setattr(profiling, "_profiling", lambda: True)
+    x = torch.ones(3, requires_grad=True)
+    opt = torch.optim.SGD([x], lr=0.1)
+
+    def loss_fn(stages):
+        y, = stages.mark(None, x)
+        loss, = stages.mark("stage.a", (_Fails.apply(y) * 2).sum())
+        return loss
+    with pytest.raises(RuntimeError, match="backward failed"):
+        trainer._step(loss_fn, opt)
+    with TRACER.span("next", root=True):
+        pass
+    rep = TRACER.report()
+    names = [s["name"] for s in rep]
+    assert [(n, None if s["parent"] is None else names[s["parent"]])
+            for n, s in zip(names, rep)] == [
+        ("train.step", None), ("train.backward", "train.step"),
+        ("stage.a", "train.backward"), ("next", None)]
+    assert all(s["host_ms"] is not None for s in rep)

@@ -26,12 +26,14 @@ its last line (and writes it to PATH with --json):
   (host wait), inside a layer span (launch idle, by the innermost), in a
   root outside its layers, or outside every root; `gaps`, the longest
   gaps with the innermost host range of any kind (as the ledger names
-  them) and the innermost program span.
+  them) and the innermost program span; `unspanned`, the roots' device
+  ms an item in no leaf span (`benchmark/span_cover.py`).
 
 With `--cost BLOCKS` it measures instead what the program's spans cost
 while a profiler records: the cell's items in one process, in blocks of
 8 under a recording profiler, alternating spans on and forced off
-(`span_cost`), and prints the latency of each.
+(`span_cost`), and prints the latency of each, and the host µs of the
+tracer's own bookkeeping (`bookkeeping_cost`).
 
 Needs one CUDA card.
 """
@@ -174,6 +176,29 @@ def span_cost(harness, torch, workload: str, seed: int, blocks: int,
             for mode, v in lat.items()}
 
 
+def bookkeeping_cost(torch, n: int = 2000) -> dict:
+    """Host µs, mean over n calls on one card, of what a span does besides
+    its range: a root's read of the allocator's statistics
+    (`_device_allocs`), and the creation and record of one CUDA event (a
+    span makes two)."""
+    import time
+    from gsrt_torch.utils import profiling
+    out = {}
+    for name, fn in (
+            ("device_allocs_us", profiling._device_allocs),
+            ("event_us", lambda: torch.cuda.Event(enable_timing=True)
+             .record())):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -199,7 +224,8 @@ def main(argv=None) -> int:
         torch.cuda.set_device(0)
         out = dict(workload=args.workload, seed=args.seed,
                    cost=span_cost(harness, torch, args.workload, args.seed,
-                                  args.cost, 8))
+                                  args.cost, 8),
+                   bookkeeping=bookkeeping_cost(torch))
         print(json.dumps(out), flush=True)
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
@@ -255,7 +281,9 @@ def main(argv=None) -> int:
     report = TRACER.report() if TRACER is not None else []
     items = sum(1 for i, s in enumerate(report) if s["root"] == i)
     if items:
+        from benchmark.span_cover import unspanned
         out.update(tree(report, items))
+        out["unspanned"] = round(unspanned(report) / items, 4)
         out.update(split(kept.get("events", []), report, items))
         out["items"] = items
     line = json.dumps(out)
